@@ -1,0 +1,132 @@
+"""The code predictor: the 5-layer MTP transformer emitting codebooks 1..15.
+
+Port of ``qwen3tts_tpu/models/predictor.py:predict_frame`` on its default
+path: a 2-token prefill, then one single-token step per remaining codebook
+over a 17-slot cache, with one LM head and one sample per codebook.  The
+predictor (head_dim 64) uses the plain masked attention, as in the JAX
+package, which passes it no flash context.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.config import PredictorConfig
+from ..ops.rope import mrope_cos_sin
+from ..ops.sampling import sample_logits
+from .layers import (
+    BlockSpec,
+    decode_mask,
+    init_block_stack,
+    init_kv_cache,
+    prefill_mask,
+    randn,
+    rms_norm,
+    stack_forward,
+)
+
+Params = Dict
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingPolicy:
+    """Predictor sampling policy (defaults mirror the JAX package)."""
+
+    do_sample: bool = True
+    top_k: int = 50
+    top_p: float = 1.0
+    temperature: float = 0.9
+
+
+def block_spec(cfg: PredictorConfig) -> BlockSpec:
+    return BlockSpec(
+        num_layers=cfg.num_hidden_layers,
+        hidden_size=cfg.hidden_size,
+        num_heads=cfg.num_attention_heads,
+        num_kv_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim,
+        intermediate_size=cfg.intermediate_size,
+        rms_norm_eps=cfg.rms_norm_eps,
+    )
+
+
+def init_params(gen: torch.Generator, cfg: PredictorConfig, talker_hidden: int,
+                dtype, device) -> Params:
+    Hp, CB, NC = cfg.hidden_size, cfg.codebook_size, cfg.num_codebooks
+    return {
+        "small_to_mtp": {
+            "w": randn(gen, (talker_hidden, Hp), talker_hidden ** -0.5, dtype, device),
+            "b": torch.zeros((Hp,), dtype=dtype, device=device),
+        },
+        "blocks": init_block_stack(gen, block_spec(cfg), dtype, device),
+        "final_norm": torch.ones((Hp,), dtype=dtype, device=device),
+        "lm_heads": randn(gen, (NC, Hp, CB), Hp ** -0.5, dtype, device),
+        "codec_embeddings": randn(gen, (NC, CB, talker_hidden), 0.02, dtype, device),
+    }
+
+
+def _proj(params: Params, x: torch.Tensor) -> torch.Tensor:
+    p = params["small_to_mtp"]
+    return x @ p["w"] + p["b"]
+
+
+def _rope(cfg: PredictorConfig, pos_1d: torch.Tensor):
+    return mrope_cos_sin(pos_1d, cfg.head_dim, cfg.rope_theta, None)
+
+
+def predict_frame(
+    params: Params,
+    cfg: PredictorConfig,
+    pred_input: torch.Tensor,  # [B, 2, H_talker] = cat(past_hidden, token0_embed)
+    generator: Optional[torch.Generator],
+    policy: SamplingPolicy,
+    layers: Optional[Sequence[Params]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the 15-codebook frame.  Returns (tokens [B, 15] int64, embed_sum
+    [B, 1, H_talker]) with embed_sum = sum_i codec_embeddings[i][tokens_i]."""
+    B = pred_input.shape[0]
+    dev = pred_input.device
+    spec = block_spec(cfg)
+    S = cfg.max_seq
+    layers = layers if layers is not None else params["blocks"]
+    kv = init_kv_cache(spec, B, S, pred_input.dtype, dev)
+    zero_pad = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def sample(logits):
+        return sample_logits(generator, logits, temperature=policy.temperature,
+                             top_k=policy.top_k, top_p=policy.top_p,
+                             do_sample=policy.do_sample)
+
+    # prefill: 2 tokens, local [B, 2, 2] mask
+    h = _proj(params, pred_input)
+    cos, sin = _rope(cfg, torch.arange(2, device=dev).expand(B, 2))
+    m = prefill_mask(2, 2, zero_pad, cfg.sliding_window)
+    h, kv = stack_forward(layers, h, cos, sin, kv, 0, m, spec)
+    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    tok = sample((h[:, -1, :] @ params["lm_heads"][0]).float())
+    toks = [tok]
+
+    for cb in range(1, cfg.num_codebooks):
+        x = _proj(params, params["codec_embeddings"][cb - 1][tok])[:, None, :]
+        pos = cb + 1  # cache slot 2 + (cb - 1)
+        cos, sin = _rope(cfg, torch.full((B, 1), pos, device=dev))
+        m_d = decode_mask(S, pos, zero_pad,
+                          cfg.sliding_window)
+        x, kv = stack_forward(layers, x, cos, sin, kv, pos, m_d, spec)
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        tok = sample((x[:, -1, :] @ params["lm_heads"][cb]).float())
+        toks.append(tok)
+
+    tokens = torch.stack(toks, dim=1)  # [B, 15]
+    return tokens, embed_sum_for(params, tokens, pred_input.dtype)
+
+
+def embed_sum_for(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """sum_i codec_embeddings[i][tokens_i] for a [B, 15] frame, summed in
+    float32 -> [B, 1, H_talker] in ``dtype``."""
+    table = params["codec_embeddings"]  # [15, CB, Ht]
+    cb = torch.arange(table.shape[0], device=tokens.device)
+    rows = table[cb[None, :], tokens]  # [B, 15, Ht]
+    return rows.float().sum(dim=1).to(dtype)[:, None, :]

@@ -1,0 +1,141 @@
+"""The talker: a Qwen3-style decoder emitting codec codebook 0.
+
+Port of ``qwen3tts_tpu/models/talker.py``: codec/text embeddings, the
+speaker projection, the stacked decoder blocks with MRoPE-3 + GQA, and the
+codec head.  Prefill writes straight into the static KV cache; decode masks
+and RoPE positions derive from (pos, pad_count) device tensors.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.config import TalkerConfig
+from ..ops.rope import mrope_cos_sin
+from .layers import (
+    BlockSpec,
+    decode_mask,
+    init_block_stack,
+    init_kv_cache,
+    prefill_mask,
+    randn,
+    rms_norm,
+    stack_forward,
+)
+
+Params = Dict
+
+
+def block_spec(cfg: TalkerConfig) -> BlockSpec:
+    return BlockSpec(
+        num_layers=cfg.num_hidden_layers,
+        hidden_size=cfg.hidden_size,
+        num_heads=cfg.num_attention_heads,
+        num_kv_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim,
+        intermediate_size=cfg.intermediate_size,
+        rms_norm_eps=cfg.rms_norm_eps,
+    )
+
+
+def layer_sliding_flags(cfg: TalkerConfig) -> List[bool]:
+    return [cfg.layer_is_sliding(i) for i in range(cfg.num_hidden_layers)]
+
+
+def init_params(gen: torch.Generator, cfg: TalkerConfig, dtype, device) -> Params:
+    """Random talker parameters with the JAX initialisers' shapes and scales."""
+    H, V = cfg.hidden_size, cfg.vocab_size
+    zeros = dict(dtype=dtype, device=device)
+    return {
+        "codec_embedding": randn(gen, (V, H), 0.02, dtype, device),
+        "text_embedding": randn(gen, (cfg.text_vocab_size, cfg.text_hidden_size),
+                                0.02, dtype, device),
+        "text_projection": {
+            "w": randn(gen, (cfg.text_hidden_size, H), cfg.text_hidden_size ** -0.5,
+                       dtype, device),
+            "b": torch.zeros((H,), **zeros),
+        },
+        "blocks": init_block_stack(gen, block_spec(cfg), dtype, device),
+        "final_norm": torch.ones((H,), **zeros),
+        "codec_head": randn(gen, (H, V), H ** -0.5, dtype, device),
+        "spk_proj": {
+            "w": randn(gen, (cfg.speaker_embed_dim, H), cfg.speaker_embed_dim ** -0.5,
+                       dtype, device),
+            "b": torch.zeros((H,), **zeros),
+        },
+    }
+
+
+def new_kv_cache(cfg: TalkerConfig, batch: int, max_len: int, dtype, device):
+    return init_kv_cache(block_spec(cfg), batch, max_len, dtype, device)
+
+
+def embed_codec(params: Params, ids: torch.Tensor) -> torch.Tensor:
+    return params["codec_embedding"][ids]
+
+
+def codec_head(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    return (hidden @ params["codec_head"]).float()
+
+
+def _positions(cfg: TalkerConfig, pos_1d: torch.Tensor):
+    """pos_1d: [B, T] effective (pad-corrected) positions -> MRoPE cos/sin."""
+    pos3 = pos_1d.unsqueeze(0).expand(3, *pos_1d.shape)
+    return mrope_cos_sin(pos3, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
+
+
+def prefill(
+    params: Params,
+    cfg: TalkerConfig,
+    inputs_embeds: torch.Tensor,  # [B, T, H]
+    pad_count: torch.Tensor,  # [B] int32 left pads
+    kv: Params,  # static cache [L, B, S, KVH, D], written in place from slot 0
+    layers: Optional[Sequence[Params]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """Full-sequence prefill.  Returns (last_hidden [B,1,H], logits [B,V], kv)."""
+    B, T, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    eff = torch.arange(T, device=dev)[None, :] - pad_count.reshape(-1, 1).long()
+    cos, sin = _positions(cfg, eff.clamp_min(0))
+    m_full = prefill_mask(T, T, pad_count)
+    m_slide = (prefill_mask(T, T, pad_count, cfg.sliding_window)
+               if cfg.sliding_window is not None else None)
+    x, kv = stack_forward(
+        layers if layers is not None else params["blocks"], inputs_embeds, cos, sin,
+        kv, 0, m_full, block_spec(cfg), mask_sliding=m_slide,
+        layer_is_sliding=layer_sliding_flags(cfg) if m_slide is not None else None)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last = x[:, -1:, :]
+    return last, codec_head(params, last[:, 0, :]), kv
+
+
+def decode_step(
+    params: Params,
+    cfg: TalkerConfig,
+    x: torch.Tensor,  # [B, 1, H]
+    pos: torch.Tensor,  # int32 device tensor, one element: the slot to write
+    pad_count: torch.Tensor,  # [B] int32
+    kv: Params,
+    use_flash: bool = False,
+    layers: Optional[Sequence[Params]] = None,
+) -> Tuple[torch.Tensor, Params]:
+    """Single-token decode over the static cache.  Returns (hidden [B,1,H], kv).
+    RoPE position is ``pos - pad_count``."""
+    S = kv["k"].shape[2]
+    eff = (pos.reshape(1) - pad_count).reshape(-1, 1)
+    cos, sin = _positions(cfg, eff)
+    flash_ctx = None
+    m_full = m_slide = None
+    if use_flash:
+        flash_ctx = {"pos": pos, "pad": pad_count, "window": cfg.sliding_window}
+    else:
+        m_full = decode_mask(S, pos, pad_count)
+        if cfg.sliding_window is not None:
+            m_slide = decode_mask(S, pos, pad_count, cfg.sliding_window)
+    sliding = layer_sliding_flags(cfg) if cfg.sliding_window is not None else None
+    x, kv = stack_forward(
+        layers if layers is not None else params["blocks"], x, cos, sin, kv, pos,
+        m_full, block_spec(cfg), mask_sliding=m_slide,
+        layer_is_sliding=sliding, flash_ctx=flash_ctx)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv

@@ -1,0 +1,164 @@
+"""The PyTorch port's voice-clone slice as a whole.
+
+- The port's Engine with greedy talker and predictor, through prefill and
+  three chunks of 8, gives exactly the JAX Engine's tokens on ``tiny``
+  float32 (weights through ``bundle_from_jax_numpy``).
+- FasterQwen3TTS (``random:tiny``, CPU) returns steps x samples-per-frame
+  audio, streaming and not.
+- A subprocess that cannot import JAX or the JAX package imports
+  qwen3tts_tpu_torch and runs one tiny generation.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from qwen3tts_tpu.models.predictor import SamplingPolicy as JSamplingPolicy  # noqa: E402
+from qwen3tts_tpu.runtime.engine import Engine as JEngine  # noqa: E402
+from qwen3tts_tpu.runtime.engine import GenerationPolicy as JGenerationPolicy  # noqa: E402
+from qwen3tts_tpu_torch import FasterQwen3TTS  # noqa: E402
+from qwen3tts_tpu_torch.core.loader import bundle_from_jax_numpy  # noqa: E402
+from qwen3tts_tpu_torch.core.presets import get_preset  # noqa: E402
+from qwen3tts_tpu_torch.models.predictor import SamplingPolicy  # noqa: E402
+from qwen3tts_tpu_torch.runtime.engine import Engine, GenerationPolicy, bucket_for  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_greedy_engine_tokens_equal_jax(tiny_cfg, tiny_models):
+    tp, pp = tiny_models
+    rng = np.random.default_rng(0)
+    H = tiny_cfg.talker.hidden_size
+    embeds = rng.standard_normal((1, 10, H)).astype(np.float32) * 0.1
+    tth = rng.standard_normal((1, 5, H)).astype(np.float32) * 0.1
+    tpe = rng.standard_normal((1, 1, H)).astype(np.float32) * 0.1
+
+    jeng = JEngine(tp, pp, tiny_cfg, max_seq_len=64)
+    jpol, jppol = JGenerationPolicy(do_sample=False), JSamplingPolicy(do_sample=False)
+    jstate = jeng.prefill(embeds, jax.random.PRNGKey(0), jpol, jppol)
+    want = [np.asarray(jstate["token"])]
+    for _ in range(3):
+        jstate, frames, n, lens, done = jeng.decode_chunk(
+            jstate, jax.numpy.asarray(tth), 5, jax.numpy.asarray(tpe), jpol, jppol, 8)
+        want.append(np.asarray(frames)[0, : int(np.asarray(lens)[0])])
+
+    cfg = get_preset("tiny")
+    params = bundle_from_jax_numpy({"talker": jax.tree.map(np.asarray, tp),
+                                    "predictor": jax.tree.map(np.asarray, pp)},
+                                   cfg, torch.float32, "cpu")
+    eng = Engine(params["talker"], params["predictor"], cfg, max_seq_len=64)
+    assert eng.use_flash_decode  # CPU: the flash wrapper's plain version
+    state = eng.prefill(embeds, None, GenerationPolicy(do_sample=False),
+                        SamplingPolicy(do_sample=False))
+    got = [state["token"].numpy()]
+    for _ in range(3):
+        state, frames, n, lens, done = eng.decode_chunk(
+            state, torch.from_numpy(tth), 5, torch.from_numpy(tpe), 8)
+        got.append(frames[0, : int(lens[0])].numpy())
+    assert sum(len(g) for g in got[1:]) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_prefill_rejects_over_long_prompt(tiny_cfg):
+    with pytest.raises(ValueError, match="max bucket"):
+        bucket_for(4096)
+    cfg = get_preset("tiny")
+    m = FasterQwen3TTS.from_pretrained("random:tiny", device="cpu")
+    with pytest.raises(ValueError, match="exceeds max_seq_len"):
+        Engine(m.params["talker"], m.params["predictor"], cfg, max_seq_len=64).prefill(
+            np.zeros((1, 70, cfg.talker.hidden_size), np.float32), None, GenerationPolicy())
+
+
+@pytest.fixture(scope="module")
+def tiny_port():
+    return FasterQwen3TTS.from_pretrained("random:tiny", device="cpu")
+
+
+@pytest.fixture()
+def ref_wav_path(tmp_path):
+    from qwen3tts_tpu_torch.audio.wav import write_wav
+
+    t = np.linspace(0, 1.0, 24_000, dtype=np.float32)
+    path = tmp_path / "ref.wav"
+    write_wav(path, (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32), 24_000)
+    return str(path)
+
+
+@pytest.mark.parametrize("steps,chunk", [(16, 8), (13, 4)])
+def test_api_streaming_audio_length(tiny_port, ref_wav_path, steps, chunk):
+    spf = tiny_port.vocoder.spf
+    out = list(tiny_port.generate_voice_clone_streaming(
+        "hello there", "English", ref_wav_path, "", max_new_tokens=steps,
+        min_new_tokens=steps, chunk_size=chunk))
+    assert len(out) == -(-steps // chunk)
+    audio = np.concatenate([a for a, _, _ in out])
+    assert audio.shape == (steps * spf,)
+    assert np.isfinite(audio).all() and np.abs(audio).max() <= 1.0
+    assert out[-1][2]["is_final"] and out[-1][2]["total_steps_so_far"] == steps
+    assert set(out[0][2]) == {"chunk_index", "chunk_steps", "prefill_ms", "decode_ms",
+                              "total_steps_so_far", "is_final"}
+
+
+def test_api_non_streaming_audio_length(tiny_port, ref_wav_path):
+    wavs, sr = tiny_port.generate_voice_clone(
+        "hello there", "English", ref_wav_path, "", max_new_tokens=12, min_new_tokens=12)
+    assert sr == 24_000 and wavs[0].shape == (12 * tiny_port.vocoder.spf,)
+    with pytest.raises(NotImplementedError):
+        tiny_port.generate_voice_clone("x", "English", ref_wav_path, "ref", xvec_only=False)
+
+
+def test_chunk_vocode_pcm16_matches_f32(tiny_port):
+    eng, voc = tiny_port.engine, tiny_port.vocoder
+    H = tiny_port.cfg.talker.hidden_size
+    rng = np.random.default_rng(6)
+    embeds = rng.standard_normal((1, 8, H)).astype(np.float32) * 0.1
+    tpe = torch.zeros((1, 1, H))
+    outs = {}
+    for pcm16 in (False, True):
+        state = eng.prefill(embeds, None, GenerationPolicy(do_sample=False, min_new_tokens=99),
+                            SamplingPolicy(do_sample=False))
+        out = eng.chunk_vocode(voc, state, tpe, 1, tpe, 8, voc.stream_state(), pcm16=pcm16)
+        outs[pcm16] = (out[1].numpy(), out[5].numpy())
+    np.testing.assert_array_equal(outs[False][0], outs[True][0])
+    assert outs[True][1].dtype == np.int16
+    np.testing.assert_allclose(outs[True][1].astype(np.float32) / 32767.0,
+                               np.clip(outs[False][1], -1, 1), atol=1.0 / 32767)
+
+
+def test_package_runs_without_jax(tmp_path):
+    script = textwrap.dedent("""
+        import importlib.abc, sys
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "qwen3tts_tpu"):
+                    raise ImportError("blocked: " + name)
+
+        # scipy probes sys.modules for jax, so block at import time rather
+        # than by planting None in sys.modules
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        from qwen3tts_tpu_torch import FasterQwen3TTS
+        from qwen3tts_tpu_torch.audio.wav import write_wav
+
+        write_wav(sys.argv[1], (0.2 * np.sin(np.arange(16000) / 9)).astype(np.float32), 16000)
+        m = FasterQwen3TTS.from_pretrained("random:tiny", device="cpu")
+        wavs, sr = m.generate_voice_clone("hi", "English", sys.argv[1], "",
+                                          max_new_tokens=4, min_new_tokens=4)
+        assert wavs[0].shape == (4 * m.vocoder.spf,), wavs[0].shape
+        assert not any(k.split(".")[0] in ("jax", "qwen3tts_tpu") for k in sys.modules)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path / "r.wav")],
+                          capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr
