@@ -3,8 +3,10 @@
 Port of ``qwen3tts_tpu/api/model.py`` for x-vector voice clone:
 ``from_pretrained("random:<preset>", device=..., dtype=...)``,
 ``generate_voice_clone`` and ``generate_voice_clone_streaming`` with the JAX
-class's signatures and defaults.  ICL clone (``xvec_only=False``), custom
-voice, voice design, batching and the parity loops are not ported yet.
+class's signatures and defaults, including ``quantize="int8" |
+"int8-talker" | "int8-predictor"`` (int8 weight-only) and ``kv_quant=True``
+(int8 KV cache).  ICL clone (``xvec_only=False``), custom voice, voice
+design, batching, the parity loops and the w8a8 modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from ..core.config import DTYPES, TTSModelConfig
 from ..core.loader import load_pretrained
 from ..models import speaker as speaker_lib
 from ..models.predictor import SamplingPolicy
+from ..ops.quant import quantize_bundle
 from ..runtime import loops
 from ..runtime.engine import Engine, GenerationPolicy
 from .prompt import PromptBuilder
@@ -38,14 +41,16 @@ class FasterQwen3TTS:
 
     def __init__(self, cfg: TTSModelConfig, params: Dict, *, max_seq_len: int = 2048,
                  seed: int = 0, tokenizer_json: Optional[str] = None,
-                 vocoder_compute_dtype: Optional[torch.dtype] = torch.bfloat16):
+                 vocoder_compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+                 kv_quant: bool = False):
         self.cfg = cfg
         self.params = params
         self.max_seq_len = max_seq_len
         self.device = params["talker"]["codec_embedding"].device
         self.dtype = cfg.torch_dtype
+        self.kv_quant = kv_quant
         self.engine = Engine(params["talker"], params["predictor"], cfg,
-                             max_seq_len=max_seq_len)
+                             max_seq_len=max_seq_len, kv_quant=kv_quant)
         self.vocoder = Vocoder(params["codec"], cfg.codec,
                                compute_dtype=vocoder_compute_dtype)
         self.prompt_builder = PromptBuilder(params["talker"], params["predictor"], cfg)
@@ -60,18 +65,28 @@ class FasterQwen3TTS:
     @classmethod
     def from_pretrained(cls, model_name: str, device: Union[str, torch.device, None] = None,
                         dtype: Union[str, torch.dtype, None] = None,
-                        max_seq_len: int = 2048, seed: int = 0) -> "FasterQwen3TTS":
+                        max_seq_len: int = 2048, seed: int = 0,
+                        quantize: Optional[str] = None,
+                        kv_quant: bool = False) -> "FasterQwen3TTS":
         """Build a model from 'random:<preset>' on ``device`` (default: the
         card when there is one).  ``dtype`` names the talker/predictor dtype
         ("bfloat16", "float32", ...); the codec and speaker encoder stay
-        float32, and the codec computes in bfloat16."""
+        float32, and the codec computes in bfloat16.
+
+        ``quantize`` stores the talker/predictor projection matrices (and
+        the predictor's lm_heads) as int8 with per-channel scales: "int8"
+        both, "int8-talker" or "int8-predictor" one; the w8a8 modes raise
+        NotImplementedError, unknown modes ValueError.  ``kv_quant=True``
+        keeps the talker's KV cache in int8."""
         device = torch.device(device) if device is not None else _default_device()
         if isinstance(dtype, str):
             dtype = DTYPES[dtype]
         cfg, params = load_pretrained(model_name, dtype=dtype, seed=seed, device=device)
-        logger.info("Loaded %s (%s, %s) on %s", model_name, cfg.model_type, cfg.dtype,
-                    device)
-        return cls(cfg, params, max_seq_len=max_seq_len, seed=seed)
+        if quantize:
+            params = quantize_bundle(params, quantize)
+        logger.info("Loaded %s (%s, %s%s) on %s", model_name, cfg.model_type, cfg.dtype,
+                    f", {quantize}" if quantize else "", device)
+        return cls(cfg, params, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant)
 
     # ------------------------------------------------------------------
     # voice-clone prompt

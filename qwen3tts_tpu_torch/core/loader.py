@@ -14,8 +14,10 @@ convolutions change layout: a JAX conv weight ``[K, Cin, Cout]`` becomes
 ``[Cout, Cin, K]``, and a JAX transposed-conv weight becomes
 ``w[::-1].permute(1, 2, 0)`` = ``[Cin, Cout, K]`` flipped along K, which is
 what makes ``F.conv_transpose1d`` equal ``jax.lax.conv_transpose``.
-Talker and predictor are cast to the model dtype; codec and speaker encoder
-stay float32, as in the JAX package.
+Talker and predictor are cast to the model dtype, except the int8
+weight-only leaves ``{"q", "scale"}`` of a quantized bundle
+(``ops/quant.py``), which keep int8 ``q`` and float32 ``scale`` bit for bit;
+codec and speaker encoder stay float32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -72,6 +74,9 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 
 def _tree(tree, dtype, device):
+    if isinstance(tree, dict) and set(tree) == {"q", "scale"}:  # int8 weight-only leaf
+        return {"q": torch.from_numpy(np.array(tree["q"], dtype=np.int8, order="C")).to(device),
+                "scale": _t(tree["scale"], torch.float32, device)}
     if isinstance(tree, dict):
         return {k: _tree(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

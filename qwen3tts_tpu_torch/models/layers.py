@@ -4,10 +4,12 @@
 Both the talker and the code predictor are stacks of identical blocks:
 RMSNorm -> GQA attention with per-head q/k norm + RoPE -> RMSNorm -> SwiGLU.
 Parameters keep the JAX package's layer-stacked layout (leading ``L`` axis,
-fused ``qkv_proj`` and ``gateup_proj``, matmul weights ``[in, out]``) and
-the KV cache its ``[L, B, S, KVH, D]`` layout.  The stack runs as a Python
-loop over layers that writes the stacked cache in place (the JAX package
-threads it through ``lax.scan`` with donation instead).
+fused ``qkv_proj`` and ``gateup_proj``, matmul weights ``[in, out]``, or
+int8 weight-only dicts ``{"q", "scale"}`` from ``ops/quant.py``) and the KV
+cache its ``[L, B, S, KVH, D]`` layout; an int8 cache adds f32 scales
+``"ks"``/``"vs"`` ``[L, B, KVH, S]``.  The stack runs as a Python loop over
+layers that writes the stacked cache in place (the JAX package threads it
+through ``lax.scan`` with donation instead).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_decode import flash_decode
+from ..ops.fused_block import fused_norm_matmul, fused_o_mlp
+from ..ops.quant import maybe_matmul
 from ..ops.rope import apply_rope
 
 Params = Dict[str, torch.Tensor]
@@ -72,16 +76,37 @@ def init_block_stack(gen: torch.Generator, spec: BlockSpec, dtype, device) -> Pa
 
 def unstack_layers(stack: Params) -> List[Params]:
     """Per-layer views of a layer-stacked parameter dict (built once, so the
-    decode loop does not re-index the stack every step)."""
-    L = next(iter(stack.values())).shape[0]
-    return [{k: v[i] for k, v in stack.items()} for i in range(L)]
+    decode loop does not re-index the stack every step).  A quantized leaf
+    ``{"q", "scale"}`` becomes a per-layer dict of views."""
+    def layer(v, i):
+        return {k: t[i] for k, t in v.items()} if isinstance(v, dict) else v[i]
+
+    L = stack["input_norm"].shape[0]
+    return [{k: layer(v, i) for k, v in stack.items()} for i in range(L)]
 
 
-def init_kv_cache(spec: BlockSpec, batch: int, max_len: int, dtype, device) -> Params:
-    """Zeroed float KV cache {"k","v"}: [L, B, S, KVH, D]."""
+def init_kv_cache(spec: BlockSpec, batch: int, max_len: int, dtype, device,
+                  kv_quant: bool = False) -> Params:
+    """Zeroed static KV cache {"k","v"}: [L, B, S, KVH, D] in ``dtype``; with
+    ``kv_quant`` int8 rows plus f32 per-(slot, head) scales {"ks","vs"}:
+    [L, B, KVH, S]."""
     shape = (spec.num_layers, batch, max_len, spec.num_kv_heads, spec.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if not kv_quant:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    sshape = (spec.num_layers, batch, spec.num_kv_heads, max_len)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "vs": torch.zeros(sshape, dtype=torch.float32, device=device)}
+
+
+def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, T, KVH, D] float -> (int8 rows, f32 per-(b, t, head) scales)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -124,17 +149,30 @@ def block_forward(
     spec: BlockSpec,
     flash_ctx: Optional[Dict] = None,  # {"pos","pad","window"} -> flash decode
     sliding: bool = False,  # THIS layer slides (selects the window)
+    fused: bool = False,  # the fused weight-streaming kernels (ops/fused_block.py)
 ) -> Tuple[torch.Tensor, Params]:
     """One decoder block.  Returns (x_out, kv) with kv updated in place.
 
     Attention paths, as in the JAX package: single-token decode with
     ``flash_ctx`` -> ``ops.flash_decode`` (the CUDA kernel on the card);
     prefill with a local ``[B, T, T]`` mask -> attention over the fresh
-    prompt K/V; otherwise masked attention over the cache layer."""
+    prompt K/V (exact, even with an int8 cache); otherwise masked attention
+    over the cache layer, dequantized to x's dtype for an int8 cache.
+
+    ``fused`` takes the qkv half and the o + MLP half through
+    ``fused_norm_matmul`` and ``fused_o_mlp`` for decode-shaped activations
+    (B * Tq <= 32) with plain or int8 weight-only weights, as the JAX
+    package gates them (``layers.py:182-185``)."""
     B, Tq, H = x.shape
     eps = spec.rms_norm_eps
-    h = rms_norm(x, p["input_norm"], eps)
-    qkv = h @ p["qkv_proj"]
+    kv_quant = "ks" in kv
+    w_qkv = p["qkv_proj"]
+    fused = fused and B * Tq <= 32 and (not isinstance(w_qkv, dict) or "q" in w_qkv)
+    if fused:
+        qkv = fused_norm_matmul(x.reshape(B * Tq, H), p["input_norm"], w_qkv,
+                                eps=eps).reshape(B, Tq, -1)
+    else:
+        qkv = maybe_matmul(rms_norm(x, p["input_norm"], eps), w_qkv)
     q = qkv[..., : spec.q_dim].reshape(B, Tq, spec.num_heads, spec.head_dim)
     k = qkv[..., spec.q_dim: spec.q_dim + spec.kv_dim].reshape(
         B, Tq, spec.num_kv_heads, spec.head_dim)
@@ -147,23 +185,41 @@ def block_forward(
     k = k.to(x.dtype)  # ...but K/V are cached in the model dtype
 
     rows = torch.arange(Tq, device=x.device) + write_pos  # device add: no sync
-    kv["k"][layer_idx].index_copy_(1, rows, k)
-    kv["v"][layer_idx].index_copy_(1, rows, v)
+    if kv_quant:
+        k_row, ks = _quantize_rows(k)
+        v_row, vs = _quantize_rows(v)
+        # scales [B, Tq, KVH] -> cache layout [L, B, KVH, S]
+        kv["ks"][layer_idx].index_copy_(2, rows, ks.transpose(1, 2))
+        kv["vs"][layer_idx].index_copy_(2, rows, vs.transpose(1, 2))
+    else:
+        k_row, v_row = k, v
+    kv["k"][layer_idx].index_copy_(1, rows, k_row)
+    kv["v"][layer_idx].index_copy_(1, rows, v_row)
 
     if flash_ctx is not None and Tq == 1:
         window = flash_ctx.get("window") if sliding else None
         attn = flash_decode(q[:, 0].contiguous(), kv["k"], kv["v"], layer_idx,
-                            flash_ctx["pos"], flash_ctx["pad"], window)[:, None]
+                            flash_ctx["pos"], flash_ctx["pad"], window,
+                            kv.get("ks"), kv.get("vs"))[:, None]
     elif Tq > 1 and mask.shape[-1] == Tq:
         attn = masked_attention(q, k, v, mask)
     else:
-        attn = masked_attention(q, kv["k"][layer_idx], kv["v"][layer_idx], mask)
+        k_l, v_l = kv["k"][layer_idx], kv["v"][layer_idx]
+        if kv_quant:
+            # scales [B, KVH, S] -> [B, S, KVH, 1] against k_l [B, S, KVH, D]
+            k_l = (k_l.float() * kv["ks"][layer_idx].transpose(1, 2)[..., None]).to(x.dtype)
+            v_l = (v_l.float() * kv["vs"][layer_idx].transpose(1, 2)[..., None]).to(x.dtype)
+        attn = masked_attention(q, k_l, v_l, mask)
 
-    x = x + attn.reshape(B, Tq, spec.q_dim) @ p["o_proj"]
+    if fused:
+        return fused_o_mlp(x.reshape(B * Tq, H), attn.reshape(B * Tq, spec.q_dim),
+                           p["o_proj"], p["post_norm"], p["gateup_proj"], p["down_proj"],
+                           eps=eps).reshape(B, Tq, H), kv
+    x = x + maybe_matmul(attn.reshape(B, Tq, spec.q_dim), p["o_proj"])
     h = rms_norm(x, p["post_norm"], eps)
-    gu = h @ p["gateup_proj"]
+    gu = maybe_matmul(h, p["gateup_proj"])
     I = spec.intermediate_size
-    x = x + (F.silu(gu[..., :I]) * gu[..., I:]) @ p["down_proj"]
+    x = x + maybe_matmul(F.silu(gu[..., :I]) * gu[..., I:], p["down_proj"])
     return x, kv
 
 
@@ -179,6 +235,7 @@ def stack_forward(
     mask_sliding: Optional[torch.Tensor] = None,
     layer_is_sliding: Optional[Sequence[bool]] = None,
     flash_ctx: Optional[Dict] = None,
+    fused: bool = False,
 ) -> Tuple[torch.Tensor, Params]:
     """Run the whole layer stack.  Returns (x_out, kv) — kv written in place."""
     if isinstance(layers, dict):
@@ -191,7 +248,7 @@ def stack_forward(
         sl = bool(layer_is_sliding[li])
         x, kv = block_forward(lp, x, cos, sin, kv, li, write_pos,
                               mask_sliding if sl else mask_full, spec,
-                              flash_ctx=flash_ctx, sliding=sl)
+                              flash_ctx=flash_ctx, sliding=sl, fused=fused)
     return x, kv
 
 

@@ -4,7 +4,10 @@ Port of ``qwen3tts_tpu/models/predictor.py:predict_frame`` on its default
 path: a 2-token prefill, then one single-token step per remaining codebook
 over a 17-slot cache, with one LM head and one sample per codebook.  The
 predictor (head_dim 64) uses the plain masked attention, as in the JAX
-package, which passes it no flash context.
+package, which passes it no flash context.  With ``fused`` the 14
+single-token micro-steps run each block through the fused kernels; the
+2-token prefill does not.  The lm_heads may be int8 weight-only
+(``ops/quant.py:quantize_bundle``).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core.config import PredictorConfig
+from ..ops.quant import is_quantized
 from ..ops.rope import mrope_cos_sin
 from ..ops.sampling import sample_logits
 from .layers import (
@@ -72,6 +76,17 @@ def _proj(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
+def _lm_logits(params: Params, cb: int, h: torch.Tensor) -> torch.Tensor:
+    """h [B, Hp] @ lm_heads[cb] -> float32 logits [B, CB].  An int8 head is
+    converted to h's values, accumulated in float32 and scaled per column,
+    as the JAX package computes it (``predictor.py:104-115``)."""
+    lm = params["lm_heads"]
+    if is_quantized(lm):
+        y = torch.matmul(h.float(), lm["q"][cb].float())
+        return y * lm["scale"][cb].float()
+    return (h @ lm[cb]).float()
+
+
 def _rope(cfg: PredictorConfig, pos_1d: torch.Tensor):
     return mrope_cos_sin(pos_1d, cfg.head_dim, cfg.rope_theta, None)
 
@@ -83,6 +98,7 @@ def predict_frame(
     generator: Optional[torch.Generator],
     policy: SamplingPolicy,
     layers: Optional[Sequence[Params]] = None,
+    fused: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the 15-codebook frame.  Returns (tokens [B, 15] int64, embed_sum
     [B, 1, H_talker]) with embed_sum = sum_i codec_embeddings[i][tokens_i]."""
@@ -105,7 +121,7 @@ def predict_frame(
     m = prefill_mask(2, 2, zero_pad, cfg.sliding_window)
     h, kv = stack_forward(layers, h, cos, sin, kv, 0, m, spec)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    tok = sample((h[:, -1, :] @ params["lm_heads"][0]).float())
+    tok = sample(_lm_logits(params, 0, h[:, -1, :]))
     toks = [tok]
 
     for cb in range(1, cfg.num_codebooks):
@@ -114,9 +130,9 @@ def predict_frame(
         cos, sin = _rope(cfg, torch.full((B, 1), pos, device=dev))
         m_d = decode_mask(S, pos, zero_pad,
                           cfg.sliding_window)
-        x, kv = stack_forward(layers, x, cos, sin, kv, pos, m_d, spec)
+        x, kv = stack_forward(layers, x, cos, sin, kv, pos, m_d, spec, fused=fused)
         x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-        tok = sample((x[:, -1, :] @ params["lm_heads"][cb]).float())
+        tok = sample(_lm_logits(params, cb, x[:, -1, :]))
         toks.append(tok)
 
     tokens = torch.stack(toks, dim=1)  # [B, 15]

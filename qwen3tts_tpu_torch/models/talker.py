@@ -67,8 +67,9 @@ def init_params(gen: torch.Generator, cfg: TalkerConfig, dtype, device) -> Param
     }
 
 
-def new_kv_cache(cfg: TalkerConfig, batch: int, max_len: int, dtype, device):
-    return init_kv_cache(block_spec(cfg), batch, max_len, dtype, device)
+def new_kv_cache(cfg: TalkerConfig, batch: int, max_len: int, dtype, device,
+                 kv_quant: bool = False):
+    return init_kv_cache(block_spec(cfg), batch, max_len, dtype, device, kv_quant=kv_quant)
 
 
 def embed_codec(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -119,9 +120,11 @@ def decode_step(
     kv: Params,
     use_flash: bool = False,
     layers: Optional[Sequence[Params]] = None,
+    fused: bool = False,
 ) -> Tuple[torch.Tensor, Params]:
     """Single-token decode over the static cache.  Returns (hidden [B,1,H], kv).
-    RoPE position is ``pos - pad_count``."""
+    RoPE position is ``pos - pad_count``.  ``fused`` runs each block's two
+    halves through the fused kernels (prefill never does)."""
     S = kv["k"].shape[2]
     eff = (pos.reshape(1) - pad_count).reshape(-1, 1)
     cos, sin = _positions(cfg, eff)
@@ -137,5 +140,5 @@ def decode_step(
     x, kv = stack_forward(
         layers if layers is not None else params["blocks"], x, cos, sin, kv, pos,
         m_full, block_spec(cfg), mask_sliding=m_slide,
-        layer_is_sliding=sliding, flash_ctx=flash_ctx)
+        layer_is_sliding=sliding, flash_ctx=flash_ctx, fused=fused)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv

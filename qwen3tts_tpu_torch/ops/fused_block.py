@@ -1,0 +1,238 @@
+"""Fused weight-streaming halves of a decoder block: the CUDA kernels and
+their plain PyTorch versions.
+
+Port of ``qwen3tts_tpu/ops/fused_block.py`` for decode-shaped activations
+(B <= 32 rows):
+
+  fused_norm_matmul   y = rms_norm(x, w_norm) @ W                 (qkv half)
+  fused_o_mlp         x2 = x + attn @ Wo, kept in float32
+                      y  = x2 + (silu(g) * u) @ Wd,  [g u] = rms_norm(x2) @ Wgu
+
+A weight is a ``[in, out]`` tensor of x's dtype or an int8 weight-only dict
+``{"q": int8 [in, out], "scale": f32 [1, out]}`` (``ops/quant.py``); the
+three o/MLP weights are all plain or all int8.  The arithmetic is the Pallas
+kernels': the norm in float32 times the float32 norm weight, cast to x's
+dtype; an int8 weight dequantized per element to x's dtype; products
+accumulated in float32; ``x2`` never rounded to x's dtype.
+
+On CUDA tensors the wrappers launch the kernels of
+``qwen3tts_tpu_torch/csrc/fused_block.cu`` (built at first use,
+``ops/cuda_build.py``) or raise; on CPU tensors they run the plain versions.
+``fused_norm_matmul.launches`` and ``fused_o_mlp.launches`` count calls that
+launched the kernel (``fused_o_mlp`` is three launches on the stream).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import cuda_build
+from .quant import dequant
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+COLS = 32  # output columns per CTA; fused_o_mlp's intermediate tile
+MAX_K = 2048  # longest activation row the kernels keep in shared memory
+MIN_CTAS = 128  # o-projection grid target: near the card's 132 SMs
+_workspace: Dict[Tuple, torch.Tensor] = {}
+
+
+def _rms_norm_f32(x_f32: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    var = x_f32.pow(2).mean(dim=-1, keepdim=True)
+    return x_f32 * torch.rsqrt(var + eps) * w.float()
+
+
+def _weight(w: Any, dtype) -> torch.Tensor:
+    """The weight in the compute dtype: as is, or dequantized per element."""
+    return dequant(w, dtype) if isinstance(w, dict) else w
+
+
+def fused_norm_matmul_plain(x: torch.Tensor, norm_w: torch.Tensor, w: Any,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """[B, H] -> [B, N] in x's dtype."""
+    h = _rms_norm_f32(x.float(), norm_w, eps).to(x.dtype)
+    return (h.float() @ _weight(w, x.dtype).float()).to(x.dtype)
+
+
+def fused_o_mlp_plain(x: torch.Tensor, attn: torch.Tensor, o_w: Any, norm_w: torch.Tensor,
+                      gateup_w: Any, down_w: Any, eps: float = 1e-6) -> torch.Tensor:
+    """[B, H] residual, [B, Dq] attention -> [B, H] in x's dtype."""
+    dt = x.dtype
+    x2 = x.float() + attn.float() @ _weight(o_w, dt).float()
+    h = _rms_norm_f32(x2, norm_w, eps).to(dt)
+    gu = h.float() @ _weight(gateup_w, dt).float()
+    g, u = gu.chunk(2, dim=-1)
+    act = (g * torch.sigmoid(g) * u).to(dt)
+    return (x2 + act.float() @ _weight(down_w, dt).float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    lib = cuda_build.library("fused_block")
+    nm = lib.qwen3tts_fused_norm_matmul
+    nm.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p]
+    nm.restype = ctypes.c_int
+    om = lib.qwen3tts_fused_o_mlp
+    om.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    om.restype = ctypes.c_int
+    return nm, om
+
+
+def _split(name: str, w: Any, rows: Optional[int], cols: Optional[int]):
+    """(payload [rows, cols], scale or None) of a weight; ``None`` takes any
+    extent."""
+    if isinstance(w, dict):
+        if set(w) != {"q", "scale"}:
+            raise ValueError(f"{name}: the kernels take plain or int8 {{q, scale}} "
+                             f"weights, not keys {sorted(w)}")
+        q, scale = w["q"], w["scale"]
+        if q.dtype != torch.int8 or scale.dtype != torch.float32 or (
+                q.dim() == 2 and scale.numel() != q.shape[1]):
+            raise ValueError(f"{name}: int8 q [in, out] with float32 scale [1, out] "
+                             f"wanted; got {q.dtype} {tuple(q.shape)}, "
+                             f"{scale.dtype} {tuple(scale.shape)}")
+    else:
+        q, scale = w, None
+    if q.dim() != 2 or (rows is not None and q.shape[0] != rows) or (
+            cols is not None and q.shape[1] != cols):
+        raise ValueError(f"{name}: shape {tuple(q.shape)} does not fit ({rows}, {cols})")
+    return q, scale
+
+
+def _check_cuda(x: torch.Tensor, acts: Dict[str, torch.Tensor],
+                weights: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]]):
+    """Device, dtype, contiguity and alignment of what the kernel reads:
+    activations and norm weights in x's dtype; weights in x's dtype, or
+    int8 with float32 scales."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the fused kernels run on cpu or cuda, not {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"kernels take bfloat16 or float32 activations, not {x.dtype}")
+    want = {name: (t, x.dtype) for name, t in acts.items()}
+    for name, (w, scale) in weights.items():
+        want[name] = (w, x.dtype if scale is None else torch.int8)
+        if scale is not None:
+            want[f"{name} scale"] = (scale, torch.float32)
+    for name, (t, dtype) in want.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+
+
+def _check_rows(B: int, K: int, N: int, what: str):
+    if not (1 <= B and 1 <= K <= MAX_K and N >= 8 and N % 8 == 0):
+        raise ValueError(f"{what}: no kernel instance for B {B}, K {K}, N {N} "
+                         f"(needs K <= {MAX_K}, N % 8 == 0)")
+
+
+def fused_norm_matmul(x: torch.Tensor, norm_w: torch.Tensor, w: Any,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """rms_norm(x, norm_w) @ w: [B, H] -> [B, N] in x's dtype.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (or raise)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be [B, H], got {tuple(x.shape)}")
+    B, H = x.shape
+    wq, ws = _split("w", w, H, None)
+    N = wq.shape[1]
+    if norm_w.shape != (H,):
+        raise ValueError(f"norm_w shape {tuple(norm_w.shape)} != ({H},)")
+    if x.device.type == "cpu":
+        return fused_norm_matmul_plain(x, norm_w, w, eps)
+    quant = ws is not None
+    _check_cuda(x, {"x": x, "norm_w": norm_w}, {"w": (wq, ws)})
+    _check_rows(B, H, N, "fused_norm_matmul")
+    nm, _ = _kernel_fns()
+    out = torch.empty((B, N), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = nm(_DTYPE_CODE[x.dtype], int(quant), x.data_ptr(), norm_w.data_ptr(),
+                wq.data_ptr(), ws.data_ptr() if quant else None, out.data_ptr(), B, H, N,
+                float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_norm_matmul kernel launch failed: cudaError {rc}")
+    fused_norm_matmul.launches += 1
+    return out
+
+
+fused_norm_matmul.launches = 0
+
+
+def o_proj_split(H: int, Dq: int) -> Tuple[int, int]:
+    """(KS, k_chunk): row splits of the o-projection, so that its grid of
+    ceil(H / COLS) x KS CTAs has at least MIN_CTAS, each >= 64 rows."""
+    tiles = -(-H // COLS)
+    ks = max(1, min(-(-MIN_CTAS // tiles), -(-Dq // 64)))
+    chunk = -(-Dq // ks)
+    return -(-Dq // chunk), chunk
+
+
+def _workspaces(device, B: int, H: int, KS: int, NT: int):
+    """The float32 partial sums [KS + NT, B, H], allocated once per shape.
+    Calls are ordered on the stream, so one buffer serves them all."""
+    key = (device, B, H, KS, NT)
+    ws = _workspace.get(key)
+    if ws is None:
+        ws = _workspace[key] = torch.empty((KS + NT, B, H), dtype=torch.float32,
+                                           device=device)
+    return ws[:KS], ws[KS:]
+
+
+def fused_o_mlp(x: torch.Tensor, attn: torch.Tensor, o_w: Any, norm_w: torch.Tensor,
+                gateup_w: Any, down_w: Any, eps: float = 1e-6) -> torch.Tensor:
+    """x + attn @ o_w, then + the SwiGLU MLP of its post-norm: [B, H] in x's
+    dtype.  CPU tensors take the plain version; CUDA tensors launch the
+    kernels (or raise)."""
+    if x.dim() != 2 or attn.dim() != 2 or attn.shape[0] != x.shape[0]:
+        raise ValueError(f"x [B, H] and attn [B, Dq] wanted; got {tuple(x.shape)}, "
+                         f"{tuple(attn.shape)}")
+    B, H = x.shape
+    Dq = attn.shape[1]
+    wd, sd = _split("w_down", down_w, None, H)
+    I = wd.shape[0]
+    wo, so = _split("w_o", o_w, Dq, H)
+    wgu, sgu = _split("w_gateup", gateup_w, H, 2 * I)
+    quant = so is not None
+    if (sgu is not None) != quant or (sd is not None) != quant:
+        raise ValueError("o/gateup/down weights must be all plain or all int8")
+    if norm_w.shape != (H,):
+        raise ValueError(f"norm_w shape {tuple(norm_w.shape)} != ({H},)")
+    if x.device.type == "cpu":
+        return fused_o_mlp_plain(x, attn, o_w, norm_w, gateup_w, down_w, eps)
+    _check_cuda(x, {"x": x, "attn": attn, "norm_w": norm_w},
+                {"w_o": (wo, so), "w_gateup": (wgu, sgu), "w_down": (wd, sd)})
+    _check_rows(B, Dq, H, "fused_o_mlp (o-projection)")
+    _check_rows(B, H, 2 * I, "fused_o_mlp (gate/up)")
+    if I % COLS:
+        raise ValueError(f"fused_o_mlp: no kernel instance for intermediate size {I} "
+                         f"(needs a multiple of {COLS})")
+    KS, chunk = o_proj_split(H, Dq)
+    part1, part2 = _workspaces(x.device, B, H, KS, I // COLS)
+    _, om = _kernel_fns()
+    out = torch.empty_like(x)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(x.device):
+        rc = om(_DTYPE_CODE[x.dtype], int(quant), x.data_ptr(), attn.data_ptr(),
+                wo.data_ptr(), ptr(so), norm_w.data_ptr(), wgu.data_ptr(), ptr(sgu),
+                wd.data_ptr(), ptr(sd), out.data_ptr(), part1.data_ptr(), part2.data_ptr(),
+                B, H, Dq, I, KS, chunk, float(eps),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_o_mlp kernel launch failed: cudaError {rc}")
+    fused_o_mlp.launches += 1
+    return out
+
+
+fused_o_mlp.launches = 0

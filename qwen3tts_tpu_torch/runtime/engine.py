@@ -15,6 +15,12 @@ are named ranges for ``torch.profiler``: ``predictor_frame``,
 At batch 1 the JAX engine's bucket padding plus cache roll equals an
 unpadded prefill with pad 0 and ``pos = T``, which is what runs here;
 ``bucket_for`` still rejects prompts longer than the largest bucket.
+
+Options as in the JAX engine: ``use_fused_kernels`` (default off) runs the
+talker's decode step and the predictor's 14 micro-steps through the fused
+block kernels (``ops/fused_block.py``); ``kv_quant`` keeps the talker's KV
+cache in int8 with f32 per-(slot, head) scales, read by the int8-KV
+flash-decode kernel.
 """
 from __future__ import annotations
 
@@ -67,6 +73,8 @@ class Engine:
         cfg: TTSModelConfig,
         *,
         max_seq_len: int = 2048,
+        use_fused_kernels: Optional[bool] = None,
+        kv_quant: bool = False,
     ):
         self.cfg = cfg
         self.talker_cfg = cfg.talker
@@ -83,6 +91,9 @@ class Engine:
         # the flash wrapper takes its plain version on CPU tensors; on the
         # card it launches the kernel, or raises for a head layout it lacks
         self.use_flash_decode = True
+        # off unless asked for, as in the JAX engine (engine.py:142-153)
+        self.use_fused_kernels = bool(use_fused_kernels)
+        self.kv_quant = kv_quant
         self._talker_layers = unstack_layers(talker_params["blocks"])
         self._pred_layers = unstack_layers(predictor_params["blocks"])
         self._suppress = torch.from_numpy(
@@ -90,11 +101,13 @@ class Engine:
         self._kv = None  # static cache, allocated on first use and reused
 
     def new_kv(self) -> Dict[str, torch.Tensor]:
-        """The static KV cache [L, B, S, KVH, D].  Stale rows from an earlier
-        request are never read: every read is bounded to the live prefix."""
+        """The static KV cache [L, B, S, KVH, D] (int8 plus scales with
+        ``kv_quant``).  Stale rows from an earlier request are never read:
+        every read is bounded to the live prefix."""
         if self._kv is None:
             self._kv = talker_lib.new_kv_cache(
-                self.talker_cfg, self.batch, self.max_seq_len, self.dtype, self.device)
+                self.talker_cfg, self.batch, self.max_seq_len, self.dtype, self.device,
+                kv_quant=self.kv_quant)
         return self._kv
 
     # ------------------------------------------------------------------
@@ -156,7 +169,8 @@ class Engine:
         with record_function("predictor_frame"):
             cb_tokens, cb_embed_sum = predictor_lib.predict_frame(
                 self.predictor_params, self.pred_cfg, pred_input, gen,
-                state["pred_policy"], layers=self._pred_layers)
+                state["pred_policy"], layers=self._pred_layers,
+                fused=self.use_fused_kernels)
         frame = torch.cat([token[:, None], cb_tokens], dim=1)  # [B, 16]
 
         # next talker input = sum of the 16 codec embeds + trailing text hidden
@@ -169,7 +183,8 @@ class Engine:
         with record_function("talker_step"):
             hidden, _ = talker_lib.decode_step(
                 self.talker_params, tcfg, x, state["pos"], state["pad_count"],
-                state["kv"], use_flash=self.use_flash_decode, layers=self._talker_layers)
+                state["kv"], use_flash=self.use_flash_decode, layers=self._talker_layers,
+                fused=self.use_fused_kernels)
             logits = talker_lib.codec_head(self.talker_params, hidden[:, 0, :])
 
         seen = state["seen"]

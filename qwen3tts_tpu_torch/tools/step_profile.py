@@ -1,8 +1,11 @@
 """Where a decode step's time goes, on the card.
 
     python -m qwen3tts_tpu_torch.tools.step_profile [--steps 48] [--out DIR]
+        [--quantize int8|int8-talker|int8-predictor] [--kv-quant] [--fused]
 
-Loads ``random:qwen3-tts-0.6b`` in bf16, warms up, then runs one streaming
+Loads ``random:qwen3-tts-0.6b`` in bf16 (with ``--quantize``, int8
+weight-only; ``--kv-quant``, an int8 KV cache; ``--fused``, the engine
+rebuilt with ``use_fused_kernels=True``), warms up, then runs one streaming
 request (chunk 8) without and then under ``torch.profiler`` and prints:
 wall time per step (the profiler's own cost shows as the difference),
 the host time inside each named range of the engine (``predictor_frame``,
@@ -38,18 +41,27 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=48)
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--out", default=None, help="directory for trace.json")
+    ap.add_argument("--quantize", default=None, help="int8, int8-talker or int8-predictor")
+    ap.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
+    ap.add_argument("--fused", action="store_true", help="use_fused_kernels=True")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA device")
 
     from qwen3tts_tpu_torch import FasterQwen3TTS
     from qwen3tts_tpu_torch.audio.wav import write_wav
+    from qwen3tts_tpu_torch.runtime.engine import Engine
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     model = FasterQwen3TTS.from_pretrained("random:qwen3-tts-0.6b", device="cuda",
-                                           dtype="bfloat16")
+                                           dtype="bfloat16", quantize=args.quantize,
+                                           kv_quant=args.kv_quant)
+    if args.fused:
+        model.engine = Engine(model.params["talker"], model.params["predictor"], model.cfg,
+                              max_seq_len=model.max_seq_len, use_fused_kernels=True,
+                              kv_quant=args.kv_quant)
     with tempfile.TemporaryDirectory() as tmp:
         ref = os.path.join(tmp, "ref.wav")
         t = np.linspace(0, 3.0, 72_000, dtype=np.float32)
@@ -81,6 +93,7 @@ def main(argv=None):
     device_ms = sum(k[1] for k in kernels)
     report = {
         "card": card,
+        "path": {"quantize": args.quantize, "kv_quant": args.kv_quant, "fused": args.fused},
         "steps": args.steps,
         "wall_ms": wall * 1e3,
         "wall_ms_per_step": wall * 1e3 / args.steps,

@@ -2,9 +2,11 @@
 
 - The port's Engine with greedy talker and predictor, through prefill and
   three chunks of 8, gives exactly the JAX Engine's tokens on ``tiny``
-  float32 (weights through ``bundle_from_jax_numpy``).
+  float32 (weights through ``bundle_from_jax_numpy``): with the default
+  path, with ``use_fused_kernels=True``, and with an int8 bundle plus
+  ``kv_quant=True`` plus the fused kernels.
 - FasterQwen3TTS (``random:tiny``, CPU) returns steps x samples-per-frame
-  audio, streaming and not.
+  audio, streaming and not, also with ``quantize="int8", kv_quant=True``.
 - A subprocess that cannot import JAX or the JAX package imports
   qwen3tts_tpu_torch and runs one tiny generation.
 """
@@ -18,10 +20,15 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the tier-1 run has several pytest-xdist workers on one
+# host, each importing every test module, and a full-width torch thread pool
+# in each of them oversubscribes the cores (tiny models gain nothing from it).
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
 from qwen3tts_tpu.models.predictor import SamplingPolicy as JSamplingPolicy  # noqa: E402
+from qwen3tts_tpu.ops.quant import quantize_bundle as jquantize_bundle  # noqa: E402
 from qwen3tts_tpu.runtime.engine import Engine as JEngine  # noqa: E402
 from qwen3tts_tpu.runtime.engine import GenerationPolicy as JGenerationPolicy  # noqa: E402
 from qwen3tts_tpu_torch import FasterQwen3TTS  # noqa: E402
@@ -33,15 +40,16 @@ from qwen3tts_tpu_torch.runtime.engine import Engine, GenerationPolicy, bucket_f
 REPO = Path(__file__).resolve().parent.parent
 
 
-def test_greedy_engine_tokens_equal_jax(tiny_cfg, tiny_models):
-    tp, pp = tiny_models
+def _greedy_tokens_both(tiny_cfg, tp, pp, **engine_kw):
+    """Greedy tokens of the JAX and the port's Engine (same weights and
+    options): prefill then three chunks of 8."""
     rng = np.random.default_rng(0)
     H = tiny_cfg.talker.hidden_size
     embeds = rng.standard_normal((1, 10, H)).astype(np.float32) * 0.1
     tth = rng.standard_normal((1, 5, H)).astype(np.float32) * 0.1
     tpe = rng.standard_normal((1, 1, H)).astype(np.float32) * 0.1
 
-    jeng = JEngine(tp, pp, tiny_cfg, max_seq_len=64)
+    jeng = JEngine(tp, pp, tiny_cfg, max_seq_len=64, **engine_kw)
     jpol, jppol = JGenerationPolicy(do_sample=False), JSamplingPolicy(do_sample=False)
     jstate = jeng.prefill(embeds, jax.random.PRNGKey(0), jpol, jppol)
     want = [np.asarray(jstate["token"])]
@@ -54,7 +62,7 @@ def test_greedy_engine_tokens_equal_jax(tiny_cfg, tiny_models):
     params = bundle_from_jax_numpy({"talker": jax.tree.map(np.asarray, tp),
                                     "predictor": jax.tree.map(np.asarray, pp)},
                                    cfg, torch.float32, "cpu")
-    eng = Engine(params["talker"], params["predictor"], cfg, max_seq_len=64)
+    eng = Engine(params["talker"], params["predictor"], cfg, max_seq_len=64, **engine_kw)
     assert eng.use_flash_decode  # CPU: the flash wrapper's plain version
     state = eng.prefill(embeds, None, GenerationPolicy(do_sample=False),
                         SamplingPolicy(do_sample=False))
@@ -64,6 +72,28 @@ def test_greedy_engine_tokens_equal_jax(tiny_cfg, tiny_models):
             state, torch.from_numpy(tth), 5, torch.from_numpy(tpe), 8)
         got.append(frames[0, : int(lens[0])].numpy())
     assert sum(len(g) for g in got[1:]) > 0
+    return eng, got, want
+
+
+def test_greedy_engine_tokens_equal_jax(tiny_cfg, tiny_models):
+    _, got, want = _greedy_tokens_both(tiny_cfg, *tiny_models)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_engine_greedy_tokens_equal_jax(tiny_cfg, tiny_models, int8):
+    """use_fused_kernels=True on both sides; with ``int8`` the bundle is
+    quantized by the JAX package, carried across by bundle_from_jax_numpy,
+    and both engines keep an int8 KV cache."""
+    tp, pp = tiny_models
+    if int8:
+        qb = jquantize_bundle({"talker": tp, "predictor": pp}, "int8")
+        tp, pp = qb["talker"], qb["predictor"]
+    eng, got, want = _greedy_tokens_both(tiny_cfg, tp, pp, use_fused_kernels=True,
+                                         kv_quant=int8)
+    assert eng.use_fused_kernels and eng.kv_quant == int8
+    assert (eng._kv["k"].dtype == torch.int8) == int8
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
@@ -114,6 +144,38 @@ def test_api_non_streaming_audio_length(tiny_port, ref_wav_path):
     assert sr == 24_000 and wavs[0].shape == (12 * tiny_port.vocoder.spf,)
     with pytest.raises(NotImplementedError):
         tiny_port.generate_voice_clone("x", "English", ref_wav_path, "ref", xvec_only=False)
+
+
+def test_api_int8_and_kv_quant_audio_length(ref_wav_path):
+    m = FasterQwen3TTS.from_pretrained("random:tiny", device="cpu", quantize="int8",
+                                       kv_quant=True)
+    assert m.kv_quant and m.engine.kv_quant and not m.engine.use_fused_kernels
+    assert m.params["talker"]["blocks"]["qkv_proj"]["q"].dtype == torch.int8
+    assert m.params["predictor"]["lm_heads"]["q"].dtype == torch.int8
+    spf = m.vocoder.spf
+    m.engine = Engine(m.params["talker"], m.params["predictor"], m.cfg,
+                      max_seq_len=m.max_seq_len, use_fused_kernels=True, kv_quant=True)
+    wavs, _ = m.generate_voice_clone("hello there", "English", ref_wav_path, "",
+                                     max_new_tokens=12, min_new_tokens=12)
+    assert wavs[0].shape == (12 * spf,) and np.isfinite(wavs[0]).all()
+    out = list(m.generate_voice_clone_streaming(
+        "hello there", "English", ref_wav_path, "", max_new_tokens=16, min_new_tokens=16,
+        chunk_size=8))
+    audio = np.concatenate([a for a, _, _ in out])
+    assert len(out) == 2 and audio.shape == (16 * spf,)
+    assert np.isfinite(audio).all() and np.abs(audio).max() <= 1.0
+
+
+def test_api_quantize_modes():
+    for mode in ("int8-talker", "int8-predictor"):
+        m = FasterQwen3TTS.from_pretrained("random:tiny", device="cpu", quantize=mode)
+        talker_q = isinstance(m.params["talker"]["blocks"]["o_proj"], dict)
+        pred_q = isinstance(m.params["predictor"]["blocks"]["o_proj"], dict)
+        assert (talker_q, pred_q) == (mode == "int8-talker", mode == "int8-predictor")
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        FasterQwen3TTS.from_pretrained("random:tiny", device="cpu", quantize="int4")
+    with pytest.raises(NotImplementedError, match="w8a8"):
+        FasterQwen3TTS.from_pretrained("random:tiny", device="cpu", quantize="w8a8")
 
 
 def test_chunk_vocode_pcm16_matches_f32(tiny_port):
