@@ -13,11 +13,17 @@ Phases, in order; any failure raises and exits non-zero:
    flash-decode at the 0.6B talker's shapes (L=28, B=1, S=2048, KVH=8,
    NH=16, D=128) over (layer, pos, pad, window) cases, with a float cache
    and with an int8 cache + scales; fused_norm_matmul and fused_o_mlp at
-   the 0.6B talker's and predictor's shapes, with bf16 and int8 weights.
+   the 0.6B talker's and predictor's shapes, with bf16 and int8 weights;
+   fused_micro_step at the 0.6B predictor's shapes over a frame's 14
+   chained micro-steps, the cache slot by slot, two runs bit-equal;
+   matvec and matvec_kt at the probe's default (K 1024, N 65536) and the
+   talker's qkv shape (1024 x 4096), then the probe's 20-call run.
    bf16 (the main path's dtype) is held to 2e-3 + 1.6e-2*|ref|, float32 to
    1e-5 (where a slot or a row counted wrong shows above the tolerance).
-   Then times kernel and plain version (CUDA graph of 28 calls for the
-   talker's shapes, 70 for the predictor's, CUDA events).
+   Then times kernel, plain version and, where one PyTorch call computes
+   the same function, that call (CUDA graphs, CUDA events): SDPA for
+   flash-decode, torch.matmul for the matvecs; the micro-step also beside
+   the per-layer paths and its grid barriers alone.
 3. slice  — FasterQwen3TTS("random:qwen3-tts-0.6b", bf16) on the card
    answers three requests through the public API (non-streaming, then two
    streaming at chunk 8), 48 steps each; checks audio length, range,
@@ -28,11 +34,15 @@ Phases, in order; any failure raises and exits non-zero:
    every step launched fused_norm_matmul and fused_o_mlp 98 times each
    (28 talker layers + 5 predictor layers x 14 micro-steps) and the
    int8-KV flash-decode kernel 28 times.
-5. parity — a small float32 model: talker prefill + decode steps and the
+5. slice-micro — the bf16 model's predictor runs 48 sampled frames through
+   predict_frame(micro_kernel=True); checks tokens and embed_sum and that
+   the kernel launched exactly 14 times a frame; host-wall ms/frame beside
+   the default path and fused=True.
+6. parity — a small float32 model: talker prefill + decode steps and the
    codec decode on the card (kernels, TF32 off) against the same on the
    CPU (plain versions); then the same talker with int8 weights, an int8
    KV cache and the fused kernels, and predictor micro-steps through the
-   fused kernels.
+   fused kernels; then greedy predict_frame(micro_kernel=True) frames.
 
 Prints the kernels' JSON line before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +66,12 @@ CHUNK = 8
 BF16_TOL = (2e-3, 1.6e-2)  # kernel and plain each round to bf16: 2 ulps of |ref|
 F32_TOL = (1e-5, 0.0)  # summation order only
 F32_ATOL = 1e-4  # small float32 model, card vs CPU (parity phase)
+# the bf16 micro-step: each phase rounds its activations to bf16, and the
+# roundings that float32 summation order flips carry through the layers, so
+# the plain version against itself in another summation order already misses
+# BF16_TOL (micro_kernel_phase measures that spread in every run): twice the
+# largest spread measured, 1.95e-2
+MICRO_BF16_TOL = (4e-2, 1.6e-2)
 TEXT_A = ("The quick brown fox jumps over the lazy dog while the tired developer "
           "benchmarks text to speech engines.")
 TEXT_C = "A second request with different words, streamed in chunks of eight frames."
@@ -193,7 +209,32 @@ def kernel_phase(card: str):
         gbs = live * KVH * D * 2 * 2 / (t_k * 1e-3) / 1e9
         log(f"  timing pos={pos}: kernel {t_k * 1e3:.2f} us/call ({gbs:.1f} GB/s of live KV), "
             f"plain {t_p * 1e3:.2f} us/call  [{card}]")
-    return max_err, times
+
+    # the library yardstick: SDPA with GQA over the live slice of each layer,
+    # [B, NH, 1, D] against [B, KVH, live, D] views of the cache
+    import torch.nn.functional as F
+
+    extra = {"bound": {}, "library_ms": {}}
+    qs = q[:, :, None, :]
+
+    def sdpa(layer, live):
+        return F.scaled_dot_product_attention(qs, k[layer, :, :live].transpose(1, 2),
+                                              v[layer, :, :live].transpose(1, 2),
+                                              enable_gqa=True)[:, :, 0]
+
+    for pos in (300, 2000):
+        live = pos + 1
+        # a layout check only (SDPA rounds the probabilities to bf16)
+        _held("sdpa (yardstick)", sdpa(0, live), fd.flash_decode_plain(q, k, v, 0, ints(pos),
+                                                                       zero),
+              (2e-2, 5e-2), f"pos={pos}")
+        t_l = graph_ms(lambda i: sdpa(i, live), L)
+        extra["library_ms"][pos] = t_l
+        extra["bound"][pos] = bound(nbytes(q, q) + 2 * live * KVH * D * k.element_size(),
+                                    4 * NH * live * D, q.dtype)
+        log(f"  timing pos={pos}: F.scaled_dot_product_attention(enable_gqa) {t_l * 1e3:.2f} "
+            f"us/call; bound {extra['bound'][pos][0] * 1e3:.2f} us  [{card}]")
+    return max_err, times, extra
 
 
 def int8kv_kernel_phase(card: str):
@@ -241,7 +282,12 @@ def int8kv_kernel_phase(card: str):
         gbs = (pos + 1) * KVH * (D + 4) * 2 / (t_k * 1e-3) / 1e9
         log(f"  int8kv timing pos={pos}: kernel {t_k * 1e3:.2f} us/call ({gbs:.1f} GB/s of "
             f"live KV + scales), plain {t_p * 1e3:.2f} us/call  [{card}]")
-    return max_err, times
+    bounds = {pos: bound(nbytes(q, q) + 2 * (pos + 1) * KVH * (D * kq.element_size()
+                                                          + ks.element_size()),
+                         4 * NH * (pos + 1) * D, torch.int8) for pos in (300, 2000)}
+    log("  int8kv bound: " + ", ".join(f"pos={pos} {b[0] * 1e3:.2f} us"
+                                       for pos, b in bounds.items()))
+    return max_err, times, bounds
 
 
 def fused_kernel_phase(card: str):
@@ -259,7 +305,7 @@ def fused_kernel_phase(card: str):
     shapes = {"talker": dict(H=1024, Dq=2048, N=4096, I=3072, layers=28, calls=28),
               "predictor": dict(H=1024, Dq=1024, N=2048, I=3072, layers=5, calls=70)}
     max_err = {"fused_norm_matmul": 0.0, "fused_o_mlp": 0.0}
-    times = {}
+    times, bounds = {}, {}
     for where, sh in shapes.items():
         H, Dq, N, I = sh["H"], sh["Dq"], sh["N"], sh["I"]
         x32 = torch.randn((1, H), generator=g, device=dev)
@@ -306,14 +352,286 @@ def fused_kernel_phase(card: str):
                                                         ws[i % n]["gu"], ws[i % n]["d"]))):
                     t_k, t_p = graph_ms(fn, calls), graph_ms(plain, calls)
                     times[(kname, where, wname)] = (t_k, t_p)
-                    wbytes = sum(t.numel() * t.element_size() for key in (
-                        ("qkv",) if kname == "fused_norm_matmul" else ("o", "gu", "d"))
-                        for t in (ws[0][key].values() if quant else [ws[0][key]]))
+                    mats = ("qkv",) if kname == "fused_norm_matmul" else ("o", "gu", "d")
+                    wbytes = sum(t.numel() * t.element_size() for key in mats
+                                 for t in (ws[0][key].values() if quant else [ws[0][key]]))
+                    acts = (x, nw, x.new_empty(N)) if kname == "fused_norm_matmul" else (
+                        x, attn, nw, x)
+                    n_ops = 2 * sum((ws[0][key]["q"] if quant else ws[0][key]).numel()
+                                    for key in mats)
+                    bounds[(kname, where, wname)] = bound(
+                        wbytes + nbytes(*acts), n_ops, torch.int8 if quant else dt)
                     log(f"  timing {kname} {where} x=bf16 w={wname}: kernel "
                         f"{t_k * 1e3:.2f} us/call ({wbytes / (t_k * 1e-3) / 1e9:.0f} GB/s of "
-                        f"weights), plain {t_p * 1e3:.2f} us/call  [{card}]")
+                        f"weights), plain {t_p * 1e3:.2f} us/call, bound "
+                        f"{bounds[(kname, where, wname)][0] * 1e3:.2f} us  [{card}]")
                 del ws
-    return max_err, times
+    return max_err, times, bounds
+
+
+# H100 SXM peaks (NVIDIA's data sheet, dense): the denominators of bound_ms
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that moves ``nbytes`` and does ``ops`` operations on inputs of
+    ``dtype``, at the card's peak rates."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _predictor_weights(dtype, seed: int):
+    """Random 0.6B predictor parameters on the card (all 5 layers), the
+    norm weights and the proj bias moved off 1 / 0."""
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models import predictor as predictor_lib
+
+    dev = torch.device("cuda")
+    cfg = get_preset("qwen3-tts-0.6b")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = predictor_lib.init_params(g, cfg.predictor, cfg.talker.hidden_size, dtype, dev)
+
+    def jitter(t, base):
+        return (base + 0.1 * torch.randn(t.shape, generator=g, device=dev)).to(dtype)
+
+    for k in ("input_norm", "post_norm", "q_norm", "k_norm"):
+        p["blocks"][k] = jitter(p["blocks"][k], 1.0)
+    p["final_norm"] = jitter(p["final_norm"], 1.0)
+    p["small_to_mtp"]["b"] = jitter(p["small_to_mtp"]["b"], 0.0)
+    return cfg, p
+
+
+def _permuted(w, g):
+    """The micro-step weights with the talker-space, hidden and intermediate
+    units permuted: the same function, its sums taken in another order.
+    Returns (weights, {"in": x_emb column order, "out": h's order back})."""
+    Ht, Hp = w["proj_w"].shape
+    I = w["dn"].shape[1]
+    dev = w["proj_w"].device
+    pt, ph, pi = (torch.randperm(n, generator=g, device=dev) for n in (Ht, Hp, I))
+    gu_cols = torch.cat([pi, I + pi])
+    return {
+        "proj_w": w["proj_w"][pt][:, ph].contiguous(), "proj_b": w["proj_b"][ph].contiguous(),
+        "in_norm": w["in_norm"][:, ph].contiguous(),
+        "post_norm": w["post_norm"][:, ph].contiguous(),
+        "q_norm": w["q_norm"], "k_norm": w["k_norm"],
+        "final_norm": w["final_norm"][ph].contiguous(),
+        "qkv": w["qkv"][:, ph].contiguous(), "o": w["o"][:, :, ph].contiguous(),
+        "gu": w["gu"][:, ph][:, :, gu_cols].contiguous(),
+        "dn": w["dn"][:, pi][:, :, ph].contiguous(),
+    }, {"in": pt, "out": torch.argsort(ph)}
+
+
+def micro_kernel_phase(card: str):
+    """fused_micro_step against its plain version at the 0.6B predictor's
+    shapes, random weights of all 5 layers: 14 chained micro-steps (pos
+    2..15, a frame's), h at every step and the cache slot by slot after.
+    Each step's plain version runs on the kernel's cache as it stood before
+    the step.  float32 (F32_TOL) also runs the plain chain on its own; bf16
+    is held to MICRO_BF16_TOL, beside the plain version's own spread: the
+    plain version again with the hidden and intermediate units permuted
+    (the same function, summed in another order).  Two kernel chains give
+    the same bits.  Timing (bf16): a
+    CUDA graph of one 14-step frame, per micro-step, beside the plain
+    version and the per-layer paths on the same weights (proj +
+    stack_forward + final norm, eager ops and fused=True), and the grid
+    barriers alone."""
+    from qwen3tts_tpu_torch.models import predictor as predictor_lib
+    from qwen3tts_tpu_torch.models.layers import decode_mask, rms_norm, stack_forward, \
+        unstack_layers
+    from qwen3tts_tpu_torch.ops import predictor_step as ps
+
+    dev = torch.device("cuda")
+    max_err, out = {}, {}
+    for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cfg, params = _predictor_weights(dt, seed=10)
+        pcfg, Ht = cfg.predictor, cfg.talker.hidden_size
+        w = ps.micro_step_weights(params)
+        g = torch.Generator(device=dev).manual_seed(11)
+        L, S, KVH, D = (pcfg.num_hidden_layers, pcfg.max_seq, pcfg.num_key_value_heads,
+                        pcfg.head_dim)
+        k0, v0 = (torch.zeros((L, S, KVH, D), device=dev, dtype=dt) for _ in range(2))
+        k0[:, :2] = torch.randn((L, 2, KVH, D), generator=g, device=dev).to(dt)
+        v0[:, :2] = torch.randn((L, 2, KVH, D), generator=g, device=dev).to(dt)
+        steps = pcfg.num_codebooks - 1
+        xs = [(0.5 * torch.randn((1, Ht), generator=g, device=dev)).to(dt)
+              for _ in range(steps)]
+        poss = [torch.full((1,), 2 + i, dtype=torch.int32, device=dev) for i in range(steps)]
+        cs = [predictor_lib._rope(pcfg, p.reshape(1, 1)) for p in poss]  # [1, 1, D] each
+        ropes = [(c[0, 0], s[0, 0]) for c, s in cs]
+
+        def step(fn, i, kk, vv, ww=w, x=None):
+            x = xs[i] if x is None else x
+            return fn(ww, x, *ropes[i], kk, vv, poss[i], pcfg.rms_norm_eps)
+
+        # the kernel's chain, each step held against the plain version (and
+        # the plain version in another summation order) on the kernel's cache
+        tol = MICRO_BF16_TOL if dname == "bf16" else F32_TOL
+        wperm, unperm = _permuted(w, g)
+        kk, vv = k0.clone(), v0.clone()
+        ref_k, ref_v, run0, err, spread = k0.clone(), v0.clone(), [], 0.0, 0.0
+        for i in range(steps):
+            kp, vp, kq, vq = kk.clone(), vv.clone(), kk.clone(), vv.clone()
+            h, kk, vv = step(ps.fused_micro_step, i, kk, vv)
+            hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
+            hq = step(ps.fused_micro_step_plain, i, kq, vq, wperm, xs[i][:, unperm["in"]])[0]
+            spread = max(spread, (hq[:, unperm["out"]].float() - hp.float()).abs().max().item())
+            err = max(err, _held("fused_micro_step", h, hp, tol,
+                                 f"x={dname} step {i} pos={2 + i} h"))
+            ref_k[:, 2 + i], ref_v[:, 2 + i] = kp[:, 2 + i], vp[:, 2 + i]
+            run0.append(h)
+        for slot in range(S):
+            for name, a, b in (("k", kk, ref_k), ("v", vv, ref_v)):
+                e = (a[:, slot].float() - b[:, slot].float()).abs()
+                if (e - tol[0] - tol[1] * b[:, slot].float().abs()).max().item() > 0:
+                    raise AssertionError(f"fused_micro_step cache {name} slot {slot} "
+                                         f"disagrees ({dname}): {e.max().item()}")
+                err = max(err, e.max().item())
+        if kk[:, 2 + steps:].any() or vv[:, 2 + steps:].any():
+            raise AssertionError("fused_micro_step wrote past its slots")
+        run0 += [kk, vv]
+        kk, vv, run1 = k0.clone(), v0.clone(), []
+        for i in range(steps):
+            h, kk, vv = step(ps.fused_micro_step, i, kk, vv)
+            run1.append(h)
+        if not all(torch.equal(a, b) for a, b in zip(run0, run1 + [kk, vv])):
+            raise AssertionError(f"fused_micro_step is not deterministic ({dname})")
+        if dname == "f32":
+            kp, vp = k0.clone(), v0.clone()
+            for i in range(steps):
+                hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
+                err = max(err, _held("fused_micro_step", run0[i], hp, tol,
+                                     f"x=f32 free-running chain step {i}"))
+            for a, b in ((run0[-2], kp), (run0[-1], vp)):
+                err = max(err, _held("fused_micro_step", a, b, tol, "x=f32 chain cache"))
+        log(f"  fused_micro_step x={dname}: {steps} chained steps and the cache slot by slot "
+            f"within {tol}, two runs bit-equal; max_abs_err={err:.3e}; the plain version "
+            f"against itself summed in another order: max_abs {spread:.3e}")
+        max_err[dname] = err
+        if dname != "bf16":
+            del params, w
+            continue
+
+        # timing: one frame's 14 micro-steps in a CUDA graph
+        kk, vv = k0.clone(), v0.clone()
+        spec = predictor_lib.block_spec(pcfg)
+        layers = unstack_layers(params["blocks"])
+        kv = {"k": k0.clone()[:, None], "v": v0.clone()[:, None]}
+        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+        masks = [decode_mask(S, p, zero) for p in poss]
+
+        def per_layer(i, fused):
+            x = predictor_lib._proj(params, xs[i])[:, None]
+            y, _ = stack_forward(layers, x, *cs[i], kv, poss[i], masks[i], spec, fused=fused)
+            return rms_norm(y, params["final_norm"], pcfg.rms_norm_eps)
+
+        t = {"kernel": graph_ms(lambda i: step(ps.fused_micro_step, i, kk, vv), steps),
+             "plain": graph_ms(lambda i: step(ps.fused_micro_step_plain, i, kk, vv), steps),
+             "stack_forward": graph_ms(lambda i: per_layer(i, False), steps),
+             "stack_forward_fused": graph_ms(lambda i: per_layer(i, True), steps)}
+        grid = ps.kernel_grid(dt, D)
+        n_sync = 1 + 5 * L
+        t["barriers"] = graph_ms(
+            lambda i: ps.grid_barriers(grid, n_sync, torch.cuda.current_stream()), steps)
+        live = sum(2 + i + 1 for i in range(steps)) / steps  # mean live slots a step
+        n_bytes = (nbytes(*w.values(), xs[0], xs[0].new_empty(pcfg.hidden_size))
+                   + L * (live + 1) * KVH * D * 2 * k0.element_size())
+        n_ops = 2 * sum(w[k].numel() for k in ("proj_w", "qkv", "o", "gu", "dn"))
+        b_ms, b_by = bound(n_bytes, n_ops, dt)
+        log(f"  timing fused_micro_step bf16 (CUDA graph of one {steps}-step frame, per "
+            f"micro-step): kernel {t['kernel'] * 1e3:.2f} us ({b_ms / t['kernel'] * 100:.1f} % "
+            f"of the {b_ms * 1e3:.2f} us bound, {n_bytes / 1e6:.1f} MB), plain "
+            f"{t['plain'] * 1e3:.2f} us, stack_forward {t['stack_forward'] * 1e3:.2f} us, "
+            f"fused=True {t['stack_forward_fused'] * 1e3:.2f} us; {n_sync} grid barriers "
+            f"alone on {grid} CTAs {t['barriers'] * 1e3:.2f} us  [{card}]")
+        out = {"times": t, "bound_ms": b_ms, "bound_by": b_by, "grid": grid,
+               "barriers": n_sync}
+        del params, w, layers, kv
+    return max_err, out
+
+
+def matvec_phase(card: str):
+    """matvec and matvec_kt against their plain versions at the probe's
+    default shape (K 1024, N 65536) and the talker's qkv shape (1024 x
+    4096), bf16 and float32, weights scaled by K^-0.5.  Then the probe's
+    run (benchmarks/matvec_probe.py inner_loop: 20 dependent calls) through
+    both kernels at both shapes in bf16, counts zeroed before and read
+    after.  Timing: a CUDA graph of 20 calls (the stream orders them; at
+    4096 each call reads its own weights, so that 20 x 8 MB stream from HBM
+    instead of the 50 MB L2), beside torch.matmul of 1 and 8 rows and
+    wt @ x (the probe's xla_1row / xla_8row / xla_pre_t)."""
+    from qwen3tts_tpu_torch.ops import matvec as mv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    T = 20
+    shapes = {"probe": (1024, 65536), "qkv": (1024, 4096)}
+    max_err = {"matvec": 0.0, "matvec_kt": 0.0}
+    data = {}
+    for where, (K, N) in shapes.items():
+        w32 = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+        x32 = torch.randn((1, K), generator=g, device=dev)
+        for dname, dt, tol in (("bf16", torch.bfloat16, BF16_TOL), ("f32", torch.float32,
+                                                                    F32_TOL)):
+            w, x = w32.to(dt), x32.to(dt)
+            wt = w.t().contiguous()
+            what = f"{where} K={K} N={N} x={dname}"
+            max_err["matvec"] = max(max_err["matvec"], _held(
+                "matvec", mv.matvec(x, w), mv.matvec_plain(x, w), tol, what))
+            max_err["matvec_kt"] = max(max_err["matvec_kt"], _held(
+                "matvec_kt", mv.matvec_kt(x, wt), mv.matvec_kt_plain(x, wt), tol, what))
+            if dname == "bf16":
+                data[where] = (x, w, wt)
+        del w32, x32
+
+    # the probe's run: T dependent calls of each kernel at both shapes
+    mv.matvec.launches = mv.matvec_kt.launches = 0  # the main path's run starts here
+    for where, (x, w, wt) in data.items():
+        K = x.shape[1]
+        for fn, weight in ((mv.matvec, w), (mv.matvec_kt, wt)):
+            xc = x
+            for _ in range(T):
+                y = fn(xc, weight)
+                xc = xc + y.reshape(1, -1)[:, :K].to(xc.dtype) * 1e-30
+            torch.cuda.synchronize()
+            if not torch.isfinite(xc).all():
+                raise AssertionError(f"{fn.__name__} probe run gave non-finite values")
+    launches = {"matvec": mv.matvec.launches, "matvec_kt": mv.matvec_kt.launches}
+    if launches != {"matvec": T * len(data), "matvec_kt": T * len(data)}:
+        raise AssertionError(f"matvec probe launches {launches}; want {T * len(data)} each")
+
+    times = {}
+    for where, (x, w, wt) in data.items():
+        K, N = w.shape
+        ws = [w] if where == "probe" else [w] + [torch.randn_like(w) for _ in range(T - 1)]
+        wts = [wt] if where == "probe" else [m.t().contiguous() for m in ws]
+        x8 = torch.randn((8, K), generator=g, device=dev).to(x.dtype)
+        xt = x.t().contiguous()
+        cases = {"matvec": lambda i: mv.matvec(x, ws[i % len(ws)]),
+                 "matvec_plain": lambda i: mv.matvec_plain(x, ws[i % len(ws)]),
+                 "matvec_kt": lambda i: mv.matvec_kt(x, wts[i % len(wts)]),
+                 "matvec_kt_plain": lambda i: mv.matvec_kt_plain(x, wts[i % len(wts)]),
+                 "torch_1row": lambda i: torch.matmul(x, ws[i % len(ws)]),
+                 "torch_8row": lambda i: torch.matmul(x8, ws[i % len(ws)]),
+                 "torch_pre_t": lambda i: torch.matmul(wts[i % len(wts)], xt)}
+        t = {name: graph_ms(fn, T) for name, fn in cases.items()}
+        wb = nbytes(w)
+        b_ms, b_by = bound(nbytes(w, x) + N * x.element_size(), 2 * K * N, x.dtype)
+        times[where] = {"times": t, "bound_ms": b_ms, "bound_by": b_by,
+                        "bound_kt_ms": bound(nbytes(wt, x) + N * 4, 2 * K * N, x.dtype)[0]}
+        log(f"  timing matvec probes {where} K={K} N={N} bf16 ({wb / 1e6:.1f} MB, bound "
+            f"{b_ms * 1e3:.2f} us): " + ", ".join(
+                f"{name} {v * 1e3:.2f} us ({wb / (v * 1e-3) / 1e9:.0f} GB/s, "
+                f"{wb / (v * 1e-3) / HBM_BYTES_PER_S * 100:.1f} % of 3.35 TB/s)"
+                for name, v in t.items()) + f"  [{card}]")
+        del ws, wts
+    return max_err, launches, times
 
 
 def _ref_wav(path: str):
@@ -624,6 +942,106 @@ def parity_int8_phase(card: str):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def slice_micro_phase(card: str):
+    """The 0.6B bf16 model's predictor through predict_frame(micro_kernel=True)
+    with the API's predictor policy (top-k 50, T 0.9) and a generator: 48
+    frames, the launch count exactly 14 a frame, tokens in range, embed_sum
+    finite; then host-wall ms/frame, synchronised, for the micro-step
+    kernel, the default path and fused=True in the same call."""
+    from qwen3tts_tpu_torch import FasterQwen3TTS
+    from qwen3tts_tpu_torch.models import predictor as predictor_lib
+    from qwen3tts_tpu_torch.ops.predictor_step import fused_micro_step, micro_step_weights
+
+    frames, sync = STEPS, torch.cuda.synchronize
+    t0 = time.time()
+    model = FasterQwen3TTS.from_pretrained("random:qwen3-tts-0.6b", device="cuda",
+                                           dtype="bfloat16")
+    sync()
+    log(f"load random:qwen3-tts-0.6b: {time.time() - t0:.1f}s")
+    params, pcfg = model.params["predictor"], model.cfg.predictor
+    _, policy = model._policies(0.9, 50, 1.0, True, 1.05, 2)
+    w = micro_step_weights(params)  # once, outside the frame loop
+    g = torch.Generator(device="cuda").manual_seed(13)
+    inputs = [torch.randn((1, 2, model.cfg.talker.hidden_size), generator=g,
+                          device="cuda").to(torch.bfloat16) for _ in range(frames)]
+
+    def run(**kw):
+        out = []
+        t = time.time()
+        for x in inputs:
+            out.append(predictor_lib.predict_frame(params, pcfg, x, g, policy, **kw))
+            sync()
+        return out, (time.time() - t) / frames * 1e3
+
+    run(micro_kernel=True, micro_weights=w)  # warm-up; not counted
+    fused_micro_step.launches = 0  # the main path's run starts here
+    out, ms_micro = run(micro_kernel=True, micro_weights=w)
+    launches = fused_micro_step.launches  # the main path's run ends here
+    if launches != (pcfg.num_codebooks - 1) * frames:
+        raise AssertionError(f"fused_micro_step launched {launches} times in {frames} frames; "
+                             f"want {pcfg.num_codebooks - 1} a frame")
+    toks = torch.stack([t for t, _ in out])
+    if toks.shape != (frames, 1, 15) or toks.min() < 0 or toks.max() >= pcfg.codebook_size:
+        raise AssertionError(f"micro-kernel frames: tokens {tuple(toks.shape)} out of range")
+    if not all(torch.isfinite(e).all() for _, e in out):
+        raise AssertionError("micro-kernel frames: embed_sum not finite")
+    run()  # warm-up of the default path
+    _, ms_default = run()
+    run(fused=True)
+    _, ms_fused = run(fused=True)
+    res = {"micro_kernel": ms_micro, "default": ms_default, "fused": ms_fused}
+    log(f"  predictor frames ({frames}, sampled, host wall synchronised): "
+        + ", ".join(f"{k} {v:.2f} ms/frame" for k, v in res.items())
+        + f"; {launches / frames:g} micro-step launches a frame  [{card}]")
+    return launches, res
+
+
+def parity_micro_phase(card: str):
+    """A small float32 model (predictor head_dim 64, so the card runs the
+    kernel), TF32 off: greedy predict_frame(micro_kernel=True) on the card
+    (kernel) and on the CPU (plain version) give the same tokens, embed_sum
+    within F32_ATOL."""
+    from qwen3tts_tpu_torch.core.loader import init_random
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models import predictor as predictor_lib
+    from qwen3tts_tpu_torch.ops.predictor_step import fused_micro_step
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        base = get_preset("tiny")
+        cfg = dataclasses.replace(
+            base, predictor=dataclasses.replace(base.predictor, head_dim=64))
+        params = init_random(cfg, seed=5, dtype=torch.float32, device="cpu")["predictor"]
+        rng = np.random.default_rng(2)
+        pins = rng.standard_normal((4, 1, 2, cfg.talker.hidden_size)).astype(np.float32)
+        greedy = predictor_lib.SamplingPolicy(do_sample=False)
+
+        def run(device):
+            dev = torch.device(device)
+            move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) \
+                else t.to(dev)
+            p = move(params)
+            return [tuple(t.cpu() for t in predictor_lib.predict_frame(
+                p, cfg.predictor, torch.from_numpy(x).to(dev), None, greedy,
+                micro_kernel=True)) for x in pins]
+
+        before = fused_micro_step.launches
+        gpu = run("cuda")
+        if fused_micro_step.launches - before != 14 * len(pins):
+            raise AssertionError("micro-kernel parity did not run the kernel")
+        cpu = run("cpu")
+        err = max((a[1] - b[1]).abs().max().item() for a, b in zip(gpu, cpu))
+        same = all(torch.equal(a[0], b[0]) for a, b in zip(gpu, cpu))
+        log(f"parity predict_frame(micro_kernel=True) (float32, TF32 off, {len(pins)} greedy "
+            f"frames): tokens equal={same}, embed_sum max_abs_err={err:.3e} "
+            f"(tol {F32_ATOL})  [{card}]")
+        if not same or err > F32_ATOL:
+            raise AssertionError("card and CPU disagree on the micro-kernel frame")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
@@ -631,44 +1049,76 @@ def main():
 
     card = probe()
     log("== kernel ==")
-    max_err, times = kernel_phase(card)
-    q_err, q_times = int8kv_kernel_phase(card)
-    f_err, f_times = fused_kernel_phase(card)
+    max_err, times, fd_extra = kernel_phase(card)
+    q_err, q_times, q_bounds = int8kv_kernel_phase(card)
+    f_err, f_times, f_bounds = fused_kernel_phase(card)
+    m_err, m_out = micro_kernel_phase(card)
+    v_err, v_launches, v_times = matvec_phase(card)
     log("== slice ==")
     launches, results = slice_phase(card)
     log("== slice-int8 ==")
     q_launches, q_results = slice_int8_phase(card)
+    log("== slice-micro ==")
+    m_launches, m_frames = slice_micro_phase(card)
     log("== parity ==")
     parity_phase(card)
     parity_int8_phase(card)
+    parity_micro_phase(card)
     log("slice: " + json.dumps({"card": card, "requests": results,
                                 "kernel_max_abs_err": max_err,
                                 "kernel_ms_pos2000": times[2000][0],
-                                "plain_ms_pos2000": times[2000][1]}))
+                                "plain_ms_pos2000": times[2000][1],
+                                "sdpa_ms": fd_extra["library_ms"]}))
     log("slice-int8: " + json.dumps({
         "card": card, "requests": q_results, "launches": q_launches,
         "int8kv_max_abs_err": q_err,
         "int8kv_ms_pos2000": q_times[2000][0], "int8kv_plain_ms_pos2000": q_times[2000][1],
         "fused_max_abs_err": f_err,
         "fused_ms": {" ".join(k): v for k, v in f_times.items()}}))
+    log("slice-micro: " + json.dumps({
+        "card": card, "ms_per_frame": m_frames, "launches": m_launches,
+        "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],
+        "grid_ctas": m_out["grid"], "grid_barriers": m_out["barriers"],
+        "matvec_max_abs_err": v_err,
+        "matvec_ms": {w: v["times"] for w, v in v_times.items()}}))
     fd_src, fb_src = ("qwen3tts_tpu_torch/csrc/flash_decode.cu",
                       "qwen3tts_tpu_torch/csrc/fused_block.cu")
-    # the fused kernels' times: the talker's shapes with int8 weights, as the
-    # int8 path runs them
+    mv_src = "qwen3tts_tpu_torch/csrc/matvec.cu"
+    probe_t = v_times["probe"]["times"]
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms_by, library_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
+                "library_ms": library_ms}
+
+    # flash-decode at pos 300; the fused kernels at the talker's shapes with
+    # int8 weights, as the int8 path runs them; the micro-step per step of a
+    # bf16 frame; the matvecs at the probe's default shape in bf16
     print(json.dumps({"kernels": [
-        {"name": "flash_decode", "route": "cuda", "source": fd_src,
-         "replaces": "qwen3tts_tpu/ops/flash_decode.py:180", "launches": launches,
-         "max_abs_err": max_err["bf16"], "ms": times[300][0], "plain_ms": times[300][1]},
-        {"name": "flash_decode_int8kv", "route": "cuda", "source": fd_src,
-         "replaces": "qwen3tts_tpu/ops/flash_decode.py:180",
-         "launches": q_launches["flash_decode_int8kv"], "max_abs_err": q_err["bf16"],
-         "ms": q_times[300][0], "plain_ms": q_times[300][1]},
-        *({"name": name, "route": "cuda", "source": fb_src,
-           "replaces": f"qwen3tts_tpu/ops/fused_block.py:{line}",
-           "launches": q_launches[name], "max_abs_err": f_err[name],
-           "ms": f_times[(name, "talker", "int8")][0],
-           "plain_ms": f_times[(name, "talker", "int8")][1]}
+        entry("flash_decode", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180", launches,
+              max_err["bf16"], times[300][0], times[300][1], fd_extra["bound"][300],
+              fd_extra["library_ms"][300]),
+        entry("flash_decode_int8kv", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180",
+              q_launches["flash_decode_int8kv"], q_err["bf16"], q_times[300][0],
+              q_times[300][1], q_bounds[300], None),
+        *(entry(name, fb_src, f"qwen3tts_tpu/ops/fused_block.py:{line}", q_launches[name],
+                f_err[name], f_times[(name, "talker", "int8")][0],
+                f_times[(name, "talker", "int8")][1], f_bounds[(name, "talker", "int8")],
+                None)
           for name, line in (("fused_norm_matmul", 95), ("fused_o_mlp", 187))),
+        entry("fused_micro_step", "qwen3tts_tpu_torch/csrc/predictor_step.cu",
+              "qwen3tts_tpu/ops/predictor_step.py:319", m_launches, m_err["bf16"],
+              m_out["times"]["kernel"], m_out["times"]["plain"],
+              (m_out["bound_ms"], m_out["bound_by"]), None),
+        entry("matvec", mv_src, "benchmarks/matvec_probe.py:65", v_launches["matvec"],
+              v_err["matvec"], probe_t["matvec"], probe_t["matvec_plain"],
+              (v_times["probe"]["bound_ms"], v_times["probe"]["bound_by"]),
+              probe_t["torch_1row"]),
+        entry("matvec_kt", mv_src, "benchmarks/matvec_probe.py:85", v_launches["matvec_kt"],
+              v_err["matvec_kt"], probe_t["matvec_kt"], probe_t["matvec_kt_plain"],
+              (v_times["probe"]["bound_kt_ms"], v_times["probe"]["bound_by"]),
+              probe_t["torch_pre_t"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ import torch
 from ..audio.vocoder import Vocoder
 from ..audio.wav import read_wav, resample
 from ..core.config import DTYPES, TTSModelConfig
-from ..core.loader import load_pretrained
+from ..core.loader import load_pretrained, resolve_device
 from ..models import speaker as speaker_lib
 from ..models.predictor import SamplingPolicy
 from ..ops.quant import quantize_bundle
@@ -30,10 +30,6 @@ from .prompt import PromptBuilder
 from .tokenizer import TextTokenizer
 
 logger = logging.getLogger(__name__)
-
-
-def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 class FasterQwen3TTS:
@@ -69,7 +65,7 @@ class FasterQwen3TTS:
                         quantize: Optional[str] = None,
                         kv_quant: bool = False) -> "FasterQwen3TTS":
         """Build a model from 'random:<preset>' on ``device`` (default: the
-        card when there is one).  ``dtype`` names the talker/predictor dtype
+        card; with no card, pass ``device="cpu"`` or it raises).  ``dtype`` names the talker/predictor dtype
         ("bfloat16", "float32", ...); the codec and speaker encoder stay
         float32, and the codec computes in bfloat16.
 
@@ -78,7 +74,7 @@ class FasterQwen3TTS:
         both, "int8-talker" or "int8-predictor" one; the w8a8 modes raise
         NotImplementedError, unknown modes ValueError.  ``kv_quant=True``
         keeps the talker's KV cache in int8."""
-        device = torch.device(device) if device is not None else _default_device()
+        device = resolve_device(device)
         if isinstance(dtype, str):
             dtype = DTYPES[dtype]
         cfg, params = load_pretrained(model_name, dtype=dtype, seed=seed, device=device)

@@ -18,6 +18,9 @@ Talker and predictor are cast to the model dtype, except the int8
 weight-only leaves ``{"q", "scale"}`` of a quantized bundle
 (``ops/quant.py``), which keep int8 ``q`` and float32 ``scale`` bit for bit;
 codec and speaker encoder stay float32, as in the JAX package.
+
+Each entry point builds on the card unless the caller names a device; with
+no card and no device given it raises rather than carry on on the CPU.
 """
 from __future__ import annotations
 
@@ -31,14 +34,24 @@ from .config import TTSModelConfig, dtype_name
 from .presets import get_preset
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as given, else the card; with neither, a RuntimeError."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the port runs on the card; pass device="cpu" '
+                           "to run on the CPU")
+    return torch.device("cuda")
+
+
 def init_random(cfg: TTSModelConfig, seed: int = 0, dtype: Optional[torch.dtype] = None,
-                device="cpu") -> Dict[str, Any]:
+                device=None) -> Dict[str, Any]:
     from ..models import codec as codec_lib
     from ..models import predictor as predictor_lib
     from ..models import speaker as speaker_lib
     from ..models import talker as talker_lib
 
-    device = torch.device(device)
+    device = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
     return {
@@ -50,9 +63,10 @@ def init_random(cfg: TTSModelConfig, seed: int = 0, dtype: Optional[torch.dtype]
     }
 
 
-def load_pretrained(model_name: str, dtype=None, seed: int = 0, device="cpu"
+def load_pretrained(model_name: str, dtype=None, seed: int = 0, device=None
                     ) -> Tuple[TTSModelConfig, Dict[str, Any]]:
     """Resolve 'random:<preset>'.  Checkpoint directories are not ported yet."""
+    device = resolve_device(device)
     if not model_name.startswith("random:"):
         raise NotImplementedError(
             f"'{model_name}': the PyTorch port loads only 'random:<preset>' models; "
@@ -146,12 +160,12 @@ def _speaker_from_jax(spk, device) -> Dict[str, Any]:
 
 
 def bundle_from_jax_numpy(tree: Dict[str, Any], cfg: TTSModelConfig,
-                          dtype: Optional[torch.dtype] = None, device="cpu"
+                          dtype: Optional[torch.dtype] = None, device=None
                           ) -> Dict[str, Any]:
     """JAX bundle (numpy leaves; any subset of talker / predictor / codec /
     speaker) -> the port's parameters on ``device``.  The codec encoder is
     not part of the port yet and is dropped."""
-    device = torch.device(device)
+    device = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
     out: Dict[str, Any] = {}
     for part in ("talker", "predictor"):

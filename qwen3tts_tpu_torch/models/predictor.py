@@ -6,7 +6,10 @@ over a 17-slot cache, with one LM head and one sample per codebook.  The
 predictor (head_dim 64) uses the plain masked attention, as in the JAX
 package, which passes it no flash context.  With ``fused`` the 14
 single-token micro-steps run each block through the fused kernels; the
-2-token prefill does not.  The lm_heads may be int8 weight-only
+2-token prefill does not.  With ``micro_kernel`` each micro-step is one
+launch of ``ops/predictor_step.py:fused_micro_step`` (proj + every block +
+final norm), gated as in the JAX package: batch 1, no sliding window,
+unquantized blocks.  The lm_heads may be int8 weight-only
 (``ops/quant.py:quantize_bundle``).
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core.config import PredictorConfig
+from ..ops.predictor_step import fused_micro_step, micro_step_weights
 from ..ops.quant import is_quantized
 from ..ops.rope import mrope_cos_sin
 from ..ops.sampling import sample_logits
@@ -99,9 +103,13 @@ def predict_frame(
     policy: SamplingPolicy,
     layers: Optional[Sequence[Params]] = None,
     fused: bool = False,
+    micro_kernel: bool = False,
+    micro_weights: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the 15-codebook frame.  Returns (tokens [B, 15] int64, embed_sum
-    [B, 1, H_talker]) with embed_sum = sum_i codec_embeddings[i][tokens_i]."""
+    [B, 1, H_talker]) with embed_sum = sum_i codec_embeddings[i][tokens_i].
+    ``micro_weights`` is ``micro_step_weights(params)``, prepared once
+    outside the frame loop (made here when it is not given)."""
     B = pred_input.shape[0]
     dev = pred_input.device
     spec = block_spec(cfg)
@@ -123,6 +131,23 @@ def predict_frame(
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     tok = sample(_lm_logits(params, 0, h[:, -1, :]))
     toks = [tok]
+
+    # the whole-micro-step kernel masks idx <= pos and nothing else, and
+    # reads plain weights: the JAX package's gate (predictor.py:180-181)
+    if (micro_kernel and B == 1 and cfg.sliding_window is None
+            and not is_quantized(params["blocks"]["qkv_proj"])):
+        w = micro_weights if micro_weights is not None else micro_step_weights(params)
+        kk, vv = kv["k"][:, 0], kv["v"][:, 0]  # [L, S, KVH, D] views, written in place
+        for cb in range(1, cfg.num_codebooks):
+            pos = torch.full((1,), cb + 1, dtype=torch.int32, device=dev)
+            cos, sin = _rope(cfg, pos.reshape(1, 1))
+            h, kk, vv = fused_micro_step(w, params["codec_embeddings"][cb - 1][tok],
+                                         cos[0, 0], sin[0, 0], kk, vv, pos,
+                                         eps=cfg.rms_norm_eps)
+            tok = sample(_lm_logits(params, cb, h))
+            toks.append(tok)
+        tokens = torch.stack(toks, dim=1)  # [1, 15]
+        return tokens, embed_sum_for(params, tokens, pred_input.dtype)
 
     for cb in range(1, cfg.num_codebooks):
         x = _proj(params, params["codec_embeddings"][cb - 1][tok])[:, None, :]

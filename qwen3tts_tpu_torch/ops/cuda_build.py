@@ -25,7 +25,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 GENCODE = "arch=compute_90a,code=sm_90a"
 SOURCES = {"flash_decode": CSRC / "flash_decode.cu",
-           "fused_block": CSRC / "fused_block.cu"}
+           "fused_block": CSRC / "fused_block.cu",
+           "predictor_step": CSRC / "predictor_step.cu",
+           "matvec": CSRC / "matvec.cu"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

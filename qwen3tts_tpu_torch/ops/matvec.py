@@ -1,0 +1,115 @@
+"""Weight-streaming matrix-vector products at batch 1: the CUDA kernels and
+their plain PyTorch versions.
+
+Port of the two Pallas kernels of ``benchmarks/matvec_probe.py``, which
+measure how fast one chip streams weights at batch 1:
+
+  matvec     (``pallas_mv``)     x [1, K] @ w [K, N] -> [1, N] in x's dtype,
+                                 products summed in float32
+  matvec_kt  (``pallas_mv_kt``)  the rows of wt [N, K] times x [1, K] ->
+                                 [N, 1] float32: each product in the inputs'
+                                 dtype, the row sum in float32 rounded to
+                                 the inputs' dtype, as the Pallas body does
+
+x and the weights share one dtype (bfloat16 or float32).  The TPU kernels'
+``bn`` / ``bm`` tile arguments do not carry over: the CUDA kernels in
+``qwen3tts_tpu_torch/csrc/matvec.cu`` choose their own tiling for the
+card's 132 SMs.  On CUDA tensors the wrappers launch them (built at first
+use, ``ops/cuda_build.py``) or raise; on CPU tensors they run the plain
+versions.  ``matvec.launches`` and ``matvec_kt.launches`` count launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import cuda_build
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+MAX_K = 8192  # longest x the matvec kernel keeps in shared memory
+
+
+def matvec_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def matvec_kt_plain(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    return (wt * x).float().sum(dim=1, keepdim=True).to(x.dtype).float()
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    lib = cuda_build.library("matvec")
+    fns = []
+    for fn in (lib.qwen3tts_matvec, lib.qwen3tts_matvec_kt):
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return tuple(fns)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, k_axis: int, what: str):
+    if x.dim() != 2 or x.shape[0] != 1 or w.dim() != 2 or w.shape[k_axis] != x.shape[1]:
+        raise ValueError(f"{what}: x [1, K] and a weight with K = {x.shape[-1]} on axis "
+                         f"{k_axis} wanted; got {tuple(x.shape)}, {tuple(w.shape)}")
+    if x.device.type == "cpu":
+        return
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"{what} runs on cpu or cuda, with x and the weight on one device; "
+                         f"got {x.device}, {w.device}")
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise ValueError(f"{what}: the kernel takes bfloat16 or float32 x and weight of one "
+                         f"dtype; got {x.dtype}, {w.dtype}")
+    for name, t in (("x", x), ("weight", w)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+
+
+def _launch(fn, what: str, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, K: int,
+            N: int):
+    with torch.cuda.device(x.device):
+        rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(), K, N,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+def matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [1, K] @ w [K, N] -> [1, N] in x's dtype (float32 sums).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    _check(x, w, 0, "matvec")
+    if x.device.type == "cpu":
+        return matvec_plain(x, w)
+    K, N = w.shape
+    if not (K <= MAX_K and N % 8 == 0):
+        raise ValueError(f"matvec: no kernel instance for K {K}, N {N} "
+                         f"(needs K <= {MAX_K}, N % 8 == 0)")
+    out = torch.empty((1, N), dtype=x.dtype, device=x.device)
+    _launch(_kernel_fns()[0], "matvec", x, w, out, K, N)
+    matvec.launches += 1
+    return out
+
+
+def matvec_kt(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """sum(wt [N, K] * x [1, K], axis 1) -> [N, 1] float32, each product in
+    the inputs' dtype and the sum rounded to it.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (or raise)."""
+    _check(x, wt, 1, "matvec_kt")
+    if x.device.type == "cpu":
+        return matvec_kt_plain(x, wt)
+    N, K = wt.shape
+    if K % (16 // x.element_size()):
+        raise ValueError(f"matvec_kt: no kernel instance for K {K} (needs whole 16-byte "
+                         f"rows)")
+    out = torch.empty((N, 1), dtype=torch.float32, device=x.device)
+    _launch(_kernel_fns()[1], "matvec_kt", x, wt, out, K, N)
+    matvec_kt.launches += 1
+    return out
+
+
+matvec.launches = 0
+matvec_kt.launches = 0

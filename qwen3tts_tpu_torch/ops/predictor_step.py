@@ -1,0 +1,285 @@
+"""One code-predictor micro-step (proj + every block + final norm) as one
+kernel launch: the CUDA kernel and its plain PyTorch version.
+
+Port of ``qwen3tts_tpu/ops/predictor_step.py:fused_micro_step``.  The
+predictor's frame is 15 codebooks; after a 2-token prefill, codebooks
+1..14 each run one single-token micro-step through the whole 5-layer
+stack.  ``fused_micro_step`` runs that micro-step as one launch of the
+persistent cooperative kernel in
+``qwen3tts_tpu_torch/csrc/predictor_step.cu`` (built at first use,
+``ops/cuda_build.py``); on CPU tensors it runs ``fused_micro_step_plain``.
+``fused_micro_step.launches`` counts kernel launches.
+
+The arithmetic is the Pallas kernel's, not ``models/layers.py``'s: the
+residual stream stays float32 through every layer (proj output plus the
+float32 bias, o and down products added in float32); each activation is
+cast to the weight dtype right before its product and the products are
+accumulated in float32; q/k head-norm and rope are float32 with the
+float32 norm weights; v is stored raw; scores are scaled by D^-0.5 and
+masked to slots ``<= pos``; the probabilities are not rounded; the final
+norm is cast to the dtype.  In bf16 this rounds at other places than the
+default path.
+
+Batch 1, plain (unquantized) weights of the activations' dtype, full
+attention (no sliding window): ``models/predictor.py:predict_frame`` gates
+it exactly as the JAX package does.  The cache ``[L, S, KVH, D]`` (the
+batch axis of ``[L, 1, S, KVH, D]`` dropped) is written in place at slot
+``pos`` and returned, as the Pallas call's aliased outputs are.  ``pos`` is
+an int32 device tensor and ``cos``/``sin`` are device tensors, so a frame
+never waits for the host.
+
+The Pallas kernel's head-major relayout, rotate-half matrix and scalar
+prefetch schedule exist because Mosaic cannot reshape lanes; the CUDA
+kernel reads the layer-stacked weights as they are, and
+``micro_step_weights`` only converts the norm weights and the proj bias to
+float32 once, outside the frame loop.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from . import cuda_build
+from .quant import is_quantized
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+HEAD_DIMS = (64, 128)  # lanes hold D / 32 elements, rotate-half pairs in one lane
+MAX_K = 4096  # longest activation row the kernel keeps in shared memory
+MAX_S = 64  # most cache slots
+COLS = 8  # output columns per work item: Hp is a multiple of it
+COLS_QKV, COLS_GU = 16, 32  # the qkv width and I are multiples of these
+_MATRICES = ("proj_w", "qkv", "o", "gu", "dn")
+_workspace: Dict[Tuple, torch.Tensor] = {}
+
+Weights = Dict[str, torch.Tensor]
+
+
+def micro_step_weights(params: Dict) -> Weights:
+    """The predictor's parameters as the micro-step reads them, prepared
+    once outside the frame loop: the layer-stacked matrices as they are
+    (``[L, in, out]``), the norm weights and the proj bias in float32."""
+    blocks = params["blocks"]
+    if any(is_quantized(blocks[k]) for k in ("qkv_proj", "o_proj", "gateup_proj",
+                                             "down_proj")):
+        raise ValueError("fused_micro_step takes plain (unquantized) weights")
+
+    def f32(t):
+        return t.float().contiguous()
+
+    return {
+        "proj_w": params["small_to_mtp"]["w"].contiguous(),
+        "proj_b": f32(params["small_to_mtp"]["b"]),
+        "in_norm": f32(blocks["input_norm"]),
+        "post_norm": f32(blocks["post_norm"]),
+        "q_norm": f32(blocks["q_norm"]),
+        "k_norm": f32(blocks["k_norm"]),
+        "final_norm": f32(params["final_norm"]),
+        "qkv": blocks["qkv_proj"].contiguous(),
+        "o": blocks["o_proj"].contiguous(),
+        "gu": blocks["gateup_proj"].contiguous(),
+        "dn": blocks["down_proj"].contiguous(),
+    }
+
+
+def _geometry(w: Weights, kv_k: torch.Tensor) -> Tuple[int, ...]:
+    """(Ht, Hp, NH, KVH, D, I, L, S), checked against every weight."""
+    if kv_k.dim() != 4:
+        raise ValueError(f"kv_k must be [L, S, KVH, D], got {tuple(kv_k.shape)}")
+    L, S, KVH, D = kv_k.shape
+    Ht, Hp = w["proj_w"].shape
+    QT = w["qkv"].shape[-1]
+    NH = QT // D - 2 * KVH
+    I = w["dn"].shape[1]
+    want = {"proj_b": (Hp,), "in_norm": (L, Hp), "post_norm": (L, Hp), "q_norm": (L, D),
+            "k_norm": (L, D), "final_norm": (Hp,), "qkv": (L, Hp, (NH + 2 * KVH) * D),
+            "o": (L, NH * D, Hp), "gu": (L, Hp, 2 * I), "dn": (L, I, Hp)}
+    for name, shape in want.items():
+        if tuple(w[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(w[name].shape)}, want {shape} for "
+                             f"a [{L}, {S}, {KVH}, {D}] cache")
+    if NH < 1 or NH % KVH:
+        raise ValueError(f"{NH} query heads do not group over {KVH} kv heads")
+    return Ht, Hp, NH, KVH, D, I, L, S
+
+
+def _rms_f32(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    var = x.pow(2).mean(dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps) * w
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def fused_micro_step_plain(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor,
+                           pos: torch.Tensor, eps: float = 1e-6
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The micro-step in PyTorch ops, with the kernel's arithmetic.  Writes
+    slot ``pos`` of the cache in place; returns (h [1, Hp], kv_k, kv_v)."""
+    Ht, Hp, NH, KVH, D, I, L, S = _geometry(w, kv_k)
+    dt = x_emb.dtype
+    G = NH // KVH
+
+    def mv(a, m):  # a float32 [1, K], cast to the dtype; products summed in float32
+        return a.to(dt).float() @ m.float()
+
+    rows = pos.reshape(1).long()
+    live = torch.arange(S, device=x_emb.device) <= rows  # [S]
+    cs, sn = cos.float(), sin.float()
+    xp = mv(x_emb.float(), w["proj_w"]) + w["proj_b"]  # [1, Hp] float32
+    for l in range(L):
+        qkv = mv(_rms_f32(xp, w["in_norm"][l], eps), w["qkv"][l])[0]
+        q = qkv[: NH * D].reshape(NH, D)
+        k = qkv[NH * D: (NH + KVH) * D].reshape(KVH, D)
+        v = qkv[(NH + KVH) * D:].reshape(KVH, D)
+        q = _rms_f32(q, w["q_norm"][l], eps)
+        k = _rms_f32(k, w["k_norm"][l], eps)
+        q = q * cs + _rotate_half(q) * sn
+        k = k * cs + _rotate_half(k) * sn
+        kv_k[l].index_copy_(0, rows, k.to(kv_k.dtype)[None])
+        kv_v[l].index_copy_(0, rows, v.to(kv_v.dtype)[None])
+        kc = kv_k[l].float().permute(1, 0, 2)  # [KVH, S, D]
+        vc = kv_v[l].float().permute(1, 0, 2)
+        sc = torch.matmul(q.reshape(KVH, G, D), kc.transpose(-1, -2)) * (D ** -0.5)
+        p = torch.softmax(sc.masked_fill(~live, -1e30), dim=-1)  # [KVH, G, S]
+        attn = torch.matmul(p, vc).reshape(1, NH * D)
+        xp = xp + mv(attn, w["o"][l])
+        gu = mv(_rms_f32(xp, w["post_norm"][l], eps), w["gu"][l])
+        g, u = gu[:, :I], gu[:, I:]
+        xp = xp + mv(g * torch.sigmoid(g) * u, w["dn"][l])
+    return _rms_f32(xp, w["final_norm"], eps).to(dt), kv_k, kv_v
+
+
+# ---------------------------------------------------------------------------
+# wrapper
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    lib = cuda_build.library("predictor_step")
+    step = lib.qwen3tts_micro_step
+    step.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                     ctypes.c_float, ctypes.c_void_p]
+    step.restype = ctypes.c_int
+    grid = lib.qwen3tts_micro_step_grid
+    grid.argtypes = [ctypes.c_int, ctypes.c_int]
+    grid.restype = ctypes.c_int
+    barriers = lib.qwen3tts_grid_barriers
+    barriers.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    barriers.restype = ctypes.c_int
+    return step, grid, barriers
+
+
+def _workspace_for(device, Hp: int, QT: int, Dq: int, I: int) -> torch.Tensor:
+    """The float32 vectors between phases (xp, qkv, attn, act), allocated
+    once per shape.  Launches are ordered on the stream, so one buffer
+    serves them all."""
+    key = (device, Hp, QT, Dq, I)
+    ws = _workspace.get(key)
+    if ws is None:
+        ws = _workspace[key] = torch.empty(Hp + QT + Dq + I, dtype=torch.float32,
+                                           device=device)
+    return ws
+
+
+def _check(w: Weights, x_emb, cos, sin, kv_k, kv_v, pos, dims):
+    """Shapes and dtypes, on every device: the matrices, x_emb and the cache
+    in one dtype, everything else float32 except the int32 pos."""
+    Ht, Hp, NH, KVH, D, I, L, S = dims
+    if x_emb.shape != (1, Ht) or kv_v.shape != kv_k.shape:
+        raise ValueError(f"x_emb [1, {Ht}] and kv_v {tuple(kv_k.shape)} wanted; got "
+                         f"{tuple(x_emb.shape)}, {tuple(kv_v.shape)}")
+    if cos.shape != (D,) or sin.shape != (D,) or pos.numel() != 1:
+        raise ValueError(f"cos/sin [{D}] and a one-element pos wanted; got "
+                         f"{tuple(cos.shape)}, {tuple(sin.shape)}, {tuple(pos.shape)}")
+    dt = x_emb.dtype
+    tensors = {"x_emb": (x_emb, dt), "kv_k": (kv_k, dt), "kv_v": (kv_v, dt),
+               "cos": (cos, torch.float32), "sin": (sin, torch.float32),
+               "pos": (pos, torch.int32)}
+    tensors.update({name: (w[name], dt) for name in _MATRICES})
+    tensors.update({name: (t, torch.float32) for name, t in w.items()
+                    if name not in _MATRICES})
+    for name, (t, dtype) in tensors.items():
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    return tensors
+
+
+def _check_cuda(tensors: Dict, x_emb: torch.Tensor, dims):
+    Ht, Hp, NH, KVH, D, I, L, S = dims
+    if x_emb.device.type != "cuda":
+        raise ValueError(f"fused_micro_step runs on cpu or cuda, not {x_emb.device}")
+    if x_emb.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel takes bfloat16 or float32, not {x_emb.dtype}")
+    for name, (t, _) in tensors.items():
+        if t.device != x_emb.device:
+            raise ValueError(f"{name} is on {t.device}, x_emb on {x_emb.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name in _MATRICES + ("kv_k", "kv_v") and t.data_ptr() % 16:  # 16-byte loads
+            raise ValueError(f"{name} must be 16-byte aligned")
+    QT = (NH + 2 * KVH) * D
+    if (D not in HEAD_DIMS or S > MAX_S or max(Ht, Hp, NH * D, I) > MAX_K
+            or Hp % COLS or QT % COLS_QKV or I % COLS_GU):
+        raise ValueError(f"fused_micro_step has no kernel instance for Ht {Ht}, Hp {Hp}, "
+                         f"{NH}/{KVH} heads of {D}, I {I}, {S} slots (needs head_dim in "
+                         f"{HEAD_DIMS}, widths <= {MAX_K}, Hp, the qkv width and I "
+                         f"multiples of {COLS}, {COLS_QKV} and {COLS_GU}, <= {MAX_S} slots)")
+
+
+def fused_micro_step(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                     kv_k: torch.Tensor, kv_v: torch.Tensor, pos: torch.Tensor,
+                     eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One predictor micro-step: x_emb [1, Ht] (a codec embedding in talker
+    space) -> (h [1, Hp], kv_k, kv_v), the cache [L, S, KVH, D] written in
+    place at slot ``pos`` (int32, one element).  ``w`` comes from
+    ``micro_step_weights``; ``cos``/``sin`` are the float32 rope rows [D]
+    for ``pos``.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (or raise)."""
+    dims = _geometry(w, kv_k)
+    Ht, Hp, NH, KVH, D, I, L, S = dims
+    tensors = _check(w, x_emb, cos, sin, kv_k, kv_v, pos, dims)
+    if x_emb.device.type == "cpu":
+        return fused_micro_step_plain(w, x_emb, cos, sin, kv_k, kv_v, pos, eps)
+    _check_cuda(tensors, x_emb, dims)
+    step, _, _ = _kernel_fns()
+    out = torch.empty((1, Hp), dtype=x_emb.dtype, device=x_emb.device)
+    ws = _workspace_for(x_emb.device, Hp, (NH + 2 * KVH) * D, NH * D, I)
+    ptrs = (ctypes.c_void_p * 19)(*(t.data_ptr() for t in (
+        x_emb, w["proj_w"], w["proj_b"], w["in_norm"], w["post_norm"], w["q_norm"],
+        w["k_norm"], w["final_norm"], w["qkv"], w["o"], w["gu"], w["dn"], cos, sin,
+        kv_k, kv_v, pos, out, ws)))
+    dims_c = (ctypes.c_int * 8)(*dims)
+    with torch.cuda.device(x_emb.device):
+        rc = step(_DTYPE_CODE[x_emb.dtype], ptrs, dims_c, float(eps), float(D ** -0.5),
+                  torch.cuda.current_stream(x_emb.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_micro_step kernel launch failed: cudaError {rc}")
+    fused_micro_step.launches += 1
+    return out, kv_k, kv_v
+
+
+fused_micro_step.launches = 0
+
+
+def kernel_grid(dtype: torch.dtype, head_dim: int) -> int:
+    """CTAs of one micro-step launch on the current card."""
+    _, grid, _ = _kernel_fns()
+    n = grid(_DTYPE_CODE[dtype], head_dim)
+    if n <= 0:
+        raise RuntimeError(f"no co-resident grid for the micro-step kernel: cudaError {-n}")
+    return n
+
+
+def grid_barriers(grid: int, n: int, stream: torch.cuda.Stream) -> None:
+    """Launch ``n`` grid-wide barriers on ``grid`` CTAs and nothing else:
+    the barriers' share of a micro-step, timed apart."""
+    _, _, barriers = _kernel_fns()
+    rc = barriers(grid, n, stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"grid barrier launch failed: cudaError {rc}")

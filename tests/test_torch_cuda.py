@@ -1,7 +1,7 @@
 """PyTorch port on the card: the CUDA kernels (flash-decode with a float
-and an int8 cache, fused_norm_matmul, fused_o_mlp) against their plain
-versions, the wrappers' refusals, and the talker decode through the kernels
-against the CPU.
+and an int8 cache, fused_norm_matmul, fused_o_mlp, fused_micro_step, matvec,
+matvec_kt) against their plain versions, the wrappers' refusals, and the
+talker decode and the predictor frame through the kernels against the CPU.
 
 These need an NVIDIA card and nvcc, and skip elsewhere.  The card's machine
 has no JAX, so this file imports none and runs without tests/conftest.py:
@@ -17,11 +17,19 @@ torch = pytest.importorskip("torch")
 
 from qwen3tts_tpu_torch.ops import flash_decode as fd  # noqa: E402
 from qwen3tts_tpu_torch.ops import fused_block as fb  # noqa: E402
+from qwen3tts_tpu_torch.ops import matvec as mv  # noqa: E402
+from qwen3tts_tpu_torch.ops import predictor_step as ps  # noqa: E402
 from qwen3tts_tpu_torch.ops.quant import quantize_tensor  # noqa: E402
 
 # kernel vs plain, elementwise |out - ref| <= atol + rtol * |ref|
 TOL = {"bfloat16": (2e-3, 1.6e-2),  # kernel and plain each round to bf16: 2 ulps of |ref|
        "float32": (1e-5, 0.0)}  # summation order only
+# the bf16 micro-step: each phase rounds its activations to bf16, and the
+# roundings that float32 summation order flips carry through the layers, so
+# the plain version against itself in another summation order already misses
+# TOL (tests/test_torch_predictor_step.py, chip_smoke.py): twice the largest
+# spread measured, 1.95e-2
+MICRO_BF16_TOL = (4e-2, 1.6e-2)
 
 
 def _need_card():
@@ -239,3 +247,178 @@ def test_engine_on_card_raises_for_head_layout_without_kernel():
     tpe = torch.zeros((1, 1, H), device="cuda")
     with pytest.raises(ValueError, match="no instance"):
         eng.decode_chunk(state, tpe, 1, tpe, 1)
+
+
+def _predictor_params(dtype, cfg, talker_hidden, seed):
+    """Random predictor parameters on the card, norms and proj bias moved off
+    1 / 0 so that a misplaced one shows."""
+    from qwen3tts_tpu_torch.models import predictor as P
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = P.init_params(g, cfg, talker_hidden, dtype, dev)
+
+    def jitter(t, base):
+        return (base + 0.1 * torch.randn(t.shape, generator=g, device=dev)).to(dtype)
+
+    for k in ("input_norm", "post_norm", "q_norm", "k_norm"):
+        p["blocks"][k] = jitter(p["blocks"][k], 1.0)
+    p["final_norm"] = jitter(p["final_norm"], 1.0)
+    p["small_to_mtp"]["b"] = jitter(p["small_to_mtp"]["b"], 0.0)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_micro_step_kernel_matches_plain(dtype):
+    """Four chained kernel micro-steps (pos 2..5) at the 0.6B predictor's
+    shapes; each step's h and cache against the plain version run on the
+    kernel's cache as it stood before the step.  In float32 the plain chain
+    also runs on its own.  bf16 is held to MICRO_BF16_TOL.  A second run
+    gives the same bits."""
+    _need_card()
+    from qwen3tts_tpu_torch.core.presets import get_preset
+
+    dt = getattr(torch, dtype)
+    cfg = get_preset("qwen3-tts-0.6b")
+    pcfg, Ht = cfg.predictor, cfg.talker.hidden_size
+    w = ps.micro_step_weights(_predictor_params(dt, pcfg, Ht, seed=5))
+    tol = MICRO_BF16_TOL if dtype == "bfloat16" else TOL[dtype]
+    _micro_chain(w, pcfg, Ht, dt, pcfg.num_hidden_layers, tol, dtype == "float32")
+
+
+def _micro_chain(w, pcfg, Ht, dt, L, tol, free_running):
+    """Kernel micro-steps, each against the plain version on the kernel's
+    cache; with ``free_running`` the plain chain also runs on its own."""
+    from qwen3tts_tpu_torch.models import predictor as P
+
+    atol, rtol = tol
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    shape = (L, pcfg.max_seq, pcfg.num_key_value_heads, pcfg.head_dim)
+    k0, v0 = (torch.zeros(shape, device=dev, dtype=dt) for _ in range(2))
+    k0[:, :2] = torch.randn(k0[:, :2].shape, generator=g, device=dev).to(dt)
+    v0[:, :2] = torch.randn(v0[:, :2].shape, generator=g, device=dev).to(dt)
+    xs = [(0.5 * torch.randn((1, Ht), generator=g, device=dev)).to(dt) for _ in range(4)]
+
+    def step(fn, i, kk, vv):
+        pos = torch.full((1,), 2 + i, dtype=torch.int32, device=dev)
+        cos, sin = P._rope(pcfg, pos.reshape(1, 1))
+        return fn(w, xs[i], cos[0, 0], sin[0, 0], kk, vv, pos, pcfg.rms_norm_eps)
+
+    def close(a, b):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+    runs = []
+    for _ in range(2):
+        kk, vv, hs = k0.clone(), v0.clone(), []
+        for i in range(len(xs)):
+            kp, vp = kk.clone(), vv.clone()
+            before = ps.fused_micro_step.launches
+            h, kk, vv = step(ps.fused_micro_step, i, kk, vv)
+            assert ps.fused_micro_step.launches == before + 1
+            hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
+            torch.cuda.synchronize()
+            assert h.dtype == dt and h.shape == (1, pcfg.hidden_size)
+            close(h, hp)
+            close(kk, kp)
+            close(vv, vp)
+            hs.append(h)
+        assert not kk[:, 2 + len(xs):].any() and not vv[:, 2 + len(xs):].any()
+        runs.append(hs + [kk, vv])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)  # no float atomics: the same bits every run
+    if free_running:
+        kp, vp = k0.clone(), v0.clone()
+        for i in range(len(xs)):
+            hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
+            close(runs[0][i], hp)
+        close(runs[0][-2], kp)
+        close(runs[0][-1], vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("K,N", [(1024, 4096), (1024, 65536), (1000, 4096)])
+def test_matvec_kernels_match_plain(dtype, K, N):
+    _need_card()
+    atol, rtol = TOL[dtype]
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(dt)
+    wt = w.t().contiguous()
+    x = torch.randn((1, K), generator=g, device=dev).to(dt)
+    before = (mv.matvec.launches, mv.matvec_kt.launches)
+    y, z = mv.matvec(x, w), mv.matvec_kt(x, wt)
+    assert (mv.matvec.launches, mv.matvec_kt.launches) == (before[0] + 1, before[1] + 1)
+    y_ref, z_ref = mv.matvec_plain(x, w), mv.matvec_kt_plain(x, wt)
+    torch.cuda.synchronize()
+    assert y.shape == (1, N) and y.dtype == dt and z.shape == (N, 1) and z.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(z, z_ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_without_instance():
+    """On CUDA tensors a layout without a kernel instance raises; the plain
+    version never runs in its place."""
+    _need_card()
+    from qwen3tts_tpu_torch.core.presets import get_preset
+
+    cfg = get_preset("tiny")  # predictor head_dim 16: no micro-step instance
+    pcfg = cfg.predictor
+    w = ps.micro_step_weights(_predictor_params(torch.float32, pcfg, cfg.talker.hidden_size, 8))
+    dev = torch.device("cuda")
+    shape = (pcfg.num_hidden_layers, pcfg.max_seq, pcfg.num_key_value_heads, pcfg.head_dim)
+    kv = torch.zeros(shape, device=dev)
+    cs = torch.ones(pcfg.head_dim, device=dev)
+    pos = torch.full((1,), 2, dtype=torch.int32, device=dev)
+    x = torch.zeros((1, cfg.talker.hidden_size), device=dev)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        ps.fused_micro_step(w, x, cs, cs, kv, kv.clone(), pos)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ps.fused_micro_step(w, x, cs, cs.cpu(), kv, kv.clone(), pos)
+    xm = torch.zeros((1, 1024), device=dev)
+    with pytest.raises(ValueError, match="no kernel instance"):  # K > 8192
+        mv.matvec(xm.new_zeros((1, 9000)), xm.new_zeros((9000, 64)))
+    with pytest.raises(ValueError, match="one dtype"):
+        mv.matvec(xm, xm.new_zeros((1024, 64)).bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        mv.matvec_kt(xm, xm.new_zeros((1024, 64)).t())
+
+
+@pytest.mark.cuda
+def test_micro_frame_on_card_matches_cpu():
+    """Greedy predict_frame(micro_kernel=True) on a small float32 model
+    (predictor head_dim 64): the card (kernel, 14 launches) and the CPU
+    (plain version) give the same tokens, embed_sum within 1e-4.  TF32 off."""
+    _need_card()
+    from qwen3tts_tpu_torch.core.loader import init_random
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models import predictor as P
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        base = get_preset("tiny")
+        cfg = dataclasses.replace(base, predictor=dataclasses.replace(base.predictor,
+                                                                      head_dim=64))
+        params = init_random(cfg, seed=2, dtype=torch.float32, device="cpu")["predictor"]
+        pin = torch.randn((1, 2, cfg.talker.hidden_size),
+                          generator=torch.Generator().manual_seed(3))
+        out = {}
+        for device in ("cuda", "cpu"):
+            dev = torch.device(device)
+            def move(t):
+                return {k: move(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+
+            before = ps.fused_micro_step.launches
+            out[device] = P.predict_frame(move(params), cfg.predictor, pin.to(dev), None,
+                                          P.SamplingPolicy(do_sample=False), micro_kernel=True)
+            assert ps.fused_micro_step.launches - before == (14 if device == "cuda" else 0)
+        torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0], atol=0, rtol=0)
+        np.testing.assert_allclose(out["cuda"][1].cpu().numpy(), out["cpu"][1].numpy(),
+                                   atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

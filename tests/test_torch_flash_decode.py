@@ -173,5 +173,6 @@ def test_kernel_geometry_and_build_flags():
         cmd = cuda_build.nvcc_command("nvcc", cuda_build.BUILD_DIR / f"lib{name}.so", source)
         assert "arch=compute_90a,code=sm_90a" in cmd and str(source) in cmd
         assert source.exists()
-    assert set(cuda_build.SOURCES) == {"flash_decode", "fused_block"}
+    assert set(cuda_build.SOURCES) == {"flash_decode", "fused_block", "predictor_step",
+                                       "matvec"}
     assert len(cuda_build.build_key()) == 16

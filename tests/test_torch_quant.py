@@ -74,7 +74,7 @@ def _leaves(tree, prefix=""):
 def test_quantize_bundle_bit_equal(tiny_models, mode):
     jb = _jax_tiny_bundle(tiny_models)
     cfg = get_preset("tiny")
-    tb = bundle_from_jax_numpy(jax.tree.map(np.asarray, jb), cfg, torch.float32)
+    tb = bundle_from_jax_numpy(jax.tree.map(np.asarray, jb), cfg, torch.float32, "cpu")
     got = TQ.quantize_bundle(tb, mode)
     want = JQ.quantize_bundle(jb, mode)
     got_leaves = dict(_leaves(got))
@@ -97,7 +97,7 @@ def test_bridge_keeps_quantized_leaves_bit_exact(tiny_models):
     int8 ``q`` arrived as a float tensor and a float32 ``scale`` as bf16."""
     jq = JQ.quantize_bundle(_jax_tiny_bundle(tiny_models), "int8")
     tree = jax.tree.map(np.asarray, jq)
-    out = bundle_from_jax_numpy(tree, get_preset("tiny"), torch.bfloat16)
+    out = bundle_from_jax_numpy(tree, get_preset("tiny"), torch.bfloat16, "cpu")
     for part, key in (("talker", "qkv_proj"), ("talker", "down_proj"),
                       ("predictor", "gateup_proj")):
         leaf = out[part]["blocks"][key]

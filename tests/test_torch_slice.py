@@ -8,7 +8,10 @@
 - FasterQwen3TTS (``random:tiny``, CPU) returns steps x samples-per-frame
   audio, streaming and not, also with ``quantize="int8", kv_quant=True``.
 - A subprocess that cannot import JAX or the JAX package imports
-  qwen3tts_tpu_torch and runs one tiny generation.
+  qwen3tts_tpu_torch and runs one tiny generation, a predictor frame
+  through the micro-step and the matvec probes' kernels (plain versions).
+- With no card and no device given, the entry points raise instead of
+  running on the CPU.
 """
 import os
 import subprocess
@@ -217,6 +220,18 @@ def test_package_runs_without_jax(tmp_path):
         wavs, sr = m.generate_voice_clone("hi", "English", sys.argv[1], "",
                                           max_new_tokens=4, min_new_tokens=4)
         assert wavs[0].shape == (4 * m.vocoder.spf,), wavs[0].shape
+
+        import torch
+        from qwen3tts_tpu_torch.models import predictor as P
+        from qwen3tts_tpu_torch.ops import matvec as mv
+
+        pin = torch.randn((1, 2, m.cfg.talker.hidden_size))
+        toks, emb = P.predict_frame(m.params["predictor"], m.cfg.predictor, pin, None,
+                                    P.SamplingPolicy(do_sample=False), micro_kernel=True)
+        assert toks.shape == (1, 15) and torch.isfinite(emb).all()
+        x, w = torch.randn((1, 64)), torch.randn((64, 32))
+        assert mv.matvec(x, w).shape == (1, 32)
+        assert mv.matvec_kt(x, w.t().contiguous()).shape == (32, 1)
         assert not any(k.split(".")[0] in ("jax", "qwen3tts_tpu") for k in sys.modules)
         print("OK")
     """)
@@ -224,3 +239,23 @@ def test_package_runs_without_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script, str(tmp_path / "r.wav")],
                           capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["from_pretrained", "load_pretrained", "init_random",
+                                   "bundle_from_jax_numpy"])
+def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny_models, entry):
+    """With no card, an entry point given no device raises and names
+    device="cpu"; it never builds on the CPU by itself."""
+    from qwen3tts_tpu_torch.core import loader
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_preset("tiny")
+    calls = {
+        "from_pretrained": lambda: FasterQwen3TTS.from_pretrained("random:tiny"),
+        "load_pretrained": lambda: loader.load_pretrained("random:tiny"),
+        "init_random": lambda: loader.init_random(cfg),
+        "bundle_from_jax_numpy": lambda: loader.bundle_from_jax_numpy(
+            {"predictor": jax.tree.map(np.asarray, tiny_models[1])}, cfg),
+    }
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()
