@@ -20,10 +20,14 @@ Phases, in order; any failure raises and exits non-zero:
    talker's qkv shape (1024 x 4096), then the probe's 20-call run.
    bf16 (the main path's dtype) is held to 2e-3 + 1.6e-2*|ref|, float32 to
    1e-5 (where a slot or a row counted wrong shows above the tolerance).
-   Then times kernel, plain version and, where one PyTorch call computes
-   the same function, that call (CUDA graphs, CUDA events): SDPA for
-   flash-decode, torch.matmul for the matvecs; the micro-step also beside
-   the per-layer paths and its grid barriers alone.
+   The split-K kernels (flash-decode, matvec) give the same bits in two
+   runs, and one captured flash-decode graph replays right at (pos, pad)
+   written to device memory after capture.  Then times kernel, plain
+   version and, where one PyTorch call computes the same function, that
+   call (CUDA graphs, CUDA events): SDPA for flash-decode (at pos 300 with
+   one cache stack, warm in L2, and over two stacks, cold), torch.matmul
+   for the matvecs; the micro-step also beside the per-layer paths and its
+   grid barriers alone.
 3. slice  — FasterQwen3TTS("random:qwen3-tts-0.6b", bf16) on the card
    answers three requests through the public API (non-streaming, then two
    streaming at chunk 8), 48 steps each; checks audio length, range,
@@ -145,6 +149,47 @@ def _held(name: str, out: torch.Tensor, ref: torch.Tensor, tol, what: str) -> fl
     return err
 
 
+# (pos, pad) written to device memory between replays of one captured graph
+REPLAY_POSITIONS = [(0, 0), (15, 0), (16, 0), (17, 0), (300, 0), (1024, 1000), (2047, 0),
+                    (40, 100), (2000, 0)]
+
+
+def _flash_split_checks(name: str, q, k, v, scales, cases, tol):
+    """The split-K flash-decode kernel: two runs of every case give the same
+    bits, and a CUDA graph captured once replays right after pos and pad
+    change in device memory (each split finds its slice on the device)."""
+    from qwen3tts_tpu_torch.ops import flash_decode as fd
+
+    dev = q.device
+    for layer, pos, pad, window in cases:
+        args = (q, k, v, layer, torch.tensor([pos], dtype=torch.int32, device=dev),
+                torch.tensor([pad], dtype=torch.int32, device=dev), window, *scales)
+        if not torch.equal(fd.flash_decode(*args), fd.flash_decode(*args)):
+            raise AssertionError(f"{name}: two runs differ at {layer, pos, pad, window}")
+    p = torch.zeros((1,), dtype=torch.int32, device=dev)
+    pd = torch.zeros((1,), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fd.flash_decode(q, k, v, 27, p, pd, None, *scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode(q, k, v, 27, p, pd, None, *scales)
+    err = 0.0
+    for pos, pad in REPLAY_POSITIONS:
+        p.fill_(pos)
+        pd.fill_(pad)
+        graph.replay()
+        err = max(err, _held(f"{name} graph replay", out,
+                             fd.flash_decode_plain(q, k, v, 27, p, pd, None, *scales), tol,
+                             f"layer=27 pos={pos} pad={pad}"))
+        if pad > pos and out.abs().max().item() != 0.0:
+            raise AssertionError("pad > pos must give exact zeros (graph replay)")
+    log(f"  {name}: {len(cases)} cases bit-equal over two runs; one captured graph replayed "
+        f"at {len(REPLAY_POSITIONS)} (pos, pad) written after capture, max_abs_err={err:.3e}")
+
+
 def kernel_phase(card: str):
     from qwen3tts_tpu_torch.ops import cuda_build
     from qwen3tts_tpu_torch.ops import flash_decode as fd
@@ -195,45 +240,60 @@ def kernel_phase(card: str):
             max_err[name] = max(max_err[name], err)
     if fd.flash_decode.launches - before != 2 * len(cases):
         raise AssertionError("launch counter does not count launches")
+    splits = fd.num_splits(S, B, KVH, cuda_build.sm_count(dev))
+    log(f"  flash-decode grid: {KVH} kv heads x {B} row x {splits} splits = "
+        f"{KVH * B * splits} CTAs")
+    for name, (qq, kk, vv), tol in (("bf16", (q, k, v), BF16_TOL),
+                                   ("f32", (q32, k32, v32), F32_TOL)):
+        _flash_split_checks(f"flash-decode {name}", qq, kk, vv, (), cases, tol)
+    del k32, v32
 
-    times = {}
-    zero = ints(0)
-    for pos in (300, 2000):
-        p = ints(pos)
-        # one call per layer, as a decode step makes them: each call reads a
-        # different layer's slice of the cache
-        t_k = graph_ms(lambda i: fd.flash_decode(q, k, v, i, p, zero), L)
-        t_p = graph_ms(lambda i: fd.flash_decode_plain(q, k, v, i, p, zero), L)
-        times[pos] = (t_k, t_p)
-        live = pos + 1
-        gbs = live * KVH * D * 2 * 2 / (t_k * 1e-3) / 1e9
-        log(f"  timing pos={pos}: kernel {t_k * 1e3:.2f} us/call ({gbs:.1f} GB/s of live KV), "
-            f"plain {t_p * 1e3:.2f} us/call  [{card}]")
-
-    # the library yardstick: SDPA with GQA over the live slice of each layer,
-    # [B, NH, 1, D] against [B, KVH, live, D] views of the cache
+    # timing: one call per layer, as a decode step makes them, each call
+    # reading a different layer's slice of the cache.  "warm": one cache
+    # stack, whose live KV at pos 300 (34 MB) stays in the 50 MB L2 across
+    # replays; "cold": calls cycle over two stacks (69 MB at pos 300), as a
+    # decode step's weights evict the cache between layers.  At pos 2000 one
+    # stack's live KV is 230 MB: cold either way.
     import torch.nn.functional as F
 
-    extra = {"bound": {}, "library_ms": {}}
+    k2, v2 = (torch.randn((L, B, S, KVH, D), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    stacks = ((k, v), (k2, v2))
     qs = q[:, :, None, :]
 
-    def sdpa(layer, live):
-        return F.scaled_dot_product_attention(qs, k[layer, :, :live].transpose(1, 2),
-                                              v[layer, :, :live].transpose(1, 2),
+    def sdpa(kk, vv, layer, live):
+        # the library yardstick: SDPA with GQA over the live slice of a
+        # layer, [B, NH, 1, D] against [B, KVH, live, D] views of the cache
+        return F.scaled_dot_product_attention(qs, kk[layer, :, :live].transpose(1, 2),
+                                              vv[layer, :, :live].transpose(1, 2),
                                               enable_gqa=True)[:, :, 0]
 
-    for pos in (300, 2000):
-        live = pos + 1
-        # a layout check only (SDPA rounds the probabilities to bf16)
-        _held("sdpa (yardstick)", sdpa(0, live), fd.flash_decode_plain(q, k, v, 0, ints(pos),
-                                                                       zero),
-              (2e-2, 5e-2), f"pos={pos}")
-        t_l = graph_ms(lambda i: sdpa(i, live), L)
-        extra["library_ms"][pos] = t_l
-        extra["bound"][pos] = bound(nbytes(q, q) + 2 * live * KVH * D * k.element_size(),
+    times = {}
+    extra = {"bound": {}, "library_ms": {}}
+    zero = ints(0)
+    for key, pos, n in ((300, 300, 1), (2000, 2000, 1), ("cold300", 300, 2)):
+        p, live = ints(pos), pos + 1
+
+        def on(i):  # call i: layer i % L of stack i // L
+            return stacks[i // L][0], stacks[i // L][1], i % L
+
+        if n == 1:
+            # a layout check only (SDPA rounds the probabilities to bf16)
+            _held("sdpa (yardstick)", sdpa(k, v, 0, live),
+                  fd.flash_decode_plain(q, k, v, 0, p, zero), (2e-2, 5e-2), f"pos={pos}")
+        t_k = graph_ms(lambda i: fd.flash_decode(q, *on(i), p, zero), n * L)
+        t_p = graph_ms(lambda i: fd.flash_decode_plain(q, *on(i), p, zero), n * L)
+        t_l = graph_ms(lambda i: sdpa(*on(i), live), n * L)
+        times[key] = (t_k, t_p)
+        extra["library_ms"][key] = t_l
+        extra["bound"][key] = bound(nbytes(q, q) + 2 * live * KVH * D * k.element_size(),
                                     4 * NH * live * D, q.dtype)
-        log(f"  timing pos={pos}: F.scaled_dot_product_attention(enable_gqa) {t_l * 1e3:.2f} "
-            f"us/call; bound {extra['bound'][pos][0] * 1e3:.2f} us  [{card}]")
+        gbs = live * KVH * D * 2 * 2 / (t_k * 1e-3) / 1e9
+        log(f"  timing pos={pos} {'cold (2 stacks)' if n == 2 else 'one stack'}: kernel "
+            f"{t_k * 1e3:.2f} us/call ({gbs:.1f} GB/s of live KV), plain {t_p * 1e3:.2f} "
+            f"us/call, F.scaled_dot_product_attention(enable_gqa) {t_l * 1e3:.2f} us/call; "
+            f"bound {extra['bound'][key][0] * 1e3:.2f} us  [{card}]")
+    del k2, v2, stacks
     return max_err, times, extra
 
 
@@ -272,21 +332,39 @@ def int8kv_kernel_phase(card: str):
             max_err[name] = max(max_err[name], err)
     if fd.flash_decode.launches_int8kv - before != 2 * len(cases):
         raise AssertionError("int8-KV launch counter does not count launches")
+    for name, qq, tol in (("bf16", q32.bfloat16(), BF16_TOL), ("f32", q32, F32_TOL)):
+        _flash_split_checks(f"int8kv {name}", qq, kq, vq, (ks, vs), cases, tol)
+
+    # timing as kernel_phase: one stack (warm at pos 300: 17 MB of live KV
+    # and scales) and two stacks (cold: a second int8 cache and its scales)
+    kq2, ks2 = _quantize_rows(torch.randn((L, B, S, KVH, D), generator=g, device=dev))
+    vq2, vs2 = _quantize_rows(torch.randn((L, B, S, KVH, D), generator=g, device=dev))
+    stacks = ((kq, vq, ks, vs),
+              (kq2, vq2, *(t.transpose(-1, -2).contiguous() for t in (ks2, vs2))))
+    del ks2, vs2
     times = {}
     q, zero = q32.bfloat16(), ints(0)
-    for pos in (300, 2000):
+    for key, pos, n in ((300, 300, 1), (2000, 2000, 1), ("cold300", 300, 2)):
         p = ints(pos)
-        t_k = graph_ms(lambda i: fd.flash_decode(q, kq, vq, i, p, zero, None, ks, vs), L)
-        t_p = graph_ms(lambda i: fd.flash_decode_plain(q, kq, vq, i, p, zero, None, ks, vs), L)
-        times[pos] = (t_k, t_p)
+
+        def call(fn, i):  # call i: layer i % L of stack i // L
+            kk, vv, kks, vvs = stacks[i // L]
+            return fn(q, kk, vv, i % L, p, zero, None, kks, vvs)
+
+        t_k = graph_ms(lambda i: call(fd.flash_decode, i), n * L)
+        t_p = graph_ms(lambda i: call(fd.flash_decode_plain, i), n * L)
+        times[key] = (t_k, t_p)
         gbs = (pos + 1) * KVH * (D + 4) * 2 / (t_k * 1e-3) / 1e9
-        log(f"  int8kv timing pos={pos}: kernel {t_k * 1e3:.2f} us/call ({gbs:.1f} GB/s of "
-            f"live KV + scales), plain {t_p * 1e3:.2f} us/call  [{card}]")
+        log(f"  int8kv timing pos={pos} {'cold (2 stacks)' if n == 2 else 'one stack'}: "
+            f"kernel {t_k * 1e3:.2f} us/call ({gbs:.1f} GB/s of live KV + scales), plain "
+            f"{t_p * 1e3:.2f} us/call  [{card}]")
+    del stacks, kq2, vq2
     bounds = {pos: bound(nbytes(q, q) + 2 * (pos + 1) * KVH * (D * kq.element_size()
                                                           + ks.element_size()),
                          4 * NH * (pos + 1) * D, torch.int8) for pos in (300, 2000)}
-    log("  int8kv bound: " + ", ".join(f"pos={pos} {b[0] * 1e3:.2f} us"
-                                       for pos, b in bounds.items()))
+    bounds["cold300"] = bounds[300]
+    log("  int8kv bound: " + ", ".join(f"pos={pos} {bounds[pos][0] * 1e3:.2f} us"
+                                       for pos in (300, 2000)))
     return max_err, times, bounds
 
 
@@ -566,6 +644,7 @@ def matvec_phase(card: str):
     4096 each call reads its own weights, so that 20 x 8 MB stream from HBM
     instead of the 50 MB L2), beside torch.matmul of 1 and 8 rows and
     wt @ x (the probe's xla_1row / xla_8row / xla_pre_t)."""
+    from qwen3tts_tpu_torch.ops import cuda_build
     from qwen3tts_tpu_torch.ops import matvec as mv
 
     dev = torch.device("cuda")
@@ -582,8 +661,11 @@ def matvec_phase(card: str):
             w, x = w32.to(dt), x32.to(dt)
             wt = w.t().contiguous()
             what = f"{where} K={K} N={N} x={dname}"
+            y = mv.matvec(x, w)
             max_err["matvec"] = max(max_err["matvec"], _held(
-                "matvec", mv.matvec(x, w), mv.matvec_plain(x, w), tol, what))
+                "matvec", y, mv.matvec_plain(x, w), tol, what))
+            if not torch.equal(y, mv.matvec(x, w)):
+                raise AssertionError(f"matvec: two runs differ at {what}")
             max_err["matvec_kt"] = max(max_err["matvec_kt"], _held(
                 "matvec_kt", mv.matvec_kt(x, wt), mv.matvec_kt_plain(x, wt), tol, what))
             if dname == "bf16":
@@ -621,6 +703,8 @@ def matvec_phase(card: str):
                  "torch_8row": lambda i: torch.matmul(x8, ws[i % len(ws)]),
                  "torch_pre_t": lambda i: torch.matmul(wts[i % len(wts)], xt)}
         t = {name: graph_ms(fn, T) for name, fn in cases.items()}
+        log(f"  matvec grid {where}: {-(-N // mv.matvec_tile(x.dtype))} column tiles x "
+            f"{mv.matvec_splits(K, N, x.dtype, cuda_build.sm_count(dev))} K splits")
         wb = nbytes(w)
         b_ms, b_by = bound(nbytes(w, x) + N * x.element_size(), 2 * K * N, x.dtype)
         times[where] = {"times": t, "bound_ms": b_ms, "bound_by": b_by,
@@ -1066,13 +1150,15 @@ def main():
     parity_micro_phase(card)
     log("slice: " + json.dumps({"card": card, "requests": results,
                                 "kernel_max_abs_err": max_err,
-                                "kernel_ms_pos2000": times[2000][0],
-                                "plain_ms_pos2000": times[2000][1],
-                                "sdpa_ms": fd_extra["library_ms"]}))
+                                "kernel_ms": {str(k): v[0] for k, v in times.items()},
+                                "plain_ms": {str(k): v[1] for k, v in times.items()},
+                                "sdpa_ms": {str(k): v for k, v in
+                                            fd_extra["library_ms"].items()}}))
     log("slice-int8: " + json.dumps({
         "card": card, "requests": q_results, "launches": q_launches,
         "int8kv_max_abs_err": q_err,
-        "int8kv_ms_pos2000": q_times[2000][0], "int8kv_plain_ms_pos2000": q_times[2000][1],
+        "int8kv_ms": {str(k): v[0] for k, v in q_times.items()},
+        "int8kv_plain_ms": {str(k): v[1] for k, v in q_times.items()},
         "fused_max_abs_err": f_err,
         "fused_ms": {" ".join(k): v for k, v in f_times.items()}}))
     log("slice-micro: " + json.dumps({
@@ -1092,16 +1178,17 @@ def main():
                 "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
                 "library_ms": library_ms}
 
-    # flash-decode at pos 300; the fused kernels at the talker's shapes with
-    # int8 weights, as the int8 path runs them; the micro-step per step of a
-    # bf16 frame; the matvecs at the probe's default shape in bf16
+    # flash-decode at pos 300 with a cold L2 (two cache stacks); the fused
+    # kernels at the talker's shapes with int8 weights, as the int8 path runs
+    # them; the micro-step per step of a bf16 frame; the matvecs at the
+    # probe's default shape in bf16
     print(json.dumps({"kernels": [
         entry("flash_decode", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180", launches,
-              max_err["bf16"], times[300][0], times[300][1], fd_extra["bound"][300],
-              fd_extra["library_ms"][300]),
+              max_err["bf16"], times["cold300"][0], times["cold300"][1],
+              fd_extra["bound"]["cold300"], fd_extra["library_ms"]["cold300"]),
         entry("flash_decode_int8kv", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180",
-              q_launches["flash_decode_int8kv"], q_err["bf16"], q_times[300][0],
-              q_times[300][1], q_bounds[300], None),
+              q_launches["flash_decode_int8kv"], q_err["bf16"], q_times["cold300"][0],
+              q_times["cold300"][1], q_bounds["cold300"], None),
         *(entry(name, fb_src, f"qwen3tts_tpu/ops/fused_block.py:{line}", q_launches[name],
                 f_err[name], f_times[(name, "talker", "int8")][0],
                 f_times[(name, "talker", "int8")][1], f_bounds[(name, "talker", "int8")],

@@ -12,6 +12,7 @@ memory, spills) of the last build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -99,6 +100,14 @@ def library(name: str) -> ctypes.CDLL:
             for lib_name, so in _build_all().items():
                 _libs[lib_name] = ctypes.CDLL(str(so))
         return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on the H100 SXM)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def load_all() -> None:

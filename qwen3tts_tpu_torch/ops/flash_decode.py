@@ -16,12 +16,19 @@ on CPU tensors it runs ``flash_decode_plain``.  The kernel is built at first
 use (``ops/cuda_build.py``).  ``flash_decode.launches`` counts launches of
 the float-cache kernel, ``flash_decode.launches_int8kv`` those of the
 int8-cache kernel.
+
+The kernel splits each row's live range across ``num_splits`` CTAs per kv
+head (split-K); ``live_range`` and ``split_range`` are the range formula it
+evaluates on the device, written here once so that the CPU tests can check
+the split arithmetic against the plain version and the JAX kernel.  The
+splits' float32 partial states go to a workspace that the wrapper
+allocates once per shape.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +39,54 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIM = 128  # the talker's head layout, the one the kernel is built for
 KERNEL_GROUP = 2  # query heads per kv head
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+MIN_CHUNK = 32  # a split takes at least this many live slots (the kernel's kMinChunk)
+MAX_SPLITS = 16  # the kernel's limit (its merge holds every split in registers)
+_workspace: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+
+def live_range(pos: int, pad: int, window: Optional[int], S: int) -> Tuple[int, int]:
+    """The live slots [lo, hi] (inclusive; empty when lo > hi) of a row, as
+    the kernel computes them (``csrc/flash_decode.cu:split_bounds``)."""
+    lo = max(pad, pos - window + 1 if window else pad, 0)
+    return lo, min(pos, S - 1)
+
+
+def split_range(lo: int, hi: int, split: int, splits: int) -> Tuple[int, int]:
+    """The slots [a, e] (inclusive; empty when a > e) of [lo, hi] that split
+    ``split`` of ``splits`` takes, as the kernel computes them: ceil(n /
+    splits) slots each but at least MIN_CHUNK, in order, the last splits
+    short or empty."""
+    n = hi - lo + 1
+    if n <= 0:
+        return 0, -1
+    chunk = max(-(-n // splits), MIN_CHUNK)
+    a = lo + split * chunk
+    return a, min(hi, a + chunk - 1)
+
+
+def num_splits(S: int, B: int, KVH: int, sm_count: int) -> int:
+    """CTAs per (kv head, row): about one CTA per SM over the grid (16 at
+    batch 1 on the 0.6B talker, 132 SMs), from what the host knows without
+    reading ``pos``."""
+    return max(1, min(sm_count // (B * KVH), -(-S // MIN_CHUNK), MAX_SPLITS))
+
+
+def _workspaces(device, B: int, KVH: int, G: int, D: int, splits: int):
+    """(acc [B, KVH, splits, G, D], (m, l) [B, KVH, splits, G, 2], ticket
+    [B, KVH] zeros): float32 partial states and the last-CTA tickets,
+    allocated once per shape.  Calls are ordered on the stream, so one set
+    serves them all; every launch leaves the tickets at zero."""
+    key = (device, B, KVH, G, D, splits)
+    ws = _workspace.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode: call once at this shape before CUDA-graph "
+                               "capture (its workspace's tickets must be zeroed eagerly)")
+        ws = _workspace[key] = (
+            torch.empty((B, KVH, splits, G, D), dtype=torch.float32, device=device),
+            torch.empty((B, KVH, splits, G, 2), dtype=torch.float32, device=device),
+            torch.zeros((B, KVH), dtype=torch.int32, device=device))
+    return ws
 
 
 def flash_decode_plain(
@@ -81,8 +136,8 @@ def kernel_supports(head_dim: int, num_heads: int, num_kv_heads: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = cuda_build.library("flash_decode").qwen3tts_flash_decode
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,6 +196,8 @@ def flash_decode(
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name in ("k", "v") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel's row loads)")
     if q.dtype not in _DTYPE_CODE or (not quant and (k_stack.dtype != q.dtype
                                                      or v_stack.dtype != q.dtype)):
         raise ValueError(f"kernel takes bfloat16 or float32 q with a cache of q's dtype "
@@ -153,14 +210,16 @@ def flash_decode(
         raise ValueError(f"kernel has no instance for head_dim {D}, "
                          f"{NH} heads over {KVH} kv heads")
     fn = _kernel_fn()
+    splits = num_splits(S, B, KVH, cuda_build.sm_count(q.device))
+    ws_acc, ws_ml, ticket = _workspaces(q.device, B, KVH, NH // KVH, D, splits)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):  # the launch goes to the current device
         rc = fn(_DTYPE_CODE[q.dtype], int(quant), q.data_ptr(), k_stack.data_ptr(),
                 v_stack.data_ptr(), k_scale.data_ptr() if quant else None,
                 v_scale.data_ptr() if quant else None, out.data_ptr(), pos.data_ptr(),
-                pad.data_ptr(), int(layer), B, S, NH, KVH, D,
-                int(window) if window else 0, float(D ** -0.5),
-                torch.cuda.current_stream(q.device).cuda_stream)
+                pad.data_ptr(), ws_acc.data_ptr(), ws_ml.data_ptr(), ticket.data_ptr(),
+                int(layer), B, S, NH, KVH, D, int(window) if window else 0,
+                float(D ** -0.5), splits, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
     if quant:

@@ -98,6 +98,129 @@ def test_int8kv_kernel_matches_plain(dtype):
             assert torch.all(out == 0)
 
 
+def _flash_inputs(dtype, int8, B, L=2, S=2048, seed=3):
+    """q [B, 16, 128] and a cache of the talker's head layout: float in q's
+    dtype, or int8 with float32 scales [L, B, KVH, S]."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, 16, 128), generator=g, device=dev).to(dt)
+    if not int8:
+        k, v = (torch.randn((L, B, S, 8, 128), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        return q, k, v, ()
+    k, v = (torch.randint(-127, 128, (L, B, S, 8, 128), generator=g, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((L, B, 8, S), generator=g, device=dev) * 0.02 for _ in range(2))
+    return q, k, v, (ks, vs)
+
+
+def _split_cases(S, splits):
+    """(pos, pads, window): live lengths below, at and just above the split
+    count and the 32-slot least split, at whole splits of 32 and one slot
+    past them, one slot past whole splits of 8, pos = S - 1, pad > pos (row
+    0) beside a live row, a window, a pad inside the range."""
+    least = fd.MIN_CHUNK
+    cases = [(n - 1, 0, None) for n in (1, splits - 1, splits, splits + 1, least, least + 1,
+                                         splits * least, splits * least + 1, 8 * splits + 1)
+             if 1 <= n <= S]
+    cases += [(S - 1, 0, None), (S - 1, 5, 100), (40, 100, None), (1500, 0, 300),
+              (700, 333, None), (31, 31, None)]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_split_geometry_matches_plain(dtype, int8, B):
+    """The split-K kernel against the plain version at live lengths around
+    the split count and its multiples, pos = S - 1, pad > pos (exact zeros),
+    a window; row 1 (B 2) has its own pad.  Two runs give the same bits."""
+    _need_card()
+    from qwen3tts_tpu_torch.ops import cuda_build
+
+    atol, rtol = TOL[dtype]
+    dev = torch.device("cuda")
+    q, k, v, scales = _flash_inputs(dtype, int8, B)
+    L, _, S, KVH, _ = k.shape
+    splits = fd.num_splits(S, B, KVH, cuda_build.sm_count(dev))
+    assert splits > 1
+    counter = "launches_int8kv" if int8 else "launches"
+    for pos, pad, window in _split_cases(S, splits):
+        pads = [pad, pad // 4][:B]
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        pd = torch.tensor(pads, dtype=torch.int32, device=dev)
+        before = getattr(fd.flash_decode, counter)
+        out = fd.flash_decode(q, k, v, 1, p, pd, window, *scales)
+        again = fd.flash_decode(q, k, v, 1, p, pd, window, *scales)
+        assert getattr(fd.flash_decode, counter) == before + 2
+        ref = fd.flash_decode_plain(q, k, v, 1, p, pd, window, *scales)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"pos {pos} pads {pads} window {window}: {m}")
+        assert torch.equal(out, again)  # splits merged in a fixed order
+        for b in range(B):
+            if pads[b] > pos:
+                assert torch.all(out[b] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_graph_replays_across_positions(int8):
+    """A CUDA graph captured once replays right after pos and pad change in
+    device memory: each split finds its slice on the device."""
+    _need_card()
+    atol, rtol = TOL["bfloat16"]
+    dev = torch.device("cuda")
+    q, k, v, scales = _flash_inputs("bfloat16", int8, 1, L=3)
+    p = torch.zeros((1,), dtype=torch.int32, device=dev)
+    pd = torch.zeros((1,), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # allocates the workspace before capture
+        fd.flash_decode(q, k, v, 2, p, pd, None, *scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode(q, k, v, 2, p, pd, None, *scales)
+    for pos, pad in ((0, 0), (15, 0), (16, 0), (17, 2), (300, 0), (1024, 1000), (2047, 0),
+                     (5, 9), (2000, 0)):
+        p.fill_(pos)
+        pd.fill_(pad)
+        graph.replay()
+        ref = fd.flash_decode_plain(q, k, v, 2, p, pd, None, *scales)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+        if pad > pos:
+            assert torch.all(out == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("K", [1, 1000, 8192])
+@pytest.mark.parametrize("N", [8, 4096 + 8, 65536])
+def test_matvec_split_k_shapes(dtype, K, N):
+    """The split-K matvec at the edges of its shapes (N a ragged multiple of
+    8, K from 1 to 8192) against the plain version; two runs give the same
+    bits."""
+    _need_card()
+    atol, rtol = TOL[dtype]
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(dt)
+    x = torch.randn((1, K), generator=g, device=dev).to(dt)
+    before = mv.matvec.launches
+    y, y2 = mv.matvec(x, w), mv.matvec(x, w)
+    assert mv.matvec.launches == before + 2
+    ref = mv.matvec_plain(x, w)
+    torch.cuda.synchronize()
+    assert y.shape == (1, N) and y.dtype == dt
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=rtol)
+    assert torch.equal(y, y2)  # K splits summed in a fixed order
+
+
 def _fused_inputs(dtype, quantized, B, H, Dq, N, I, seed=0):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)

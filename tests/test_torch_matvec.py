@@ -124,3 +124,17 @@ def test_wrappers_reject_bad_inputs(bad):
             TM.matvec(xt, wt[1:])
         else:
             TM.matvec_kt(xt, wtt[:, 1:])
+
+
+def test_matvec_splits_fill_one_wave():
+    """K splits per column tile: a power of 2 up to 16, at least 64 rows
+    each, the grid within two CTAs per SM: 16 at the qkv shape, 1 at the
+    probe's default."""
+    assert TM.matvec_splits(1024, 4096, torch.bfloat16, 132) == 16
+    assert TM.matvec_splits(1024, 65536, torch.bfloat16, 132) == 1
+    for K, N in [(1, 8), (1000, 4104), (8192, 8), (8192, 65536), (64, 4096), (1024, 8192)]:
+        for dt in (torch.bfloat16, torch.float32):
+            sp = TM.matvec_splits(K, N, dt, 132)
+            tiles = -(-N // TM.matvec_tile(dt))
+            assert sp & (sp - 1) == 0 and 1 <= sp <= TM.MAX_SPLITS
+            assert sp == 1 or (K // sp >= TM.MIN_SPLIT_ROWS and tiles * sp <= 2 * 132)
