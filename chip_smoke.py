@@ -13,9 +13,13 @@ Phases, in order; any failure raises and exits non-zero:
    flash-decode at the 0.6B talker's shapes (L=28, B=1, S=2048, KVH=8,
    NH=16, D=128) over (layer, pos, pad, window) cases, with a float cache
    and with an int8 cache + scales; fused_norm_matmul and fused_o_mlp at
-   the 0.6B talker's and predictor's shapes, with bf16 and int8 weights;
+   the 0.6B talker's and predictor's shapes, with bf16 and int8 weights
+   (fused_o_mlp at 1, 2 and 32 rows, two runs bit-equal, one captured graph
+   replayed after its inputs were rewritten);
    fused_micro_step at the 0.6B predictor's shapes over a frame's 14
-   chained micro-steps, the cache slot by slot, two runs bit-equal;
+   chained micro-steps, the cache slot by slot, two runs bit-equal, one
+   captured graph replayed after x, pos, the rope rows and the cache were
+   rewritten;
    matvec and matvec_kt at the probe's default (K 1024, N 65536) and the
    talker's qkv shape (1024 x 4096), then the probe's 20-call run.
    bf16 (the main path's dtype) is held to 2e-3 + 1.6e-2*|ref|, float32 to
@@ -368,11 +372,27 @@ def int8kv_kernel_phase(card: str):
     return max_err, times, bounds
 
 
+def _captured(fn):
+    """A CUDA graph of one call of ``fn()`` (warmed up on a side stream
+    first, where a wrapper allocates its workspace) and the call's output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
 def fused_kernel_phase(card: str):
     """fused_norm_matmul and fused_o_mlp against their plain versions at the
     0.6B talker's shapes (H 1024, qkv N 4096, Dq 2048, I 3072) and the
-    predictor's (qkv N 2048, Dq 1024), B = 1: bf16 with bf16 and with int8
-    weights, float32 with float32 and with int8 weights.  Timing: one call
+    predictor's (qkv N 2048, Dq 1024): bf16 with bf16 and with int8
+    weights, float32 with float32 and with int8 weights, at B = 1, 2 and 32
+    (fused_o_mlp: two runs bit-equal at each; one captured graph replayed
+    after x and attn were rewritten).  Timing (B = 1): one call
     per layer in a CUDA graph, each layer with its own weights, as a step
     makes them (28 talker calls; 70 predictor calls over its 5 layers)."""
     from qwen3tts_tpu_torch.ops import fused_block as fb
@@ -415,6 +435,30 @@ def fused_kernel_phase(card: str):
                 if not torch.equal(out, again):
                     raise AssertionError(f"fused_o_mlp is not deterministic at {what}")
                 max_err["fused_o_mlp"] = max(max_err["fused_o_mlp"], err)
+                for B in (2, 32):  # more rows than one launch takes: 4 at a time
+                    xb = torch.randn((B, H), generator=g, device=dev).to(dt)
+                    ab = torch.randn((B, Dq), generator=g, device=dev).to(dt)
+                    outs = [fb.fused_o_mlp(xb, ab, w0["o"], nw, w0["gu"], w0["d"])
+                            for _ in range(2)]
+                    err = _held("fused_o_mlp", outs[0],
+                                fb.fused_o_mlp_plain(xb, ab, w0["o"], nw, w0["gu"], w0["d"]),
+                                tol, f"{what} B={B}")
+                    if not torch.equal(*outs):
+                        raise AssertionError(f"fused_o_mlp is not deterministic at {what} B={B}")
+                    max_err["fused_o_mlp"] = max(max_err["fused_o_mlp"], err)
+                # one captured graph, replayed after its inputs were rewritten
+                xg, ag = x.clone(), attn.clone()
+                graph, og = _captured(
+                    lambda: fb.fused_o_mlp(xg, ag, w0["o"], nw, w0["gu"], w0["d"]))
+                for _ in range(2):
+                    xg.copy_(torch.randn((1, H), generator=g, device=dev))
+                    ag.copy_(torch.randn((1, Dq), generator=g, device=dev))
+                    graph.replay()
+                    err = _held("fused_o_mlp graph replay", og,
+                                fb.fused_o_mlp_plain(xg, ag, w0["o"], nw, w0["gu"], w0["d"]),
+                                tol, what)
+                    max_err["fused_o_mlp"] = max(max_err["fused_o_mlp"], err)
+                del graph
                 if dname != "bf16":
                     del ws
                     continue
@@ -580,6 +624,29 @@ def micro_kernel_phase(card: str):
             run1.append(h)
         if not all(torch.equal(a, b) for a, b in zip(run0, run1 + [kk, vv])):
             raise AssertionError(f"fused_micro_step is not deterministic ({dname})")
+        # one captured graph of a step, replayed after x, the rope rows, pos
+        # and the cache were rewritten: each replay against the plain version
+        xg, pg = xs[0].clone(), poss[0].clone()
+        cg_, sg_ = ropes[0][0].clone(), ropes[0][1].clone()
+        kg, vg = k0.clone(), v0.clone()
+        graph, (hg, _, _) = _captured(lambda: ps.fused_micro_step(
+            w, xg, cg_, sg_, kg, vg, pg, pcfg.rms_norm_eps))
+        kg.copy_(k0)
+        vg.copy_(v0)
+        for i in (0, 5, steps - 1):
+            xg.copy_(xs[i])
+            pg.copy_(poss[i])
+            cg_.copy_(ropes[i][0])
+            sg_.copy_(ropes[i][1])
+            kp, vp = kg.clone(), vg.clone()
+            graph.replay()
+            hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
+            err = max(err, _held("fused_micro_step graph replay", hg, hp, tol,
+                                 f"x={dname} step {i} pos={2 + i} h"))
+            for name, a, b in (("k", kg, kp), ("v", vg, vp)):
+                err = max(err, _held("fused_micro_step graph replay", a[:, 2 + i], b[:, 2 + i],
+                                     tol, f"x={dname} cache {name} slot {2 + i}"))
+        del graph
         if dname == "f32":
             kp, vp = k0.clone(), v0.clone()
             for i in range(steps):
@@ -614,7 +681,7 @@ def micro_kernel_phase(card: str):
              "stack_forward": graph_ms(lambda i: per_layer(i, False), steps),
              "stack_forward_fused": graph_ms(lambda i: per_layer(i, True), steps)}
         grid = ps.kernel_grid(dt, D)
-        n_sync = 1 + 5 * L
+        n_sync = 1 + 4 * L
         t["barriers"] = graph_ms(
             lambda i: ps.grid_barriers(grid, n_sync, torch.cuda.current_stream()), steps)
         live = sum(2 + i + 1 for i in range(steps)) / steps  # mean live slots a step

@@ -19,34 +19,38 @@
 // Bound: bytes.  At B = 1 each call streams its weight matrices once and
 // does 2 FLOPs per weight element (2B at batch B): far below the card's
 // ridge point.  The 0.6B talker's qkv weight is 8 MB in bf16 (4 MB in int8)
-// and its o + MLP weights 23 MB; the activations are a few KB.
+// and its o + MLP weights 23 MB; the activations are a few KB.  What a
+// call loses time to is latency, not bytes: fused_o_mlp is a chain of three
+// dependent products with a norm and an activation between them, and the
+// vector between two links has to cross the whole grid.
 //
-// Design.  The card's grid has no order, so what the Pallas kernels carry
-// from one grid step to the next becomes separate launches:
+// fused_norm_matmul: one launch, a column tile of kCols = 32 output columns
+// per CTA (256 threads, 4 per weight row, each reading 8 consecutive
+// columns of every 64th row, a batch of 8 rows' raw loads in flight before
+// any is converted).  Each CTA recomputes the RMS norm of its (at most
+// 2048-wide) rows into shared memory, as the Pallas kernel does per grid
+// step.  Rows are taken kBC at a time (1 at batch 1, else 4).
 //
-//   * A column tile of kCols = 32 output columns per CTA: 256 threads, 4
-//     per weight row, each reading 8 consecutive columns (16 bytes of bf16,
-//     8 of int8) of every 64th row.  Latency, not bytes, bounds a CTA at
-//     batch 1, so a thread puts the raw loads of a batch of 8 rows (4 in
-//     float32) in flight before it converts any, and the gate and up tiles of the
-//     MLP stream in one pass.  The 8 row groups of a warp are summed with
-//     shuffles and the 8 warps through shared memory, in a fixed order.
-//     The talker's N = 4096 gives 128 CTAs.
-//   * Each CTA recomputes the RMS norm of its (at most 2048-wide) activation
-//     rows into shared memory, as the Pallas kernel does per grid step, with
-//     the whole block summing the squares.  Rows are taken kBC at a time (1
-//     at batch 1, else 4).
-//   * fused_o_mlp is three launches on the stream, with a float32 workspace
-//     the wrapper allocates once per shape:
-//       1. o-projection partial sums, column tiles x KS row splits of Dq
-//          (KS chosen so the grid has >= 128 CTAs), into part1[KS, B, H];
-//       2. one CTA per 32-wide tile of the intermediate size: it rebuilds
-//          x2 = f32(x) + sum_ks part1 (fixed order) and its norm, computes
-//          its 32 gate and 32 up columns, the activation, and the tile's
-//          partial down projection act_tile @ Wd[tile, :] into part2[t, B, H]
-//          (the tile's 32 rows of Wd split among all 256 threads);
-//       3. out = T(x2 + sum_t part2), summed in tile order.
-//     No float atomics: two runs on the same inputs give the same bits.
+// fused_o_mlp: ONE cooperative launch of one CTA per SM, with the weights
+// streamed by wstream.cuh.  A CTA knows its share of all three matrices
+// before any activation exists: a 32-column tile of Wo over one of KS row
+// splits, the gate and up columns of one tile of the intermediate size
+// (24 columns at the 0.6B shapes: 128 tiles on 132 SMs), and that tile's
+// rows of Wd.  It starts copying all of it into a ring in shared memory
+// at kernel entry and keeps the ring full, so the chain
+//       o-projection -> [grid] -> norm -> gate/up -> activation -> down
+//       -> [grid] -> sum
+// computes out of shared memory and waits for DRAM only once, at entry.
+// The vector crosses the grid twice, through workspaces in L2 (part1 [KS,
+// B, H]: the o-projection's row splits; part2 [NT, B, H]: the down
+// projection's per-tile partial sums), as 8-byte words that carry the
+// launch's tag beside the float: a reader takes a word when it finds the
+// tag, so no grid barrier stands where the two in the chain above would
+// (the brackets).  Every CTA rebuilds x2 = f32(x) + sum_ks part1 with the
+// same arithmetic, so all see the same bits; the last phase spreads the
+// B * H outputs over the grid and sums the tiles in a fixed order.  No
+// float atomics: two runs on the same inputs give the same bits.  More
+// than 4 rows are taken 4 at a time, one launch each.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface (qwen3tts_tpu_torch/ops/fused_block.py).
@@ -55,6 +59,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// fused_o_mlp's ring: 32 KB stages (a CTA's whole share is 12 of 16 KB; half
+// as many hand-overs measured 1.8 us a call faster at the talker's shapes)
+#ifndef QWEN3TTS_STAGE_BYTES
+#define QWEN3TTS_STAGE_BYTES 32768
+#endif
+#include "wstream.cuh"
 
 namespace {
 
@@ -278,145 +289,6 @@ norm_matmul_kernel(const T* __restrict__ x, const T* __restrict__ nw, const W* _
   }
 }
 
-// ---------------------------------------------------------------------------
-// C1. o-projection partial sums: grid (ceil(H / kCols), KS).
-template <typename T, typename W, int kBC>
-__global__ void __launch_bounds__(kThreads)
-o_proj_kernel(const T* __restrict__ attn, const W* __restrict__ wo,
-              const float* __restrict__ wo_scale, float* __restrict__ part1, int B, int Dq,
-              int H, int k_chunk) {
-  __shared__ float a_s[kBC * kMaxK];
-  __shared__ float red[kWarps * kBC * kCols];
-  __shared__ float res[kBC * kCols];
-  const int col0 = blockIdx.x * kCols;
-  const int ks = blockIdx.y;
-  const int k_lo = ks * k_chunk;
-  const int k_hi = min(Dq, k_lo + k_chunk);
-  for (int b0 = 0; b0 < B; b0 += kBC) {
-    for (int i = threadIdx.x; i < kBC * Dq; i += kThreads) {
-      const int b = b0 + i / Dq, k = i % Dq;
-      if (k >= k_lo && k < k_hi) a_s[i] = b < B ? to_f(attn[(size_t)b * Dq + k]) : 0.f;
-    }
-    __syncthreads();
-    gemv_tiles<T, W, kBC, 1>(a_s, Dq, wo, wo_scale, H, {col0}, k_lo, k_hi, red, res);
-    for (int i = threadIdx.x; i < kBC * kCols; i += kThreads) {
-      const int b = b0 + i / kCols, n = col0 + i % kCols;
-      if (b < B && n < H) part1[((size_t)ks * B + b) * H + n] = res[i];
-    }
-    __syncthreads();
-  }
-}
-
-// x2 = f32(x) + sum_ks part1[ks], the partials summed in order: the same
-// arithmetic in C2 and C3, so both see the same bits.
-template <typename T>
-__device__ __forceinline__ float residual_x2(const T* __restrict__ x,
-                                            const float* __restrict__ part1, int KS,
-                                            size_t BH, size_t i) {
-  float s = 0.f;
-  for (int ks = 0; ks < KS; ++ks) s += part1[ks * BH + i];
-  return to_f(x[i]) + s;
-}
-
-// C2. one CTA per kCols-wide tile t of the intermediate size: norm of x2,
-// gate/up columns (streamed in one pass), activation, and the tile's partial
-// down projection.
-template <typename T, typename W, int kBC>
-__global__ void __launch_bounds__(kThreads)
-mlp_tile_kernel(const T* __restrict__ x, const float* __restrict__ part1, int KS,
-                const T* __restrict__ nw, const W* __restrict__ gu,
-                const float* __restrict__ gu_scale, const W* __restrict__ wd,
-                const float* __restrict__ wd_scale, float* __restrict__ part2, int B, int H,
-                int I, float eps) {
-  constexpr int U = kBatch<W>;
-  __shared__ float a_s[kBC * kMaxK];
-  __shared__ float red[kWarps * 2 * kBC * kCols];
-  __shared__ float gu_s[2 * kBC * kCols];  // [gate | up][bc][cc]
-  __shared__ float act_s[kBC * kCols];
-  __shared__ float rstd_s[kBC];
-  const int t = blockIdx.x;
-  const int i0 = t * kCols;
-  const size_t BH = (size_t)B * H;
-  // the down tile: kCols rows of Wd split RS ways so that every thread
-  // streams (H <= kMaxK, so H / 8 <= kThreads column groups)
-  const int n_cg = H / kVec;
-  const int RS = min(kThreads / n_cg, kCols);
-  const int cgi = threadIdx.x % n_cg, rs = threadIdx.x / n_cg;
-  for (int b0 = 0; b0 < B; b0 += kBC) {
-    for (int i = threadIdx.x; i < kBC * H; i += kThreads) {
-      const int b = b0 + i / H;
-      a_s[i] = b < B ? residual_x2(x, part1, KS, BH, (size_t)b * H + i % H) : 0.f;
-    }
-    __syncthreads();
-    rms_norm_rows<T, kBC>(a_s, H, nw, eps, red, rstd_s);
-    gemv_tiles<T, W, kBC, 2>(a_s, H, gu, gu_scale, 2 * I, {i0, I + i0}, 0, H, red, gu_s);
-    for (int i = threadIdx.x; i < kBC * kCols; i += kThreads) {
-      const float g = gu_s[i];
-      act_s[i] = rnd<T>(g * (1.f / (1.f + expf(-g))) * gu_s[kBC * kCols + i]);
-    }
-    __syncthreads();
-    // part2[t, b, n] = sum_{c < kCols} act[b][c] * Wd[i0 + c][n]; each thread
-    // takes 8 columns of its share of the rows, and the RS partial sums meet
-    // in shared memory (a_s is free again), added in order
-    if (rs < RS) {
-      const int n = cgi * kVec;
-      const int r_lo = rs * kCols / RS, r_hi = (rs + 1) * kCols / RS;
-      float sc[kVec];
-      load_scales<W>(wd_scale, n, sc);
-      float acc[kBC][kVec];
-#pragma unroll
-      for (int bc = 0; bc < kBC; ++bc)
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) acc[bc][v] = 0.f;
-      for (int r0 = r_lo; r0 < r_hi; r0 += U) {
-        Raw8<W> raw[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          if (r0 + u < r_hi) raw[u] = ld8(wd + (size_t)(i0 + r0 + u) * H + n);
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (r0 + u >= r_hi) break;
-          float wv[kVec];
-          cvt8<T>(raw[u], sc, wv);
-#pragma unroll
-          for (int bc = 0; bc < kBC; ++bc) {
-            const float a = act_s[bc * kCols + r0 + u];
-#pragma unroll
-            for (int v = 0; v < kVec; ++v) acc[bc][v] = fmaf(a, wv[v], acc[bc][v]);
-          }
-        }
-      }
-#pragma unroll
-      for (int bc = 0; bc < kBC; ++bc)
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) a_s[(rs * kBC + bc) * H + n + v] = acc[bc][v];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBC * H; i += kThreads) {
-      const int bc = i / H, n = i % H, b = b0 + bc;
-      if (b < B) {
-        float sum = 0.f;
-        for (int r = 0; r < RS; ++r) sum += a_s[(r * kBC + bc) * H + n];
-        part2[(size_t)t * BH + (size_t)b * H + n] = sum;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// C3. out = T(x2 + sum_t part2[t]), the tiles summed in order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-o_mlp_final_kernel(const T* __restrict__ x, const float* __restrict__ part1, int KS,
-                   const float* __restrict__ part2, int NT, T* __restrict__ out, int B, int H) {
-  const size_t BH = (size_t)B * H;
-  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= BH) return;
-  float acc = 0.f;
-  for (int t = 0; t < NT; ++t) acc += part2[t * BH + i];
-  put(out + i, residual_x2(x, part1, KS, BH, i) + acc);
-}
-
 template <typename T, typename W, int kBC>
 cudaError_t norm_matmul(const void* x, const void* nw, const void* w, const void* wscale,
                         void* out, int B, int H, int N, float eps, cudaStream_t st) {
@@ -426,28 +298,262 @@ cudaError_t norm_matmul(const void* x, const void* nw, const void* w, const void
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// C. fused_o_mlp: one cooperative launch, the weights through wstream.cuh.
+
+using wstream::Job;
+
+constexpr int kMaxCo = 64;    // widest o-projection column tile
+constexpr int kMaxCgu = 256;  // widest gate/up tile (intermediate columns of one CTA)
+
+template <typename T, typename W>
+struct OArgs {
+  const T* x;     // [B, H]
+  const T* attn;  // [B, Dq]
+  const W* wo;    // [Dq, H]
+  const float* so;
+  const T* nw;    // [H]
+  const W* gu;    // [H, 2 I]
+  const float* sgu;
+  const W* wd;    // [I, H]
+  const float* sd;
+  T* out;         // [B, H]
+  uint64_t* part1;  // [KS, B, H] tagged floats
+  uint64_t* part2;  // [NT, B, H]
+  unsigned* sync;   // wstream.cuh launch_tags
+  int B, H, Dq, I;
+  int tiles_o, KS, k_chunk, C_o;  // o-projection: column tiles x row splits
+  int NT, C_gu;                   // intermediate tiles
+  float eps;
+};
+
+// floats of shared memory behind the ring
+template <int kBC> constexpr int kOmlpFloats =
+    3 * kBC * kMaxK + wstream::kRedFloats<kBC> + kBC * kMaxCgu + kMaxCo + 2 * kMaxCgu + kMaxK +
+    kBC * wstream::kWarps;
+// ring stages: what the vectors of kBC rows leave of the shared memory
+template <int kBC> constexpr int kStages =
+    wstream::ring_stages(kOmlpFloats<kBC> * (int)sizeof(float));
+static_assert(kStages<1> >= 2 && kStages<4> >= 2, "the ring needs two stages");
+template <int kBC> constexpr int kOmlpSmem =
+    (int)sizeof(wstream::RingMem<kStages<kBC>>) + kOmlpFloats<kBC> * (int)sizeof(float);
+
+struct OSched {
+  Job jobs[3];
+  __device__ __forceinline__ bool job(int j, Job& out) const {
+    if (j >= 3) return false;
+    out = jobs[j];
+    return true;
+  }
+};
+
+// x2 = f32(x) + sum_ks part1[ks] for N elements at once, the partials
+// summed in split order, each taken once it carries `tag` (other CTAs
+// write them in this launch): the same arithmetic wherever x2 is rebuilt,
+// so every CTA sees the same bits.  Elements without ok give 0.
+template <typename T, int N>
+__device__ __forceinline__ void residual_x2(const T* __restrict__ x, const uint64_t* part1, int KS,
+                                           size_t BH, const int (&idx)[N], const bool (&ok)[N],
+                                           unsigned tag, float (&x2)[N]) {
+  float xv[N], s[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) xv[i] = ok[i] ? to_f(x[idx[i]]) : 0.f;
+  wstream::sum_splits<N>(part1, KS, BH, idx, ok, tag, s);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x2[i] = ok[i] ? xv[i] + s[i] : 0.f;
+}
+
+// Grid: the co-resident CTAs (one per SM).  CTA c owns o-projection item c
+// (column tile c % tiles_o, row split c / tiles_o) and intermediate tile c,
+// where it has one.  All three weight shares start streaming at entry.  No
+// grid barrier: part1 and part2 are tagged words (wstream.cuh), written once
+// a launch, and a reader takes each word when it carries the launch's tag.
 template <typename T, typename W, int kBC>
-cudaError_t o_mlp(const void* x, const void* attn, const void* wo, const void* wo_scale,
-                  const void* nw, const void* gu, const void* gu_scale, const void* wd,
-                  const void* wd_scale, void* out, float* part1, float* part2, int B, int H,
-                  int Dq, int I, int KS, int k_chunk, float eps, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  o_proj_kernel<T, W, kBC><<<dim3((H + kCols - 1) / kCols, KS), kThreads, 0, st>>>(
-      static_cast<const T*>(attn), static_cast<const W*>(wo),
-      static_cast<const float*>(wo_scale), part1, B, Dq, H, k_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int NT = I / kCols;
-  mlp_tile_kernel<T, W, kBC><<<NT, kThreads, 0, st>>>(
-      xt, part1, KS, static_cast<const T*>(nw), static_cast<const W*>(gu),
-      static_cast<const float*>(gu_scale), static_cast<const W*>(wd),
-      static_cast<const float*>(wd_scale), part2, B, H, I, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+__global__ void __launch_bounds__(wstream::kBlock, 1) o_mlp_kernel(const __grid_constant__ OArgs<T, W> a) {
+  constexpr int NS = kStages<kBC>;
+  extern __shared__ __align__(128) char smem[];
+  auto* ring_mem = reinterpret_cast<wstream::RingMem<NS>*>(smem);
+  float* a_s = reinterpret_cast<float*>(smem + sizeof(wstream::RingMem<NS>));
+  float* x2_s = a_s + kBC * kMaxK;
+  float* res = x2_s + kBC * kMaxK;
+  float* red = res + kBC * kMaxK;
+  float* act_s = red + wstream::kRedFloats<kBC>;
+  float* sc_o = act_s + kBC * kMaxCgu;
+  float* sc_gu = sc_o + kMaxCo;
+  float* sc_d = sc_gu + 2 * kMaxCgu;
+  float* nred = sc_d + kMaxK;
+
+  const int tid = threadIdx.x, item = blockIdx.x;
+  const int B = a.B, H = a.H, Dq = a.Dq, I = a.I;
   const size_t BH = (size_t)B * H;
-  o_mlp_final_kernel<T><<<(unsigned)((BH + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      xt, part1, KS, part2, NT, static_cast<T*>(out), B, H);
-  return cudaGetLastError();
+  const bool has_o = item < a.tiles_o * a.KS;
+  const int ks = item / a.tiles_o, n0 = (item % a.tiles_o) * a.C_o;
+  const int Co = min(a.C_o, H - n0);
+  const int k_lo = ks * a.k_chunk, k_hi = min(Dq, k_lo + a.k_chunk);
+  const bool has_t = item < a.NT;
+  const int i0 = item * a.C_gu;
+  const int Cg = min(a.C_gu, I - i0);
+
+  OSched sched;
+  sched.jobs[0] = has_o ? wstream::make_job(a.wo, H, n0, 0, 1, Co, k_lo, k_hi)
+                        : wstream::empty_job();
+  sched.jobs[1] = has_t ? wstream::make_job(a.gu, 2 * I, i0, I + i0, 2, Cg, 0, H)
+                        : wstream::empty_job();
+  sched.jobs[2] = has_t ? wstream::make_job(a.wd + (size_t)i0 * H, H, 0, 0, 1, H, 0, Cg)
+                        : wstream::empty_job();
+  wstream::ring_init(ring_mem);
+  const unsigned tag0 = wstream::launch_tags(a.sync);  // part1 carries tag0 + 1, part2 tag0 + 2
+  if (tid >= wstream::kThreads) {  // the producers: all three shares, from here on
+    wstream::produce(ring_mem, sched);
+    return;
+  }
+  wstream::Consumer<NS> ring = {ring_mem, 0};
+  WSTREAM_STAMP(0, 0);
+
+  if constexpr (sizeof(W) == 1) {
+    if (has_o)
+      for (int c = tid; c < Co; c += wstream::kThreads) sc_o[c] = a.so[n0 + c];
+    if (has_t) {
+      for (int c = tid; c < Cg; c += wstream::kThreads) {
+        sc_gu[c] = a.sgu[i0 + c];
+        sc_gu[Cg + c] = a.sgu[I + i0 + c];
+      }
+      for (int n = tid; n < H; n += wstream::kThreads) sc_d[n] = a.sd[n];
+    }
+  }
+
+  // A. this CTA's o-projection partial sums
+  if (has_o) {
+    const int len = k_hi - k_lo;
+    for (int i0 = tid; i0 < kBC * len; i0 += 4 * wstream::kThreads) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * wstream::kThreads;
+        v[u] = i < B * len ? to_f(a.attn[(size_t)(i / len) * Dq + k_lo + i % len]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * wstream::kThreads;
+        if (i < kBC * len) a_s[(i / len) * Dq + k_lo + i % len] = v[u];
+      }
+    }
+    wstream::cta_sync();
+    wstream::stream_job<T, W, kBC>(ring, sched.jobs[0], a_s, Dq, sc_o, red, res, 0);
+    for (int i = tid; i < kBC * Co; i += wstream::kThreads) {
+      const int bc = i / Co, c = i % Co;
+      if (bc < B)
+        wstream::put_tagged(a.part1 + ((size_t)ks * B + bc) * H + n0 + c, res[i], tag0 + 1);
+    }
+  }
+  WSTREAM_STAMP(0, 2);
+
+  // B. norm of x2, this tile's gate and up columns, the activation, and the
+  // tile's partial down projection
+  if (has_t) {
+    for (int base = tid; base < kBC * H; base += 4 * wstream::kThreads) {
+      int idx[4];
+      bool ok[4];
+      float x2[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        idx[u] = base + u * wstream::kThreads;
+        ok[u] = idx[u] < B * H;
+      }
+      residual_x2<T, 4>(a.x, a.part1, a.KS, BH, idx, ok, tag0 + 1, x2);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (idx[u] < kBC * H) x2_s[idx[u]] = x2[u];
+    }
+    WSTREAM_STAMP(1, 0);
+    wstream::cta_sync();
+    wstream::rms_norm_rows<T, T, kBC>(a_s, x2_s, H, a.nw, a.eps, nred);
+    wstream::stream_job<T, W, kBC>(ring, sched.jobs[1], a_s, H, sc_gu, red, res, 1);
+    for (int i = tid; i < kBC * Cg; i += wstream::kThreads) {
+      const int bc = i / Cg, c = i % Cg;
+      const float g = res[bc * 2 * Cg + c], u = res[bc * 2 * Cg + Cg + c];
+      act_s[bc * kMaxCgu + c] = rnd<T>(g * (1.f / (1.f + expf(-g))) * u);
+    }
+    wstream::cta_sync();
+    WSTREAM_STAMP(1, 2);
+    wstream::stream_job<T, W, kBC>(ring, sched.jobs[2], act_s, kMaxCgu, sc_d, red, res, 2);
+    for (int i = tid; i < kBC * H; i += wstream::kThreads)
+      if (i / H < B) wstream::put_tagged(a.part2 + (size_t)item * BH + i, res[i], tag0 + 2);
+  }
+  WSTREAM_STAMP(2, 2);
+
+  // C. out = T(x2 + sum_t part2[t]): the outputs spread over the grid, one
+  // warp an output, a lane summing tiles lane, lane + 32, ... in order
+  const int per = (int)((BH + gridDim.x - 1) / gridDim.x);
+  const int lo = item * per, hi = (int)min((size_t)lo + per, BH);
+  const int warp = tid / 32, lane = tid % 32;
+  WSTREAM_STAMP(3, 0);
+  for (int i = lo + warp; i < hi; i += wstream::kWarps) {
+    const int idx[1] = {i};
+    const bool ok[1] = {true};
+    float x2[1], s[1];
+    residual_x2<T, 1>(a.x, a.part1, a.KS, BH, idx, ok, tag0 + 1, x2);
+    // this lane's tiles lane, lane + 32, ... as the splits of a sum
+    wstream::sum_splits<1>(a.part2 + (size_t)lane * BH, (a.NT - lane + 31) / 32, 32 * BH, idx, ok,
+                           tag0 + 2, s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s[0] += __shfl_xor_sync(0xffffffffu, s[0], off);
+    if (lane == 0) put(a.out + i, x2[0] + s[0]);
+  }
+  WSTREAM_STAMP(3, 2);
+  wstream::launch_done(a.sync, tag0, 2);
+}
+
+template <typename T, typename W, int kBC>
+int o_mlp_grid() {
+  static const int grid = wstream::coresident_grid(o_mlp_kernel<T, W, kBC>, kOmlpSmem<kBC>);
+  return grid;
+}
+
+// Rows are taken kBC at a time, one launch each on the stream.
+template <typename T, typename W, int kBC>
+cudaError_t o_mlp(OArgs<T, W> a, int B, cudaStream_t st) {
+  const int grid = o_mlp_grid<T, W, kBC>();
+  if (grid > 0 && (a.tiles_o * a.KS > grid || a.NT > grid)) return cudaErrorInvalidValue;
+  const T* x = a.x;
+  const T* attn = a.attn;
+  T* out = a.out;
+  for (int b0 = 0; b0 < B; b0 += kBC) {
+    a.x = x + (size_t)b0 * a.H;
+    a.attn = attn + (size_t)b0 * a.Dq;
+    a.out = out + (size_t)b0 * a.H;
+    a.B = min(kBC, B - b0);
+    const cudaError_t err =
+        wstream::launch_cooperative(o_mlp_kernel<T, W, kBC>, grid, kOmlpSmem<kBC>, st, a);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, typename W>
+int o_mlp_run(void* const* p, const int* d, float eps, cudaStream_t st) {
+  OArgs<T, W> a;
+  a.x = static_cast<const T*>(p[0]);
+  a.attn = static_cast<const T*>(p[1]);
+  a.wo = static_cast<const W*>(p[2]);
+  a.so = static_cast<const float*>(p[3]);
+  a.nw = static_cast<const T*>(p[4]);
+  a.gu = static_cast<const W*>(p[5]);
+  a.sgu = static_cast<const float*>(p[6]);
+  a.wd = static_cast<const W*>(p[7]);
+  a.sd = static_cast<const float*>(p[8]);
+  a.out = static_cast<T*>(p[9]);
+  a.part1 = static_cast<uint64_t*>(p[10]);
+  a.part2 = static_cast<uint64_t*>(p[11]);
+  a.sync = static_cast<unsigned*>(p[12]);
+  const int B = d[0];
+  a.B = 0;
+  a.H = d[1]; a.Dq = d[2]; a.I = d[3];
+  a.KS = d[4]; a.k_chunk = d[5]; a.C_o = d[6]; a.C_gu = d[7];
+  a.tiles_o = (a.H + a.C_o - 1) / a.C_o;
+  a.NT = (a.I + a.C_gu - 1) / a.C_gu;
+  a.eps = eps;
+  return (int)(B == 1 ? o_mlp<T, W, 1>(a, B, st) : o_mlp<T, W, 4>(a, B, st));
 }
 
 bool shape_ok(int B, int K, int N) {
@@ -478,31 +584,48 @@ int qwen3tts_fused_norm_matmul(int dtype, int w_int8, const void* x, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// part1: f32 [KS, B, H]; part2: f32 [I / 32, B, H].  Needs I % 32 == 0 and
-// KS * k_chunk >= Dq.
-int qwen3tts_fused_o_mlp(int dtype, int w_int8, const void* x, const void* attn,
-                         const void* wo, const void* wo_scale, const void* nw, const void* gu,
-                         const void* gu_scale, const void* wd, const void* wd_scale, void* out,
-                         void* part1, void* part2, int B, int H, int Dq, int I, int KS,
-                         int k_chunk, float eps, void* stream) {
-  if (!shape_ok(B, Dq, H) || !shape_ok(B, H, 2 * I) || I % kCols != 0 || KS < 1 ||
-      (long long)KS * k_chunk < Dq ||
-      (w_int8 && (wo_scale == nullptr || gu_scale == nullptr || wd_scale == nullptr)))
+// ptrs: x, attn, wo, wo_scale, norm_w, gu, gu_scale, wd, wd_scale, out,
+// part1 and part2 (8-byte words, zeroed once: [KS, min(B, 4), H] and [NT,
+// min(B, 4), H]), sync (uint32 [3], {0, 1, 0} once: wstream.cuh launch_tags).  dims: B, H, Dq, I, KS, k_chunk, C_o, C_gu: the
+// o-projection runs ceil(H / C_o) column tiles x KS row splits of k_chunk
+// rows, the MLP NT = ceil(I / C_gu) tiles; both counts must fit the grid
+// (qwen3tts_o_mlp_grid).
+int qwen3tts_fused_o_mlp(int dtype, int w_int8, void* const* ptrs, const int* dims, float eps,
+                         void* stream) {
+  const int B = dims[0], H = dims[1], Dq = dims[2], I = dims[3], KS = dims[4], k_chunk = dims[5],
+            C_o = dims[6], C_gu = dims[7];
+  if (!shape_ok(B, Dq, H) || !shape_ok(B, H, 2 * I) || I % kVec != 0 || KS < 1 || k_chunk < 1 ||
+      (long long)KS * k_chunk < Dq || (long long)(KS - 1) * k_chunk >= Dq || C_o < kVec ||
+      C_o % kVec != 0 || C_o > kMaxCo || C_gu < kVec || C_gu % kVec != 0 || C_gu > kMaxCgu ||
+      (w_int8 && (ptrs[3] == nullptr || ptrs[6] == nullptr || ptrs[8] == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* p1 = static_cast<float*>(part1);
-  float* p2 = static_cast<float*>(part2);
-#define QWEN3TTS_OM(T, W)                                                                 \
-  return (int)(B == 1 ? o_mlp<T, W, 1>(x, attn, wo, wo_scale, nw, gu, gu_scale, wd, wd_scale, \
-                                       out, p1, p2, B, H, Dq, I, KS, k_chunk, eps, st)      \
-                      : o_mlp<T, W, 4>(x, attn, wo, wo_scale, nw, gu, gu_scale, wd, wd_scale, \
-                                       out, p1, p2, B, H, Dq, I, KS, k_chunk, eps, st))
-  if (dtype == 0 && !w_int8) QWEN3TTS_OM(__nv_bfloat16, __nv_bfloat16);
-  if (dtype == 0 && w_int8) QWEN3TTS_OM(__nv_bfloat16, int8_t);
-  if (dtype == 1 && !w_int8) QWEN3TTS_OM(float, float);
-  if (dtype == 1 && w_int8) QWEN3TTS_OM(float, int8_t);
-#undef QWEN3TTS_OM
+  if (dtype == 0 && !w_int8) return o_mlp_run<__nv_bfloat16, __nv_bfloat16>(ptrs, dims, eps, st);
+  if (dtype == 0 && w_int8) return o_mlp_run<__nv_bfloat16, int8_t>(ptrs, dims, eps, st);
+  if (dtype == 1 && !w_int8) return o_mlp_run<float, float>(ptrs, dims, eps, st);
+  if (dtype == 1 && w_int8) return o_mlp_run<float, int8_t>(ptrs, dims, eps, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// CTAs of one fused_o_mlp launch (the co-resident grid: one per SM), or
+// minus a cudaError_t.
+int qwen3tts_o_mlp_grid(int dtype, int w_int8, int B) {
+#define QWEN3TTS_OG(T, W) return B == 1 ? o_mlp_grid<T, W, 1>() : o_mlp_grid<T, W, 4>()
+  if (dtype == 0 && !w_int8) QWEN3TTS_OG(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 0 && w_int8) QWEN3TTS_OG(__nv_bfloat16, int8_t);
+  if (dtype == 1 && !w_int8) QWEN3TTS_OG(float, float);
+  if (dtype == 1 && w_int8) QWEN3TTS_OG(float, int8_t);
+#undef QWEN3TTS_OG
+  return -(int)cudaErrorInvalidValue;
+}
+
+#ifdef QWEN3TTS_STAMPS
+int qwen3tts_stamps(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, wstream::g_stamp, sizeof(wstream::g_stamp));
+}
+int qwen3tts_stage_stamps(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, wstream::g_stage_stamp, sizeof(wstream::g_stage_stamp));
+}
+#endif
 
 }  // extern "C"

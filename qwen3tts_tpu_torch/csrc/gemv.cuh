@@ -1,5 +1,4 @@
-// Column-tile matrix-vector product for batch 1, shared by matvec.cu and
-// predictor_step.cu.
+// Column-tile matrix-vector product for batch 1 (matvec.cu).
 //
 // One CTA of kThreads threads computes kCols consecutive output columns of
 // a @ W over the whole depth K (W row-major [K, N], a float row in shared

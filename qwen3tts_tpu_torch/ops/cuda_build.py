@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,10 +47,13 @@ def nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def nvcc_command(nvcc_path: str, out: Path, source: Path) -> List[str]:
+def nvcc_command(nvcc_path: str, out: Path, source: Path,
+                 defines: Sequence[str] = ()) -> List[str]:
+    """``defines`` (``NAME`` or ``NAME=value``) build a variant of a source
+    for ``tools/kernel_probe.py``; the shipped libraries take none."""
     return [nvcc_path, "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-            "-o", str(out), str(source)]
+            *(f"-D{d}" for d in defines), f"-I{CSRC}", "-o", str(out), str(source)]
 
 
 def build_key() -> str:

@@ -19,7 +19,10 @@ On CUDA tensors the wrappers launch the kernels of
 ``qwen3tts_tpu_torch/csrc/fused_block.cu`` (built at first use,
 ``ops/cuda_build.py``) or raise; on CPU tensors they run the plain versions.
 ``fused_norm_matmul.launches`` and ``fused_o_mlp.launches`` count calls that
-launched the kernel (``fused_o_mlp`` is three launches on the stream).
+launched the kernel.  ``fused_o_mlp`` is one cooperative launch of one CTA
+per SM (one per 4 rows above 4) that streams its weights through a ring in
+shared memory (``csrc/wstream.cuh``); ``o_mlp_geometry`` cuts the work into
+one item per CTA.
 """
 from __future__ import annotations
 
@@ -29,14 +32,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, wstream
 from .quant import dequant
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-COLS = 32  # output columns per CTA; fused_o_mlp's intermediate tile
 MAX_K = 2048  # longest activation row the kernels keep in shared memory
-MIN_CTAS = 128  # o-projection grid target: near the card's 132 SMs
-_workspace: Dict[Tuple, torch.Tensor] = {}
+MAX_GU_COLS = 256  # widest gate/up tile of fused_o_mlp
+ROWS = 4  # rows of one fused_o_mlp launch above batch 1
+STAGE_BYTES = 32768  # one stage of fused_o_mlp's ring
+_workspace: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
 
 def _rms_norm_f32(x_f32: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -56,34 +60,69 @@ def fused_norm_matmul_plain(x: torch.Tensor, norm_w: torch.Tensor, w: Any,
     return (h.float() @ _weight(w, x.dtype).float()).to(x.dtype)
 
 
+def tile_sum(parts: torch.Tensor) -> torch.Tensor:
+    """Sum over the first axis in the kernel's order: lane l of a warp adds
+    parts l, l + 32, ... in increasing order, then the 32 lanes meet in a
+    butterfly (offsets 16, 8, 4, 2, 1)."""
+    lanes = torch.zeros((32,) + parts.shape[1:], dtype=parts.dtype)
+    for t in range(parts.shape[0]):
+        lanes[t % 32] = lanes[t % 32] + parts[t]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[torch.arange(32) ^ off]
+    return lanes[0]
+
+
 def fused_o_mlp_plain(x: torch.Tensor, attn: torch.Tensor, o_w: Any, norm_w: torch.Tensor,
-                      gateup_w: Any, down_w: Any, eps: float = 1e-6) -> torch.Tensor:
-    """[B, H] residual, [B, Dq] attention -> [B, H] in x's dtype."""
+                      gateup_w: Any, down_w: Any, eps: float = 1e-6,
+                      geo: Optional[Tuple[wstream.Geo, wstream.Geo]] = None) -> torch.Tensor:
+    """[B, H] residual, [B, Dq] attention -> [B, H] in x's dtype.  With
+    ``geo`` (``o_mlp_geometry``) the sums across CTAs are taken in the
+    kernel's order: the o-projection's row splits in split order, the down
+    projection's per-tile partial sums by ``tile_sum`` (CPU tensors)."""
     dt = x.dtype
-    x2 = x.float() + attn.float() @ _weight(o_w, dt).float()
+    wo, wd = _weight(o_w, dt).float(), _weight(down_w, dt).float()
+    if geo is None:
+        x2 = x.float() + attn.float() @ wo
+    else:
+        s = torch.zeros(x.shape, dtype=torch.float32)
+        for k_lo in range(0, attn.shape[1], geo[0].chunk):
+            s = s + attn.float()[:, k_lo:k_lo + geo[0].chunk] @ wo[k_lo:k_lo + geo[0].chunk]
+        x2 = x.float() + s
     h = _rms_norm_f32(x2, norm_w, eps).to(dt)
     gu = h.float() @ _weight(gateup_w, dt).float()
     g, u = gu.chunk(2, dim=-1)
     act = (g * torch.sigmoid(g) * u).to(dt)
-    return (x2 + act.float() @ _weight(down_w, dt).float()).to(dt)
+    if geo is None:
+        return (x2 + act.float() @ wd).to(dt)
+    cols = geo[1].cols
+    parts = torch.stack([act.float()[:, i0:i0 + cols] @ wd[i0:i0 + cols]
+                         for i0 in range(0, wd.shape[0], cols)])
+    return (x2 + tile_sum(parts)).to(dt)
 
 
 # ---------------------------------------------------------------------------
 # wrappers
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fns():
-    lib = cuda_build.library("fused_block")
+def bind(lib: ctypes.CDLL):
+    """(fused_norm_matmul, fused_o_mlp, o_mlp_grid) of a built library."""
     nm = lib.qwen3tts_fused_norm_matmul
     nm.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     nm.restype = ctypes.c_int
     om = lib.qwen3tts_fused_o_mlp
-    om.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
+    om.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
     om.restype = ctypes.c_int
-    return nm, om
+    grid = lib.qwen3tts_o_mlp_grid
+    grid.argtypes = [ctypes.c_int] * 3
+    grid.restype = ctypes.c_int
+    return nm, om, grid
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    return bind(cuda_build.library("fused_block"))
 
 
 def _split(name: str, w: Any, rows: Optional[int], cols: Optional[int]):
@@ -152,7 +191,7 @@ def fused_norm_matmul(x: torch.Tensor, norm_w: torch.Tensor, w: Any,
     quant = ws is not None
     _check_cuda(x, {"x": x, "norm_w": norm_w}, {"w": (wq, ws)})
     _check_rows(B, H, N, "fused_norm_matmul")
-    nm, _ = _kernel_fns()
+    nm = _kernel_fns()[0]
     out = torch.empty((B, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = nm(_DTYPE_CODE[x.dtype], int(quant), x.data_ptr(), norm_w.data_ptr(),
@@ -167,24 +206,42 @@ def fused_norm_matmul(x: torch.Tensor, norm_w: torch.Tensor, w: Any,
 fused_norm_matmul.launches = 0
 
 
-def o_proj_split(H: int, Dq: int) -> Tuple[int, int]:
-    """(KS, k_chunk): row splits of the o-projection, so that its grid of
-    ceil(H / COLS) x KS CTAs has at least MIN_CTAS, each >= 64 rows."""
-    tiles = -(-H // COLS)
-    ks = max(1, min(-(-MIN_CTAS // tiles), -(-Dq // 64)))
-    chunk = -(-Dq // ks)
-    return -(-Dq // chunk), chunk
+def o_mlp_geometry(H: int, Dq: int, I: int, grid: int) -> Tuple[wstream.Geo, wstream.Geo]:
+    """(o-projection, MLP) geometry of one fused_o_mlp launch on ``grid``
+    CTAs.  The o-projection is 32-column tiles of Wo x row splits of Dq; the
+    MLP is one tile of the intermediate size per CTA (its gate and up
+    columns over all of H, then its rows of Wd), as narrow as the grid
+    allows: 24 columns and 128 tiles for I 3072 on 132 CTAs."""
+    return (wstream.phase_geo(Dq, H, grid),
+            wstream.phase_geo(H, I, grid, split_rows=False, min_cols=wstream.VEC))
 
 
-def _workspaces(device, B: int, H: int, KS: int, NT: int):
-    """The float32 partial sums [KS + NT, B, H], allocated once per shape.
-    Calls are ordered on the stream, so one buffer serves them all."""
-    key = (device, B, H, KS, NT)
+@functools.lru_cache(maxsize=None)
+def kernel_grid(dtype: torch.dtype, quant: bool, rows: int) -> int:
+    """CTAs of one fused_o_mlp launch on the current card (one per SM)."""
+    n = _kernel_fns()[2](_DTYPE_CODE[dtype], int(quant), rows)
+    if n <= 0:
+        raise RuntimeError(f"no co-resident grid for the fused_o_mlp kernel: cudaError {-n}")
+    return n
+
+
+def _workspaces(device, rows: int, H: int, KS: int, NT: int):
+    """The partial sums part1 [KS, rows, H] and part2 [NT, rows, H] as 8-byte
+    tagged words, zeroed once, and the sync words of the launches' tags,
+    allocated once per shape (never during
+    CUDA-graph capture: call each shape once before capturing).  Launches
+    are ordered on the stream, so one set serves them all."""
+    key = (device, rows, H, KS, NT)
     ws = _workspace.get(key)
     if ws is None:
-        ws = _workspace[key] = torch.empty((KS + NT, B, H), dtype=torch.float32,
-                                           device=device)
-    return ws[:KS], ws[KS:]
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_o_mlp: call this shape once before capturing a CUDA "
+                               "graph (its workspace is allocated at first use)")
+        ws = _workspace[key] = (
+            torch.zeros((KS, rows, H), dtype=torch.int64, device=device),
+            torch.zeros((NT, rows, H), dtype=torch.int64, device=device),
+            torch.tensor([0, 1, 0], dtype=torch.int32, device=device))
+    return ws
 
 
 def fused_o_mlp(x: torch.Tensor, attn: torch.Tensor, o_w: Any, norm_w: torch.Tensor,
@@ -212,22 +269,25 @@ def fused_o_mlp(x: torch.Tensor, attn: torch.Tensor, o_w: Any, norm_w: torch.Ten
                 {"w_o": (wo, so), "w_gateup": (wgu, sgu), "w_down": (wd, sd)})
     _check_rows(B, Dq, H, "fused_o_mlp (o-projection)")
     _check_rows(B, H, 2 * I, "fused_o_mlp (gate/up)")
-    if I % COLS:
+    if I % wstream.VEC:
         raise ValueError(f"fused_o_mlp: no kernel instance for intermediate size {I} "
-                         f"(needs a multiple of {COLS})")
-    KS, chunk = o_proj_split(H, Dq)
-    part1, part2 = _workspaces(x.device, B, H, KS, I // COLS)
-    _, om = _kernel_fns()
+                         f"(needs a multiple of {wstream.VEC})")
+    rows = 1 if B == 1 else ROWS
+    grid = kernel_grid(x.dtype, quant, rows)
+    geo_o, geo_mlp = o_mlp_geometry(H, Dq, I, grid)
+    if geo_mlp.cols > MAX_GU_COLS:
+        raise ValueError(f"fused_o_mlp: no kernel instance for intermediate size {I} on "
+                         f"{grid} CTAs (a tile of {geo_mlp.cols} > {MAX_GU_COLS} columns)")
+    NT = wstream.num_items(H, I, geo_mlp)
+    part1, part2, sync = _workspaces(x.device, rows, H, geo_o.splits, NT)
+    om = _kernel_fns()[1]
     out = torch.empty_like(x)
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
+    ptrs = (ctypes.c_void_p * 13)(*(None if t is None else t.data_ptr() for t in (
+        x, attn, wo, so, norm_w, wgu, sgu, wd, sd, out, part1, part2, sync)))
+    dims = (ctypes.c_int * 8)(B, H, Dq, I, geo_o.splits, geo_o.chunk, geo_o.cols,
+                              geo_mlp.cols)
     with torch.cuda.device(x.device):
-        rc = om(_DTYPE_CODE[x.dtype], int(quant), x.data_ptr(), attn.data_ptr(),
-                wo.data_ptr(), ptr(so), norm_w.data_ptr(), wgu.data_ptr(), ptr(sgu),
-                wd.data_ptr(), ptr(sd), out.data_ptr(), part1.data_ptr(), part2.data_ptr(),
-                B, H, Dq, I, KS, chunk, float(eps),
+        rc = om(_DTYPE_CODE[x.dtype], int(quant), ptrs, dims, float(eps),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_o_mlp kernel launch failed: cudaError {rc}")

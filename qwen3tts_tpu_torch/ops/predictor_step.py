@@ -8,7 +8,12 @@ stack.  ``fused_micro_step`` runs that micro-step as one launch of the
 persistent cooperative kernel in
 ``qwen3tts_tpu_torch/csrc/predictor_step.cu`` (built at first use,
 ``ops/cuda_build.py``); on CPU tensors it runs ``fused_micro_step_plain``.
-``fused_micro_step.launches`` counts kernel launches.
+``fused_micro_step.launches`` counts kernel launches.  The kernel is one
+CTA per SM that walks 1 + 4 L matrix phases (proj; per layer qkv, o with
+the attention, gate|up, down) with a grid barrier after each and streams
+its weights through a ring in shared memory that runs ahead across the
+barriers (``csrc/wstream.cuh``); ``phase_geometry`` cuts every phase into
+at most one item per CTA.
 
 The arithmetic is the Pallas kernel's, not ``models/layers.py``'s: the
 residual stream stays float32 through every layer (proj output plus the
@@ -38,21 +43,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, wstream
 from .quant import is_quantized
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (64, 128)  # lanes hold D / 32 elements, rotate-half pairs in one lane
 MAX_K = 4096  # longest activation row the kernel keeps in shared memory
+MAX_HP = 2048  # widest residual the kernel keeps in shared memory
 MAX_S = 64  # most cache slots
-COLS = 8  # output columns per work item: Hp is a multiple of it
-COLS_QKV, COLS_GU = 16, 32  # the qkv width and I are multiples of these
+MAX_ITEM_COLS = 2048  # most outputs of one item (gate and up columns together)
+KV_BYTES = 24576  # shared memory for the cache rows an o-phase item's attention reads
+PHASES = ("proj", "qkv", "o", "gu", "down")  # the kernel's phase kinds, in its order
 _MATRICES = ("proj_w", "qkv", "o", "gu", "dn")
-_workspace: Dict[Tuple, torch.Tensor] = {}
+_workspace: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 Weights = Dict[str, torch.Tensor]
 
@@ -117,23 +124,33 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 def fused_micro_step_plain(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor,
                            sin: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor,
-                           pos: torch.Tensor, eps: float = 1e-6
+                           pos: torch.Tensor, eps: float = 1e-6,
+                           geo: Optional[Dict[str, wstream.Geo]] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The micro-step in PyTorch ops, with the kernel's arithmetic.  Writes
-    slot ``pos`` of the cache in place; returns (h [1, Hp], kv_k, kv_v)."""
+    slot ``pos`` of the cache in place; returns (h [1, Hp], kv_k, kv_v).
+    With ``geo`` (``phase_geometry``) every product is summed over its row
+    splits in split order, as the kernel's readers sum them."""
     Ht, Hp, NH, KVH, D, I, L, S = _geometry(w, kv_k)
     dt = x_emb.dtype
     G = NH // KVH
 
-    def mv(a, m):  # a float32 [1, K], cast to the dtype; products summed in float32
-        return a.to(dt).float() @ m.float()
+    def mv(a, m, kind):  # a float32 [1, K], cast to the dtype; products summed in float32
+        a = a.to(dt).float()
+        if geo is None:
+            return a @ m.float()
+        chunk = geo[kind].chunk
+        s = torch.zeros((1, m.shape[1]), dtype=torch.float32, device=a.device)
+        for k_lo in range(0, m.shape[0], chunk):
+            s = s + a[:, k_lo:k_lo + chunk] @ m[k_lo:k_lo + chunk].float()
+        return s
 
     rows = pos.reshape(1).long()
     live = torch.arange(S, device=x_emb.device) <= rows  # [S]
     cs, sn = cos.float(), sin.float()
-    xp = mv(x_emb.float(), w["proj_w"]) + w["proj_b"]  # [1, Hp] float32
+    xp = w["proj_b"] + mv(x_emb.float(), w["proj_w"], "proj")  # [1, Hp] float32
     for l in range(L):
-        qkv = mv(_rms_f32(xp, w["in_norm"][l], eps), w["qkv"][l])[0]
+        qkv = mv(_rms_f32(xp, w["in_norm"][l], eps), w["qkv"][l], "qkv")[0]
         q = qkv[: NH * D].reshape(NH, D)
         k = qkv[NH * D: (NH + KVH) * D].reshape(KVH, D)
         v = qkv[(NH + KVH) * D:].reshape(KVH, D)
@@ -148,10 +165,10 @@ def fused_micro_step_plain(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor,
         sc = torch.matmul(q.reshape(KVH, G, D), kc.transpose(-1, -2)) * (D ** -0.5)
         p = torch.softmax(sc.masked_fill(~live, -1e30), dim=-1)  # [KVH, G, S]
         attn = torch.matmul(p, vc).reshape(1, NH * D)
-        xp = xp + mv(attn, w["o"][l])
-        gu = mv(_rms_f32(xp, w["post_norm"][l], eps), w["gu"][l])
+        xp = xp + mv(attn, w["o"][l], "o")
+        gu = mv(_rms_f32(xp, w["post_norm"][l], eps), w["gu"][l], "gu")
         g, u = gu[:, :I], gu[:, I:]
-        xp = xp + mv(g * torch.sigmoid(g) * u, w["dn"][l])
+        xp = xp + mv(g * torch.sigmoid(g) * u, w["dn"][l], "down")
     return _rms_f32(xp, w["final_norm"], eps).to(dt), kv_k, kv_v
 
 
@@ -159,12 +176,57 @@ def fused_micro_step_plain(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor,
 # wrapper
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fns():
-    lib = cuda_build.library("predictor_step")
+def phase_dims(dims) -> Dict[str, Tuple[int, int]]:
+    """(K, N) of each phase kind: depth and output width."""
+    Ht, Hp, NH, KVH, D, I, L, S = dims
+    Dq = NH * D
+    return {"proj": (Ht, Hp), "qkv": (Hp, Dq + 2 * KVH * D), "o": (Dq, Hp), "gu": (Hp, I),
+            "down": (I, Hp)}
+
+
+def phase_geometry(dims, grid: int) -> Dict[str, wstream.Geo]:
+    """How each phase kind is cut into at most one item per CTA of a grid
+    of ``grid``: 32-column tiles x row splits (the reader of a phase's
+    output sums the splits in order); the gate|up phase one tile of the
+    intermediate size per CTA over all rows, as narrow as the grid allows,
+    since the activation needs whole sums."""
+    return {kind: wstream.phase_geo(K, N, grid, split_rows=kind != "gu",
+                                    min_cols=wstream.VEC if kind == "gu" else
+                                    wstream.MIN_COLS)
+            for kind, (K, N) in phase_dims(dims).items()}
+
+
+def attention_kv_heads(dims, geo_o: wstream.Geo) -> int:
+    """The most kv heads whose cache rows one o-phase item reads: the heads
+    whose columns lie in its row split of Wo, mapped to their kv heads."""
+    Ht, Hp, NH, KVH, D, I, L, S = dims
+    G, Dq = NH // KVH, NH * D
+    return max((min(Dq, k_lo + geo_o.chunk) - 1) // D // G - k_lo // D // G + 1
+               for k_lo in range(0, Dq, geo_o.chunk))
+
+
+def cta_jobs(dims, geo: Dict[str, wstream.Geo], cta: int, elt_size: int):
+    """CTA ``cta``'s jobs over the 1 + 4 L phases of a micro-step, in the
+    order the kernel's ring streams them: ``(rows, row_bytes)`` each, with
+    0 rows where the CTA has no item in the phase."""
+    L = dims[6]
+    pd = phase_dims(dims)
+    jobs = []
+    for kind in ("proj",) + ("qkv", "o", "gu", "down") * L:
+        item = wstream.item_of(cta, *pd[kind], geo[kind])
+        if item is None:
+            jobs.append((0, wstream.VEC * elt_size))
+        else:
+            jobs.append((item.k_hi - item.k_lo,
+                         (2 if kind == "gu" else 1) * item.cols * elt_size))
+    return jobs
+
+
+def bind(lib: ctypes.CDLL):
+    """(micro_step, micro_step_grid, grid_barriers) of a built library."""
     step = lib.qwen3tts_micro_step
-    step.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                     ctypes.c_float, ctypes.c_void_p]
+    step.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_float,
+                                                              ctypes.c_void_p]
     step.restype = ctypes.c_int
     grid = lib.qwen3tts_micro_step_grid
     grid.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -175,15 +237,39 @@ def _kernel_fns():
     return step, grid, barriers
 
 
-def _workspace_for(device, Hp: int, QT: int, Dq: int, I: int) -> torch.Tensor:
-    """The float32 vectors between phases (xp, qkv, attn, act), allocated
-    once per shape.  Launches are ordered on the stream, so one buffer
-    serves them all."""
-    key = (device, Hp, QT, Dq, I)
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    return bind(cuda_build.library("predictor_step"))
+
+
+def needs_barriers(dims, geo: Dict[str, wstream.Geo]) -> bool:
+    """Whether the phases meet at grid barriers.  Where every phase kind has
+    the same number of items, every CTA with items hands something on in
+    every phase, and the tags on what crosses the grid order the phases by
+    themselves; a CTA that skipped a phase could fall behind the
+    workspace's reuse, so other shapes keep a barrier after every phase."""
+    return len({wstream.num_items(*kn, geo[kind])
+                for kind, kn in phase_dims(dims).items()}) > 1
+
+
+def _workspace_for(device, dims, geo: Dict[str, wstream.Geo]):
+    """What crosses the grid between phases, as 8-byte tagged words (proj /
+    down, qkv and o partial sums: one row per row split; the activation),
+    zeroed once, and the sync words {grid barrier, next launch's tags, CTAs
+    done}, allocated once per shape (never during CUDA-graph capture).
+    Launches are ordered on the stream, so one set serves them all."""
+    Ht, Hp, NH, KVH, D, I, L, S = dims
+    QT = (NH + 2 * KVH) * D
+    n = (max(geo["proj"].splits, geo["down"].splits) * Hp + geo["qkv"].splits * QT
+         + geo["o"].splits * Hp + I)
+    key = (device, n)
     ws = _workspace.get(key)
     if ws is None:
-        ws = _workspace[key] = torch.empty(Hp + QT + Dq + I, dtype=torch.float32,
-                                           device=device)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_micro_step: call this shape once before capturing a "
+                               "CUDA graph (its workspace is allocated at first use)")
+        ws = _workspace[key] = (torch.zeros(n, dtype=torch.int64, device=device),
+                                torch.tensor([0, 1, 0], dtype=torch.int32, device=device))
     return ws
 
 
@@ -223,13 +309,12 @@ def _check_cuda(tensors: Dict, x_emb: torch.Tensor, dims):
             raise ValueError(f"{name} must be contiguous")
         if name in _MATRICES + ("kv_k", "kv_v") and t.data_ptr() % 16:  # 16-byte loads
             raise ValueError(f"{name} must be 16-byte aligned")
-    QT = (NH + 2 * KVH) * D
-    if (D not in HEAD_DIMS or S > MAX_S or max(Ht, Hp, NH * D, I) > MAX_K
-            or Hp % COLS or QT % COLS_QKV or I % COLS_GU):
+    if (D not in HEAD_DIMS or S > MAX_S or max(Ht, NH * D, I) > MAX_K or Hp > MAX_HP
+            or any(n % wstream.VEC for n in (Ht, Hp, I))):
         raise ValueError(f"fused_micro_step has no kernel instance for Ht {Ht}, Hp {Hp}, "
                          f"{NH}/{KVH} heads of {D}, I {I}, {S} slots (needs head_dim in "
-                         f"{HEAD_DIMS}, widths <= {MAX_K}, Hp, the qkv width and I "
-                         f"multiples of {COLS}, {COLS_QKV} and {COLS_GU}, <= {MAX_S} slots)")
+                         f"{HEAD_DIMS}, widths <= {MAX_K}, Hp <= {MAX_HP}, Ht, Hp and I "
+                         f"multiples of {wstream.VEC}, <= {MAX_S} slots)")
 
 
 def fused_micro_step(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -248,15 +333,24 @@ def fused_micro_step(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor, sin: to
         return fused_micro_step_plain(w, x_emb, cos, sin, kv_k, kv_v, pos, eps)
     _check_cuda(tensors, x_emb, dims)
     step, _, _ = _kernel_fns()
+    geo = phase_geometry(dims, kernel_grid(x_emb.dtype, D))
+    if 2 * geo["gu"].cols > MAX_ITEM_COLS:
+        raise ValueError(f"fused_micro_step has no kernel instance for I {I} on this grid")
+    if 2 * attention_kv_heads(dims, geo["o"]) * S * D * x_emb.element_size() > KV_BYTES:
+        raise ValueError(f"fused_micro_step has no kernel instance for {S} slots of "
+                         f"{KVH} kv heads of {D}: an item's cache rows exceed {KV_BYTES} "
+                         f"bytes of shared memory")
     out = torch.empty((1, Hp), dtype=x_emb.dtype, device=x_emb.device)
-    ws = _workspace_for(x_emb.device, Hp, (NH + 2 * KVH) * D, NH * D, I)
-    ptrs = (ctypes.c_void_p * 19)(*(t.data_ptr() for t in (
+    ws, sync = _workspace_for(x_emb.device, dims, geo)
+    ptrs = (ctypes.c_void_p * 20)(*(t.data_ptr() for t in (
         x_emb, w["proj_w"], w["proj_b"], w["in_norm"], w["post_norm"], w["q_norm"],
         w["k_norm"], w["final_norm"], w["qkv"], w["o"], w["gu"], w["dn"], cos, sin,
-        kv_k, kv_v, pos, out, ws)))
+        kv_k, kv_v, pos, out, ws, sync)))
     dims_c = (ctypes.c_int * 8)(*dims)
+    geo_c = (ctypes.c_int * 16)(*(v for kind in PHASES for v in geo[kind]),
+                                int(needs_barriers(dims, geo)))
     with torch.cuda.device(x_emb.device):
-        rc = step(_DTYPE_CODE[x_emb.dtype], ptrs, dims_c, float(eps), float(D ** -0.5),
+        rc = step(_DTYPE_CODE[x_emb.dtype], ptrs, dims_c, geo_c, float(eps), float(D ** -0.5),
                   torch.cuda.current_stream(x_emb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_micro_step kernel launch failed: cudaError {rc}")
@@ -267,8 +361,9 @@ def fused_micro_step(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor, sin: to
 fused_micro_step.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_grid(dtype: torch.dtype, head_dim: int) -> int:
-    """CTAs of one micro-step launch on the current card."""
+    """CTAs of one micro-step launch on the current card (one per SM)."""
     _, grid, _ = _kernel_fns()
     n = grid(_DTYPE_CODE[dtype], head_dim)
     if n <= 0:

@@ -1,9 +1,27 @@
-"""Measure the design choices behind csrc/flash_decode.cu and csrc/matvec.cu
-on the card.
+"""Measure the design choices behind the port's CUDA kernels on the card.
 
-    python -m qwen3tts_tpu_torch.tools.kernel_probe
+    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash]
 
-Builds the shipped flash-decode source and three copies of it, each changed
+``stream`` (fused_o_mlp and fused_micro_step, csrc/wstream.cuh) builds the
+two sources once more per variant with a ``-DQWEN3TTS_...`` flag and, at the
+0.6B talker's and predictor's shapes in bf16, prints:
+
+* the time of each variant beside the shipped kernel (CUDA graphs of one
+  call per layer, and of a frame's 14 micro-steps): a grid barrier after
+  every phase instead of the tags alone, with a relaxed poll, with the
+  producers pausing between phases, with the attention behind a barrier of
+  its own; a ring of 2 stages; 2 stages and the whole ring in flight; 512
+  consumer threads; every row range a bulk copy, and none; 32 KB stages;
+  the stream alone, without the products;
+* an empty cooperative launch and 21 grid barriers alone, for the shipped
+  barrier, cooperative_groups' grid sync and the relaxed poll;
+* from the stamped variant (%globaltimer), per phase over the CTAs of one
+  call: when a CTA started the phase, when its first weight stage had
+  landed, when it ended (median and slowest CTA); and for CTA 0 how long
+  its thread 0 waited for each ring stage and how long it held it.
+
+``flash`` (csrc/flash_decode.cu, csrc/matvec.cu) builds the shipped
+flash-decode source and three copies of it, each changed
 in one place by text substitution: a base-2 softmax (q * log2 e,
 ex2.approx), a programmatic dependent launch, and %globaltimer stamps at
 each phase of a CTA.  Then, at the 0.6B talker's shapes (L 28, KVH 8, D
@@ -240,11 +258,226 @@ def _move(t, dev):
     return t.to(dev)
 
 
+# ---------------------------------------------------------------------------
+# fused_o_mlp and fused_micro_step: the weight stream of csrc/wstream.cuh
+
+# variants of csrc/fused_block.cu and csrc/predictor_step.cu, by -D flags
+STREAM_VARIANTS = {
+    "stamped": ("QWEN3TTS_STAMPS",),
+    "cg barrier": ("QWEN3TTS_BARRIER=1",),
+    "barriers with a relaxed poll": ("QWEN3TTS_BARRIER=2", "QWEN3TTS_FORCE_BARRIERS"),
+    "ring of 2 stages": ("QWEN3TTS_RING_STAGES=2",),
+    "producers pause between phases": ("QWEN3TTS_QUIET=1", "QWEN3TTS_FORCE_BARRIERS"),
+    "2 stages in flight": ("QWEN3TTS_IN_FLIGHT=2",),
+    "the whole ring in flight": ("QWEN3TTS_IN_FLIGHT=64",),
+    "512 consumers": ("QWEN3TTS_CONSUMERS=512", "QWEN3TTS_STAGE_BYTES=16384"),
+    "every row range a bulk copy": ("QWEN3TTS_BULK_MIN=16",),
+    "no bulk copies": ("QWEN3TTS_BULK_MIN=1000000",),
+    "32 KB stages": ("QWEN3TTS_STAGE_BYTES=32768",),
+    "stream alone (no products)": ("QWEN3TTS_NO_COMPUTE",),
+    "a grid barrier after every phase": ("QWEN3TTS_FORCE_BARRIERS",),
+    "barriers, and attention behind its own": ("QWEN3TTS_ATTENTION_BARRIER",),
+}
+STAMP_SHAPE = (160, 32, 3)  # CTA, phase, (start, first stage landed, end)
+O_MLP_PHASES = ["o-projection", "norm + gate|up", "down", "final sum"]
+
+
+def _build_stream_variants():
+    """Each variant of the two sources, one nvcc each, all at once."""
+    out_dir = cuda_build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for vname, defines in STREAM_VARIANTS.items():
+        for src in ("fused_block", "predictor_step"):
+            if src == "fused_block" and any("BARRIERS" in d or "ATTENTION" in d
+                                            for d in defines):
+                continue
+            so = out_dir / f"lib{src}_{'_'.join(defines).replace('=', '_')}.so"
+            cmd = cuda_build.nvcc_command(cuda_build.nvcc(), so, cuda_build.SOURCES[src],
+                                          defines)
+            procs[(vname, src)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                        stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for key, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {key}:\n{err}")
+        libs[key] = ctypes.CDLL(str(so))
+    return libs
+
+
+def _read_stamps(lib, grid: int):
+    """us since the first CTA's entry, [CTA, phase, kind]; NaN where a CTA
+    had no such phase in the last launch."""
+    fn = lib.qwen3tts_stamps
+    fn.argtypes = [ctypes.c_void_p]
+    buf = np.zeros(STAMP_SHAPE, dtype=np.uint64)
+    torch.cuda.synchronize()
+    if fn(buf.ctypes.data):
+        raise RuntimeError("reading the stamps failed")
+    st = buf[:grid].astype(np.int64)
+    rel = (st - st[:, 0, 0].min()).astype(np.float64) / 1e3  # the difference, then float
+    rel[(rel < 0) | (rel > 1e4)] = np.nan  # stamps of an earlier launch
+    return rel
+
+
+def _stage_line(lib, stages: int) -> str:
+    """CTA 0's stages of the last launch: us its thread 0 waited for each
+    stage to land (since it handed the one before back) / us it then held
+    it."""
+    fn = lib.qwen3tts_stage_stamps
+    fn.argtypes = [ctypes.c_void_p]
+    buf = np.zeros((512, 2), dtype=np.uint64)
+    torch.cuda.synchronize()
+    if fn(buf.ctypes.data):
+        raise RuntimeError("reading the stage stamps failed")
+    st = (buf[:stages].astype(np.int64) - np.int64(buf[0, 0])).astype(np.float64) / 1e3
+    parts = []
+    for n in range(stages):
+        wait = st[n, 0] - (st[n - 1, 1] if n else st[0, 0])
+        parts.append(f"{wait:.2f}/{st[n, 1] - st[n, 0]:.2f}")
+    return " ".join(parts)
+
+
+def _phase_lines(rel, names):
+    lines = []
+    for p, name in enumerate(names):
+        col = rel[:, p]
+        if np.isnan(col[:, 0]).all():
+            continue
+        parts = []
+        for k, kind in enumerate(("starts", "first stage landed", "ends")):
+            v = col[:, k][~np.isnan(col[:, k])]
+            if v.size:
+                parts.append(f"{kind} {np.median(v):.2f} (slowest {v.max():.2f})")
+        lines.append(f"    {name}: " + "; ".join(parts))
+    return lines
+
+
+def _with_lib(module, lib):
+    """The wrapper module's kernel functions bound to a variant library."""
+    module._kernel_fns = lambda: module.bind(lib)
+
+
+def stream_probe():
+    from ..core.presets import get_preset
+    from ..models import predictor as predictor_lib
+    from ..ops import fused_block as fb
+    from ..ops import predictor_step as ps
+    from ..ops import wstream
+    from ..ops.quant import quantize_tensor
+
+    dev = torch.device("cuda")
+    libs = _build_stream_variants()
+    shipped = {"fused_block": cuda_build.library("fused_block"),
+               "predictor_step": cuda_build.library("predictor_step")}
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    # fused_o_mlp at the 0.6B talker's shapes, one call per layer
+    H, Dq, I, L = 1024, 2048, 3072, 28
+    x = torch.randn((1, H), generator=g, device=dev).bfloat16()
+    attn = torch.randn((1, Dq), generator=g, device=dev).bfloat16()
+    nw = torch.ones((H,), device=dev).bfloat16()
+    grid = fb.kernel_grid(torch.bfloat16, False, 1)
+    print(f"fused_o_mlp: grid {grid} CTAs, geometry {fb.o_mlp_geometry(H, Dq, I, grid)}")
+    for wname, quant in (("bf16", False), ("int8", True)):
+        def w(rows, cols):
+            t = torch.randn((rows, cols), generator=g, device=dev) * rows ** -0.5
+            return quantize_tensor(t) if quant else t.bfloat16()
+        ws = [(w(Dq, H), w(H, 2 * I), w(I, H)) for _ in range(L)]
+
+        def call(i):
+            return fb.fused_o_mlp(x, attn, ws[i % L][0], nw, ws[i % L][1], ws[i % L][2])
+
+        names = ["shipped"] + [v for v in STREAM_VARIANTS
+                               if (v, "fused_block") in libs and "barrier" not in v] + ["shipped"]
+        line = []
+        for name in names:
+            _with_lib(fb, shipped["fused_block"] if name == "shipped"
+                      else libs[(name, "fused_block")])
+            line.append(f"{name} {graph_us(call, L):.2f}")
+        print(f"fused_o_mlp talker x=bf16 w={wname}, us/call: " + "; ".join(line))
+        _with_lib(fb, libs[("stamped", "fused_block")])
+        for i in range(L + 1):
+            call(i)
+        rel = _read_stamps(libs[("stamped", "fused_block")], grid)
+        print(f"  phases (w={wname}), us from the first CTA's entry, median over CTAs:")
+        print("\n".join(_phase_lines(rel, O_MLP_PHASES)))
+        elt = 1 if quant else 2
+        geo_o, geo_mlp = fb.o_mlp_geometry(H, Dq, I, grid)
+        n_stages = len(wstream.stage_schedule(
+            [(geo_o.chunk, geo_o.cols * elt), (H, 2 * geo_mlp.cols * elt),
+             (geo_mlp.cols, H * elt)], 99, fb.STAGE_BYTES))
+        print(f"    CTA 0's {n_stages} stages (o-projection, gate|up, down), us waited / us held: "
+              + _stage_line(libs[("stamped", "fused_block")], n_stages))
+        _with_lib(fb, shipped["fused_block"])
+        del ws
+
+    # fused_micro_step at the 0.6B predictor's shapes, a frame's 14 steps
+    cfg = get_preset("qwen3-tts-0.6b")
+    pcfg, Ht = cfg.predictor, cfg.talker.hidden_size
+    params = predictor_lib.init_params(g, pcfg, Ht, torch.bfloat16, dev)
+    wts = ps.micro_step_weights(params)
+    Lp, S, KVH, D = (pcfg.num_hidden_layers, pcfg.max_seq, pcfg.num_key_value_heads,
+                     pcfg.head_dim)
+    kk, vv = (torch.randn((Lp, S, KVH, D), generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    steps = pcfg.num_codebooks - 1
+    xs = [(0.5 * torch.randn((1, Ht), generator=g, device=dev)).bfloat16()
+          for _ in range(steps)]
+    poss = [torch.full((1,), 2 + i, dtype=torch.int32, device=dev) for i in range(steps)]
+    ropes = [tuple(t[0, 0] for t in predictor_lib._rope(pcfg, p.reshape(1, 1))) for p in poss]
+
+    def step(i):
+        return ps.fused_micro_step(wts, xs[i], *ropes[i], kk, vv, poss[i], pcfg.rms_norm_eps)
+
+    mgrid = ps.kernel_grid(torch.bfloat16, D)
+    dims = ps._geometry(wts, kk)
+    print(f"fused_micro_step: grid {mgrid} CTAs, geometry {ps.phase_geometry(dims, mgrid)}")
+    names = ["shipped"] + list(STREAM_VARIANTS) + ["shipped"]
+    line, bars = [], []
+    n_sync = 1 + 4 * Lp
+    for name in names:
+        lib = shipped["predictor_step"] if name == "shipped" else libs[(name, "predictor_step")]
+        _with_lib(ps, lib)
+        if "cg" not in name:  # a grid sync of the whole CTA would wait for the producers
+            line.append(f"{name} {graph_us(step, steps):.2f}")
+        if name in ("shipped", "cg barrier", "barriers with a relaxed poll"):
+            t0, tn = (graph_us(lambda i: ps.grid_barriers(mgrid, n, torch.cuda.current_stream()),
+                               steps) for n in (0, n_sync))
+            bars.append(f"{name}: launch {t0:.2f}, {n_sync} barriers {tn - t0:.2f} "
+                        f"({(tn - t0) / n_sync:.2f} each)")
+    print("fused_micro_step bf16, us a micro-step: " + "; ".join(line))
+    print("  an empty cooperative launch and the barriers alone, us: " + "; ".join(bars))
+    _with_lib(ps, libs[("stamped", "predictor_step")])
+    for i in range(steps):
+        step(i)
+    rel = _read_stamps(libs[("stamped", "predictor_step")], mgrid)
+    kinds = ["proj"] + ["qkv", "o + attention", "gate|up", "down"] * Lp
+    print("  phases of the last step, us from the first CTA's entry, median over CTAs "
+          "(phase 0: kernel entry; a phase starts when its CTA leaves the barrier before it):")
+    names = ["entry"] + [f"{i} {k}" for i, k in enumerate(kinds)] + ["final norm"]
+    print("\n".join(_phase_lines(rel, names)))
+    print("    CTA 0's first 28 stages (proj 1, then per layer qkv 2, o 1, gate|up 7, down 3), "
+          "us waited / us held: " + _stage_line(libs[("stamped", "predictor_step")], 28))
+    _with_lib(ps, shipped["predictor_step"])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: no CUDA device")
-    dev = torch.device("cuda")
+    import sys
+
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
     print(torch.cuda.get_device_name(0))
+    if which in ("all", "stream"):
+        stream_probe()
+    if which in ("all", "flash"):
+        flash_probe()
+
+
+def flash_probe():
+    dev = torch.device("cuda")
     libs = _build(_variants())
 
     def stream():

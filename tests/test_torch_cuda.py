@@ -265,6 +265,64 @@ def test_fused_kernels_match_plain(dtype, quantized, shape):
     assert torch.equal(z, z2)  # no float atomics: the same bits every run
 
 
+def _graph_of(fn):
+    """A CUDA graph of one call of ``fn()``, warmed up on a side stream first
+    (a wrapper allocates its workspace at first use, never while capturing)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+# (B, H, Dq, I): the 0.6B talker and predictor at 1, 2 and 32 rows, the 1.7B
+# talker, and widths where an item is less than one ring stage
+O_MLP_SHAPES = [(1, 1024, 2048, 3072), (2, 1024, 2048, 3072), (32, 1024, 2048, 3072),
+                (1, 1024, 1024, 3072), (2, 1024, 1024, 3072), (32, 1024, 1024, 3072),
+                (1, 2048, 2048, 6144), (3, 64, 64, 128), (1, 64, 128, 136)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("shape", O_MLP_SHAPES)
+def test_o_mlp_kernel_rows_and_shapes(dtype, quantized, shape):
+    """fused_o_mlp against its plain version; two runs give the same bits."""
+    _need_card()
+    atol, rtol = TOL[dtype]
+    B, H, Dq, I = shape
+    x, attn, nw, _, wo, wgu, wd = _fused_inputs(dtype, quantized, B, H, Dq, 8, I, seed=3)
+    z, z2 = (fb.fused_o_mlp(x, attn, wo, nw, wgu, wd) for _ in range(2))
+    z_ref = fb.fused_o_mlp_plain(x, attn, wo, nw, wgu, wd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(z.float(), z_ref.float(), atol=atol, rtol=rtol)
+    assert torch.equal(z, z2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_o_mlp_graph_replays_after_inputs_change(dtype, quantized):
+    """One captured graph of fused_o_mlp, replayed after x and attn were
+    rewritten in place: every replay equals the plain version."""
+    _need_card()
+    atol, rtol = TOL[dtype]
+    x, attn, nw, _, wo, wgu, wd = _fused_inputs(dtype, quantized, 1, 1024, 2048, 8, 3072)
+    graph, out = _graph_of(lambda: fb.fused_o_mlp(x, attn, wo, nw, wgu, wd))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+        attn.copy_(torch.randn(attn.shape, generator=g, device="cuda"))
+        graph.replay()
+        ref = fb.fused_o_mlp_plain(x, attn, wo, nw, wgu, wd)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
 @pytest.mark.cuda
 def test_fused_wrappers_raise_without_instance():
     """On CUDA tensors a shape or dtype without a kernel instance raises; the
@@ -274,8 +332,8 @@ def test_fused_wrappers_raise_without_instance():
     with pytest.raises(ValueError, match="no kernel instance"):  # K > 2048
         fb.fused_norm_matmul(x.new_zeros((1, 4096)), nw.new_ones(4096),
                              wqkv.new_zeros((4096, 256)))
-    with pytest.raises(ValueError, match="no kernel instance"):  # I % 32 != 0
-        fb.fused_o_mlp(x, attn, wo, nw, wgu[:, :2 * 48].contiguous(), wd[:48].contiguous())
+    with pytest.raises(ValueError, match="no kernel instance"):  # I % 8 != 0
+        fb.fused_o_mlp(x, attn, wo, nw, wgu[:, :2 * 44].contiguous(), wd[:44].contiguous())
     with pytest.raises(ValueError, match="float16"):
         fb.fused_norm_matmul(x.half(), nw.half(), wqkv.half())
     with pytest.raises(ValueError, match="must be"):  # weight dtype != activations
@@ -330,25 +388,62 @@ def test_talker_decode_on_card_matches_cpu(int8):
         rng = np.random.default_rng(1)
         embeds = rng.standard_normal((1, 7, cfg.hidden_size)).astype(np.float32) * 0.1
         xs = rng.standard_normal((4, 1, 1, cfg.hidden_size)).astype(np.float32) * 0.1
-        outs = {}
-        for device in ("cuda", "cpu"):
-            dev = torch.device(device)
-            def move(t):
-                return {k: move(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+        outs, before = {}, []
 
-            p = move(params)
+        def move(t, dev):
+            return {k: move(v, dev) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+
+        for device in ("cpu", "cuda"):
+            dev = torch.device(device)
+            p = move(params, dev)
             kv = T.new_kv_cache(cfg, 1, 32, torch.float32, dev, kv_quant=int8)
             pad = torch.zeros((1,), dtype=torch.int32, device=dev)
             _, logits, kv = T.prefill(p, cfg, torch.from_numpy(embeds).to(dev), pad, kv)
             hs = [logits.cpu()]
             for i, x in enumerate(xs):
+                if device == "cpu":
+                    before.append({k: t.clone() for k, t in kv.items()})
                 pos = torch.full((1,), 7 + i, dtype=torch.int32, device=dev)
                 h, kv = T.decode_step(p, cfg, torch.from_numpy(x).to(dev), pos, pad, kv,
                                       use_flash=True, fused=int8)
                 hs.append(h.cpu())
             outs[device] = hs
-        for a, b in zip(outs["cuda"], outs["cpu"]):
-            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
+            if device == "cpu":
+                final = {k: t.clone() for k, t in kv.items()}
+        err = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+        if not int8:
+            assert err <= 1e-4, err
+            return
+        # With an int8 cache every new row is re-quantized, so a last-bit
+        # difference in a float32 sum (the kernels sum in another order than
+        # the CPU) can flip one int8 rounding, which moves what attends to
+        # that row by about its scale: the outputs are not continuous in the
+        # kernels' last bits, and no chain can be held to 1e-4.  What decides
+        # here: every step on the card from the CPU chain's cache as it stood
+        # before the step writes int8 rows that differ from the CPU's in at
+        # most 1 per 1000 entries and by at most one step each, and gives
+        # outputs within 2e-3, as does the free-running chain (one flipped
+        # entry was measured to move a step by 3.2e-4 and the chain by
+        # 8.7e-4).  The kernels themselves are held to their own tolerances
+        # in the tests above.
+        dev = torch.device("cuda")
+        p, pad = move(params, dev), torch.zeros((1,), dtype=torch.int32, device=dev)
+        step_err, flips, entries = 0.0, 0, 0
+        for i, x in enumerate(xs):
+            pos = torch.full((1,), 7 + i, dtype=torch.int32, device=dev)
+            h, kv = T.decode_step(p, cfg, torch.from_numpy(x).to(dev), pos, pad,
+                                  move(before[i], dev), use_flash=True, fused=int8)
+            step_err = max(step_err, float((h.cpu() - outs["cpu"][1 + i]).abs().max()))
+            after = before[i + 1] if i + 1 < len(before) else final
+            for k, t in kv.items():
+                if t.dtype == torch.int8:
+                    d = (t.cpu().int() - after[k].int()).abs()
+                    assert int(d.max()) <= 1, (k, int(d.max()))
+                    flips += int(d.sum())
+                    entries += d.numel()
+        print(f"int8 chain: free-running max_abs_err {err:.3e}, per step from the CPU's cache "
+              f"{step_err:.3e}, {flips} of {entries} int8 cache entries differ by one")
+        assert flips <= entries // 1000 and step_err <= 2e-3 and err <= 2e-3
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -458,6 +553,64 @@ def _micro_chain(w, pcfg, Ht, dt, L, tol, free_running):
             close(runs[0][i], hp)
         close(runs[0][-2], kp)
         close(runs[0][-1], vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("layers", [1, 5])
+def test_micro_step_kernel_small_widths(dtype, layers):
+    """A predictor of small widths (hidden 128, 2/1 heads of 64, I 192), 1
+    and 5 layers: every item is less than one ring stage, and at 5 layers
+    the ring wraps around."""
+    _need_card()
+    from qwen3tts_tpu_torch.core.presets import get_preset
+
+    dt = getattr(torch, dtype)
+    pcfg = dataclasses.replace(get_preset("tiny").predictor, hidden_size=128,
+                               num_attention_heads=2, num_key_value_heads=1, head_dim=64,
+                               intermediate_size=192, num_hidden_layers=layers)
+    w = ps.micro_step_weights(_predictor_params(dt, pcfg, 64, seed=9))
+    tol = MICRO_BF16_TOL if dtype == "bfloat16" else TOL[dtype]
+    _micro_chain(w, pcfg, 64, dt, layers, tol, dtype == "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_micro_step_graph_replays_after_inputs_change(dtype):
+    """One captured graph of a micro-step at the 0.6B shapes, replayed after
+    x, the rope rows, pos and the cache were rewritten: every replay equals
+    the plain version on the same inputs, h and the slot it wrote."""
+    _need_card()
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models import predictor as P
+
+    dt = getattr(torch, dtype)
+    atol, rtol = MICRO_BF16_TOL if dtype == "bfloat16" else TOL[dtype]
+    cfg = get_preset("qwen3-tts-0.6b")
+    pcfg, Ht = cfg.predictor, cfg.talker.hidden_size
+    w = ps.micro_step_weights(_predictor_params(dt, pcfg, Ht, seed=5))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    shape = (pcfg.num_hidden_layers, pcfg.max_seq, pcfg.num_key_value_heads, pcfg.head_dim)
+    kk, vv = (torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(2))
+    x = torch.zeros((1, Ht), device=dev, dtype=dt)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    cos, sin = (torch.zeros((pcfg.head_dim,), device=dev) for _ in range(2))
+    graph, (h, _, _) = _graph_of(lambda: ps.fused_micro_step(w, x, cos, sin, kk, vv, pos,
+                                                             pcfg.rms_norm_eps))
+    for p in (0, 7, 16, 3):
+        x.copy_(0.5 * torch.randn((1, Ht), generator=g, device=dev))
+        pos.fill_(p)
+        c, s_ = P._rope(pcfg, pos.reshape(1, 1))
+        cos.copy_(c[0, 0])
+        sin.copy_(s_[0, 0])
+        kp, vp = kk.clone(), vv.clone()
+        graph.replay()
+        hp, kp, vp = ps.fused_micro_step_plain(w, x, cos, sin, kp, vp, pos, pcfg.rms_norm_eps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h.float(), hp.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(kk.float(), kp.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(vv.float(), vp.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda

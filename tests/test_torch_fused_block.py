@@ -24,6 +24,7 @@ from qwen3tts_tpu.ops import rope as JR  # noqa: E402
 from qwen3tts_tpu_torch.models import layers as TL  # noqa: E402
 from qwen3tts_tpu_torch.ops import fused_block as TF  # noqa: E402
 from qwen3tts_tpu_torch.ops import rope as TR  # noqa: E402
+from qwen3tts_tpu_torch.ops import wstream as WS  # noqa: E402
 
 EPS = 1e-6
 TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-3, 1.6e-2)}
@@ -143,14 +144,96 @@ def test_wrappers_reject_bad_inputs(bad):
             TF.fused_norm_matmul(x, nw, {"q8": ws[1]["q"], "scale": ws[1]["scale"]})
 
 
-def test_o_proj_split_fills_the_card():
-    """The 0.6B talker (H 1024, Dq 2048) and predictor (Dq 1024) get 4 row
-    splits: 32 column tiles x 4 = 128 CTAs; the 1.7B talker (H 2048) 2."""
-    assert TF.o_proj_split(1024, 2048) == (4, 512)
-    assert TF.o_proj_split(1024, 1024) == (4, 256)
-    assert TF.o_proj_split(2048, 2048) == (2, 1024)
-    ks, chunk = TF.o_proj_split(64, 100)  # tiny: bounded by 64 rows a split
-    assert ks * chunk >= 100 and (ks - 1) * chunk < 100
+# (H, Dq, I): the 0.6B talker and predictor, the 1.7B talker, tiny
+O_MLP_SHAPES = {"0.6b-talker": (1024, 2048, 3072), "0.6b-predictor": (1024, 1024, 3072),
+                "1.7b-talker": (2048, 2048, 6144), "tiny": (64, 64, 128)}
+SMS = 132  # the H100's grid: one CTA per SM
+
+
+def _cover(K, N, geo, grid):
+    """How often each (row, column) of a [K, N] phase is taken by the items
+    of CTAs 0 .. grid - 1."""
+    seen = np.zeros((K, N), np.int32)
+    for cta in range(grid):
+        item = WS.item_of(cta, K, N, geo)
+        if item is not None:
+            assert item.cols % WS.VEC == 0 and item.n0 % WS.VEC == 0
+            seen[item.k_lo:item.k_hi, item.n0:item.n0 + item.cols] += 1
+    return seen
+
+
+@pytest.mark.parametrize("shape", sorted(O_MLP_SHAPES))
+def test_o_mlp_geometry_covers_every_weight_once(shape):
+    """One launch on 132 CTAs: the o-projection's items (32-column tiles x
+    row splits) take every element of Wo exactly once, the MLP tiles every
+    intermediate column once, with at most one item of each per CTA."""
+    Hh, Dq, Ii = O_MLP_SHAPES[shape]
+    geo_o, geo_mlp = TF.o_mlp_geometry(Hh, Dq, Ii, SMS)
+    assert (_cover(Dq, Hh, geo_o, SMS) == 1).all()
+    assert WS.num_items(Dq, Hh, geo_o) <= SMS
+    assert geo_mlp.splits == 1 and geo_mlp.cols <= TF.MAX_GU_COLS
+    assert (_cover(Hh, Ii, geo_mlp, SMS) == 1).all()
+    assert WS.num_items(Hh, Ii, geo_mlp) <= SMS
+
+
+@pytest.mark.parametrize("shape", ["0.6b-talker", "0.6b-predictor"])
+def test_o_mlp_geometry_fills_the_card(shape):
+    """At the 0.6B shapes both phases give 128 of the 132 CTAs an item: 32
+    column tiles x 4 row splits of Wo, and 128 MLP tiles of 24 columns."""
+    Hh, Dq, Ii = O_MLP_SHAPES[shape]
+    geo_o, geo_mlp = TF.o_mlp_geometry(Hh, Dq, Ii, SMS)
+    assert geo_o == WS.Geo(32, 4, Dq // 4)
+    assert geo_mlp.cols == 24
+    assert WS.num_items(Dq, Hh, geo_o) == WS.num_items(Hh, Ii, geo_mlp) == 128
+
+
+@pytest.mark.parametrize("rows,row_bytes,stages", [
+    (512, 64, 5),     # the 0.6B talker's o-projection item in bf16: one stage
+    (1024, 96, 5),    # its gate|up tile: 341 rows a stage, a ragged last stage
+    (24, 2048, 5),    # its rows of Wd
+    (1024, 48, 2),    # the int8 gate|up tile on a ring of two stages: wraps
+    (7, 8192, 2),     # float32 rows of H 2048: four rows a stage
+])
+def test_stage_schedule_takes_every_row_once(rows, row_bytes, stages):
+    sched = WS.stage_schedule([(0, 16), (rows, row_bytes), (0, 16), (rows, row_bytes)], stages,
+                              TF.STAGE_BYTES)
+    for job in (1, 3):
+        mine = [(r0, n) for j, r0, n, _ in sched if j == job]
+        assert [r0 for r0, _ in mine] == [sum(n for _, n in mine[:i]) for i in range(len(mine))]
+        assert sum(n for _, n in mine) == rows
+        assert all(0 < n * row_bytes <= TF.STAGE_BYTES for _, n in mine)
+    assert [slot for *_, slot in sched] == [i % stages for i in range(len(sched))]
+    assert {j for j, *_ in sched} == {1, 3}  # jobs without rows take no stage
+
+
+@pytest.mark.parametrize("B,quantized,dtype", CASES)
+def test_o_mlp_in_kernel_order_matches_jax_kernel(B, quantized, dtype):
+    """The plain version with its cross-CTA sums in the CUDA kernel's order
+    (row splits of the o-projection in split order, the down projection's
+    per-tile partial sums lane by lane and then in a butterfly) against the
+    Pallas kernel in interpret mode: the same tolerance as the plain order,
+    and within float32 summation error (1e-5) of it in float32."""
+    rng = np.random.default_rng(30 * B + quantized)
+    x = rng.standard_normal((B, H)).astype(np.float32)
+    attn = rng.standard_normal((B, DQ)).astype(np.float32)
+    nw = (1 + 0.1 * rng.standard_normal(H)).astype(np.float32)
+    ws = [_leaf_pair(*_weight(rng, s, quantized), dtype)
+          for s in ((DQ, H), (H, 2 * I), (I, H))]
+    (xj, xt), (aj, at), (nj, nt) = _pair(x, dtype), _pair(attn, dtype), _pair(nw, dtype)
+    geo = TF.o_mlp_geometry(H, DQ, I, SMS)
+    assert geo[0].splits == 2 and WS.num_items(H, I, geo[1]) == 32  # sums to reorder
+    want = JF.fused_o_mlp(xj, aj, ws[0][0], nj, ws[1][0], ws[2][0], eps=EPS)
+    got = TF.fused_o_mlp_plain(xt, at, ws[0][1], nt, ws[1][1], ws[2][1], EPS, geo=geo)
+    assert got.dtype == xt.dtype and got.shape == (B, H)
+    _close(got, want.astype(jnp.float32), dtype)
+    if dtype == "float32":
+        plain = TF.fused_o_mlp_plain(xt, at, ws[0][1], nt, ws[1][1], ws[2][1], EPS)
+        torch.testing.assert_close(got, plain, atol=1e-5, rtol=0)
+
+
+def test_tile_sum_is_the_sum():
+    parts = torch.from_numpy(np.random.default_rng(6).standard_normal((70, 2, 5)))
+    torch.testing.assert_close(TF.tile_sum(parts), parts.sum(0), atol=1e-12, rtol=0)
 
 
 # ---------------------------------------------------------------------------

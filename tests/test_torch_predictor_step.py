@@ -318,3 +318,125 @@ def test_wrapper_rejects_bad_inputs(tiny_cfg, bad):
             TS.micro_step_weights(quantize_bundle({"predictor": tparams},
                                                   "int8-predictor")["predictor"])
         TS.fused_micro_step(w, x, cos, sin, kt, vt, pos)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's host-side geometry and the order of its sums
+
+from qwen3tts_tpu_torch.ops import wstream as WS  # noqa: E402
+
+SMS = 132  # the H100's grid: one CTA per SM
+# (Ht, Hp, NH, KVH, D, I, L, S): the 0.6B and 1.7B predictors, and a small
+# one with the kernel's head_dim
+MICRO_DIMS = {"0.6b": (1024, 1024, 16, 8, 64, 3072, 5, 17),
+              "1.7b": (2048, 1024, 16, 8, 64, 3072, 5, 17),
+              "small": (64, 32, 2, 1, 64, 64, 2, 17)}
+
+
+@pytest.mark.parametrize("dims", sorted(MICRO_DIMS))
+@pytest.mark.parametrize("kind", TS.PHASES)
+def test_phase_geometry_covers_every_weight_once(dims, kind):
+    """Every phase kind gives each CTA of the 132 at most one item, and the
+    items take every (row, column) of the phase's matrix exactly once."""
+    d = MICRO_DIMS[dims]
+    geo = TS.phase_geometry(d, SMS)[kind]
+    K, N = TS.phase_dims(d)[kind]
+    seen = np.zeros((K, N), np.int32)
+    for cta in range(SMS):
+        item = WS.item_of(cta, K, N, geo)
+        if item is not None:
+            assert item.cols % WS.VEC == 0 and item.n0 % WS.VEC == 0
+            seen[item.k_lo:item.k_hi, item.n0:item.n0 + item.cols] += 1
+    assert (seen == 1).all()
+    assert WS.num_items(K, N, geo) <= SMS
+    assert geo.splits == 1 or kind != "gu"  # the activation needs whole sums
+    assert (2 if kind == "gu" else 1) * geo.cols <= TS.MAX_ITEM_COLS
+
+
+def test_phase_geometry_fills_the_card_at_06b():
+    """At the 0.6B shapes every phase has 128 items on the 132 CTAs, and a
+    row segment of a tile is at least 32 bytes of bf16."""
+    d = MICRO_DIMS["0.6b"]
+    geo = TS.phase_geometry(d, SMS)
+    for kind, (K, N) in TS.phase_dims(d).items():
+        assert WS.num_items(K, N, geo[kind]) == 128, kind
+        assert geo[kind].cols * 2 >= 32
+    assert geo["gu"].cols == 24 and geo["down"] == WS.Geo(32, 4, 768)
+
+
+@pytest.mark.parametrize("dims", sorted(MICRO_DIMS))
+def test_o_phase_items_take_whole_heads_once(dims):
+    """The attention is folded into the o phase: a head's first column lies
+    in exactly one row split (whose CTA of column tile 0 writes the cache),
+    and an item's cache rows fit the kernel's shared memory."""
+    d = MICRO_DIMS[dims]
+    Ht, Hp, NH, KVH, D, I, L, S = d
+    geo = TS.phase_geometry(d, SMS)["o"]
+    owners = [[ks for ks in range(geo.splits)
+               if ks * geo.chunk <= h * D < min(NH * D, (ks + 1) * geo.chunk)]
+              for h in range(NH)]
+    assert all(len(o) == 1 for o in owners)
+    nkv = TS.attention_kv_heads(d, geo)
+    assert 1 <= nkv <= KVH
+    assert 2 * nkv * S * D * 4 <= TS.KV_BYTES  # float32 cache rows
+
+
+@pytest.mark.parametrize("L", [1, 5])
+@pytest.mark.parametrize("cta", [0, 127, 131])
+def test_ring_schedule_of_a_micro_step(L, cta):
+    """A CTA's jobs over the 1 + 4 L phases, cut into the ring's stages: every
+    row of every item once, stages within 16 KB, the slots round robin over a
+    ring shallower than the schedule (wrap-around), nothing for a CTA
+    without items."""
+    d = MICRO_DIMS["0.6b"][:6] + (L, 17)
+    geo = TS.phase_geometry(d, SMS)
+    jobs = TS.cta_jobs(d, geo, cta, 2)
+    assert len(jobs) == 1 + 4 * L
+    sched = WS.stage_schedule(jobs, 9)
+    if cta >= 128:
+        assert sched == []
+        return
+    assert len(sched) > 9
+    for j, (rows, row_bytes) in enumerate(jobs):
+        mine = [(r0, n) for jj, r0, n, _ in sched if jj == j]
+        assert sum(n for _, n in mine) == rows
+        assert all(n * row_bytes <= WS.STAGE_BYTES for _, n in mine)
+    assert [slot for *_, slot in sched] == [i % 9 for i in range(len(sched))]
+    # this CTA's share of the step's weights: the whole, over the 128 CTAs with items
+    total = sum(K * N * (2 if kind == "gu" else 1) * 2 * (1 if kind == "proj" else L)
+                for kind, (K, N) in TS.phase_dims(d).items())
+    assert abs(sum(r * b for r, b in jobs) - total / 128) <= 0.01 * total / 128
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_micro_step_in_kernel_order_matches_jax_kernel(tiny_cfg, dtype):
+    """The plain version with every product summed over the CUDA kernel's
+    row splits in split order, against the Pallas kernel in interpret mode
+    (the stated tolerance) and, in float32, the plain order (1e-5: summation
+    order only)."""
+    pcfg, Ht = tiny_cfg.predictor, tiny_cfg.talker.hidden_size
+    jparams, tparams = _both(tiny_cfg, _numpy_params(tiny_cfg, seed=5), dtype)
+    w = TS.micro_step_weights(tparams)
+    rng = np.random.default_rng(6)
+    (kj, kt), (vj, vt) = _caches(pcfg, rng, dtype)
+    x = rng.standard_normal((1, Ht)).astype(np.float32)
+    xj, xt = jnp.asarray(x).astype(getattr(jnp, dtype)), torch.from_numpy(x).to(
+        getattr(torch, dtype))
+    dims = TS._geometry(w, kt)
+    # a grid of 4 CTAs cuts the tiny widths into row splits, as 132 cut the real ones
+    geo = TS.phase_geometry(dims, 4)
+    geo = {k: g._replace(splits=2, chunk=-(-TS.phase_dims(dims)[k][0] // 2))
+           if k != "gu" else g for k, g in geo.items()}
+    hj, kj, vj = _jax_step(jparams, pcfg, xj, kj, vj, 2, 16, 2)
+    kp, vp = kt.clone(), vt.clone()
+    cos, sin = (torch.from_numpy(np.array(a)) for a in _rope(pcfg, 2))
+    pos = torch.tensor([2], dtype=torch.int32)
+    ht, kt, vt = TS.fused_micro_step_plain(w, xt, cos, sin, kt, vt, pos, pcfg.rms_norm_eps,
+                                           geo=geo)
+    _close(ht, hj.astype(jnp.float32), dtype, "h")
+    _close(kt, kj.astype(jnp.float32), dtype, "kv_k")
+    _close(vt, vj.astype(jnp.float32), dtype, "kv_v")
+    if dtype == "float32":
+        hp, kp, vp = TS.fused_micro_step_plain(w, xt, cos, sin, kp, vp, pos, pcfg.rms_norm_eps)
+        torch.testing.assert_close(ht, hp, atol=1e-5, rtol=0)
+        torch.testing.assert_close(kt, kp, atol=1e-5, rtol=0)
