@@ -24,12 +24,16 @@
 // dependent products with a norm and an activation between them, and the
 // vector between two links has to cross the whole grid.
 //
-// fused_norm_matmul: one launch, a column tile of kCols = 32 output columns
-// per CTA (256 threads, 4 per weight row, each reading 8 consecutive
-// columns of every 64th row, a batch of 8 rows' raw loads in flight before
-// any is converted).  Each CTA recomputes the RMS norm of its (at most
-// 2048-wide) rows into shared memory, as the Pallas kernel does per grid
-// step.  Rows are taken kBC at a time (1 at batch 1, else 4).
+// fused_norm_matmul: one launch, one CTA per column tile, the tiles as
+// narrow as fills the card (32 columns at the talker's N 4096, 16 at the
+// predictor's 2048: 128 CTAs on 132 SMs).  Its weights go through
+// wstream.cuh's ring: the producer warps copy the CTA's whole column tile
+// from kernel entry, all stages in flight, while the consumers, which asked
+// for their elements of x before the copies started, compute the RMS norm
+// (every CTA the same bits, as the Pallas kernel recomputes it per grid
+// step); then they multiply out of shared memory.  Nothing crosses the
+// grid.  Rows are taken kBC at a time (1 at batch 1, else 4), the tile
+// streamed once for each.
 //
 // fused_o_mlp: ONE cooperative launch of one CTA per SM, with the weights
 // streamed by wstream.cuh.  A CTA knows its share of all three matrices
@@ -69,239 +73,201 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kVec = 8;                        // columns per thread
-constexpr int kCols = 32;                      // columns per CTA
-constexpr int kTPR = kCols / kVec;             // threads per weight row
-constexpr int kRowsPerPass = kThreads / kTPR;  // 64
-constexpr int kMaxK = 2048;                    // longest activation row in shared memory
+using wstream::Job;
+using wstream::put;
+using wstream::rnd;
+using wstream::to_f;
 
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int kVec = wstream::kVec;
+constexpr int kMaxK = 2048;  // longest activation row in shared memory
 
-// 8 consecutive weight elements, loaded raw (16 bytes of bf16, 32 of float,
-// 8 of int8) so that a thread can put a batch of loads in flight before it
-// converts any, then converted to float: plain, or int8 dequantized as
-// T(f32(q) * scale).
-template <typename W> struct Raw8;
-template <> struct Raw8<__nv_bfloat16> { uint4 v; };
-template <> struct Raw8<float> { float4 a, b; };
-template <> struct Raw8<int8_t> { uint2 v; };
+// ---------------------------------------------------------------------------
+// B. fused_norm_matmul: one launch, the weights through wstream.cuh.
 
-// rows' loads in flight per thread: a batch of raw loads is 32-128 registers
-template <typename W> constexpr int kBatch = sizeof(W) == 4 ? 4 : 8;
+// Its ring: stages of 8192 weights (8 KB int8, 16 KB bf16: the faster size
+// of each on the H100; a CTA's share is 16-64 KB at the 0.6B shapes), all
+// of them in flight: one phase, nothing else in the CTA waits on the memory
+// system behind the copies.  The QWEN3TTS_NM_ flags are for
+// tools/kernel_probe.py's variants.
+#ifndef QWEN3TTS_NM_STAGE_WEIGHTS
+#define QWEN3TTS_NM_STAGE_WEIGHTS 8192
+#endif
+#ifndef QWEN3TTS_NM_IN_FLIGHT
+#define QWEN3TTS_NM_IN_FLIGHT 64
+#endif
+#ifndef QWEN3TTS_NM_CTAS
+#define QWEN3TTS_NM_CTAS 1  // CTAs an SM holds at once
+#endif
+template <typename W> constexpr int kNmStageBytes = QWEN3TTS_NM_STAGE_WEIGHTS * (int)sizeof(W);
+constexpr int kNmMaxCols = 256;                   // widest column tile
+constexpr int kPer = kMaxK / wstream::kThreads;   // elements of a row per consumer thread
 
-__device__ __forceinline__ Raw8<__nv_bfloat16> ld8(const __nv_bfloat16* p) {
-  return {*reinterpret_cast<const uint4*>(p)};
-}
-__device__ __forceinline__ Raw8<float> ld8(const float* p) {
-  return {*reinterpret_cast<const float4*>(p), *reinterpret_cast<const float4*>(p + 4)};
-}
-__device__ __forceinline__ Raw8<int8_t> ld8(const int8_t* p) {
-  return {*reinterpret_cast<const uint2*>(p)};
-}
+template <typename T, typename W>
+struct NArgs {
+  const T* x;          // [B, H]
+  const T* nw;         // [H]
+  const W* w;          // [H, N]
+  const float* scale;  // [N] per-column scales of an int8 W
+  T* out;              // [B, N]
+  int B, H, N;
+  int C;               // ceil(N / C) column tiles, one CTA each
+  float eps;
+};
 
-template <typename T>
-__device__ __forceinline__ void cvt8(const Raw8<__nv_bfloat16>& r, const float*, float* o) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
+// floats of shared memory behind the ring: the normalised rows, the fold,
+// the results, the scales, the norm's warp sums
+template <int kBC> constexpr int kNmFloats =
+    kBC * kMaxK + wstream::kRedFloats<kBC> + kBC * kNmMaxCols + kNmMaxCols + kBC * wstream::kWarps;
+template <typename W, int kBC> constexpr int kNmStages = wstream::ring_stages(
+    kNmFloats<kBC> * (int)sizeof(float) + wstream::kSmemBudget -
+        wstream::kSmemBudget / QWEN3TTS_NM_CTAS,
+    kNmStageBytes<W>);
+template <typename W, int kBC>
+using NmRing = wstream::RingMem<kNmStages<W, kBC>, kNmStageBytes<W>>;
+template <typename W, int kBC> constexpr int kNmSmem =
+    (int)sizeof(NmRing<W, kBC>) + kNmFloats<kBC> * (int)sizeof(float);
+
+// The CTA's share of W, once for each chunk of kBC rows of x.
+struct NSched {
+  Job jb;
+  int reps;
+  __device__ __forceinline__ bool job(int j, Job& out) const {
+    if (j >= reps) return false;
+    out = jb;
+    return true;
   }
-}
-template <typename T>
-__device__ __forceinline__ void cvt8(const Raw8<float>& r, const float*, float* o) {
-  o[0] = r.a.x; o[1] = r.a.y; o[2] = r.a.z; o[3] = r.a.w;
-  o[4] = r.b.x; o[5] = r.b.y; o[6] = r.b.z; o[7] = r.b.w;
-}
-template <typename T>
-__device__ __forceinline__ void cvt8(const Raw8<int8_t>& r, const float* sc, float* o) {
-  const int8_t* q = reinterpret_cast<const int8_t*>(&r.v);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = rnd<T>(static_cast<float>(q[i]) * sc[i]);
-}
+};
 
-template <typename W>
-__device__ __forceinline__ void load_scales(const float* wscale, int c, float* sc) {
+// This consumer thread's elements k = tid, tid + kThreads, ... (k < H) of
+// rows b0 .. b0 + kBC of x (zeros past B) and of the norm weight, as float.
+template <typename T, int kBC>
+__device__ __forceinline__ void load_rows(const T* __restrict__ x, const T* __restrict__ nw, int B,
+                                          int b0, int H, float (&xr)[kBC][kPer],
+                                          float (&wr)[kPer]) {
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    if constexpr (sizeof(W) == 1) {
-      sc[i] = wscale[c + i];
-    } else {
-      sc[i] = 1.f;
-    }
-  }
-}
-
-// For each of kT column tiles t (columns col0[t] .. col0[t] + kCols of W):
-//   res[t][bc][cc] = sum_{k in [k_lo, k_hi)} a_s[bc * a_stride + k] * W[k][col0[t] + cc]
-// for the kBC activation rows in shared memory.  The kT tiles are streamed
-// in one pass, so their loads are in flight together.  Columns >= N give 0.
-// red holds kWarps * kT * kBC * kCols floats.  Ends with a __syncthreads:
-// res is ready to read.
-template <typename T, typename W, int kBC, int kT>
-__device__ void gemv_tiles(const float* a_s, int a_stride, const W* __restrict__ w,
-                           const float* __restrict__ wscale, int N, const int (&col0)[kT],
-                           int k_lo, int k_hi, float* red, float* res) {
-  constexpr int U = kBatch<W>;
-  const int tid = threadIdx.x;
-  const int cg = tid % kTPR;
-  const int rg = tid / kTPR;
-  int c[kT];
-  bool live[kT];  // N % 8 == 0: a thread's 8 columns are all in or all out
-  float sc[kT][kVec];
-  float acc[kT][kBC][kVec];
-#pragma unroll
-  for (int t = 0; t < kT; ++t) {
-    c[t] = col0[t] + cg * kVec;
-    live[t] = c[t] < N;
-    load_scales<W>(wscale, live[t] ? c[t] : 0, sc[t]);
+  for (int i = 0; i < kPer; ++i) {
+    const int k = threadIdx.x + i * wstream::kThreads;
+    wr[i] = k < H ? to_f(nw[k]) : 0.f;
 #pragma unroll
     for (int bc = 0; bc < kBC; ++bc)
-#pragma unroll
-      for (int v = 0; v < kVec; ++v) acc[t][bc][v] = 0.f;
+      xr[bc][i] = k < H && b0 + bc < B ? to_f(x[(size_t)(b0 + bc) * H + k]) : 0.f;
   }
-  for (int k0 = k_lo + rg; k0 < k_hi; k0 += U * kRowsPerPass) {
-    Raw8<W> raw[kT][U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * kRowsPerPass;
-#pragma unroll
-      for (int t = 0; t < kT; ++t)
-        if (k < k_hi && live[t]) raw[t][u] = ld8(w + (size_t)k * N + c[t]);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * kRowsPerPass;
-      if (k >= k_hi) break;
-#pragma unroll
-      for (int t = 0; t < kT; ++t) {
-        if (!live[t]) continue;
-        float wv[kVec];
-        cvt8<T>(raw[t][u], sc[t], wv);
-#pragma unroll
-        for (int bc = 0; bc < kBC; ++bc) {
-          const float a = a_s[bc * a_stride + k];
-#pragma unroll
-          for (int v = 0; v < kVec; ++v) acc[t][bc][v] = fmaf(a, wv[v], acc[t][bc][v]);
-        }
-      }
-    }
-  }
-  // the 8 row groups of a warp differ in lane bits 2..4
-#pragma unroll
-  for (int off = kTPR; off < 32; off <<= 1)
-#pragma unroll
-    for (int t = 0; t < kT; ++t)
-#pragma unroll
-      for (int bc = 0; bc < kBC; ++bc)
-#pragma unroll
-        for (int v = 0; v < kVec; ++v)
-          acc[t][bc][v] += __shfl_xor_sync(0xffffffffu, acc[t][bc][v], off);
-  const int warp = tid / 32, lane = tid % 32;
-  if (lane < kTPR) {
-#pragma unroll
-    for (int t = 0; t < kT; ++t)
-#pragma unroll
-      for (int bc = 0; bc < kBC; ++bc)
-#pragma unroll
-        for (int v = 0; v < kVec; ++v)
-          red[((warp * kT + t) * kBC + bc) * kCols + lane * kVec + v] = acc[t][bc][v];
-  }
-  __syncthreads();
-  for (int i = tid; i < kT * kBC * kCols; i += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += red[wi * kT * kBC * kCols + i];
-    res[i] = s;
-  }
-  __syncthreads();
 }
 
-// In place: a_s[bc][k] = T((a_s[bc][k] * rsqrt(mean_k a_s[bc]^2 + eps)) * f32(nw[k])).
-// The sums of squares use the whole block: per thread, then per warp, then
-// the warps in order.
+// a_s[bc][k] = T((x[bc][k] * rsqrt(mean_k x[bc]^2 + eps)) * nw[k]) from the
+// consumers' registers (load_rows).  Sums of squares per thread (k in
+// increasing order), per warp, then the warps in order: the same bits in
+// every CTA.  red: kBC * kWarps floats.  Ends with a cta_sync.
 template <typename T, int kBC>
-__device__ void rms_norm_rows(float* a_s, int H, const T* __restrict__ nw, float eps,
-                              float* red, float* rstd_s) {
+__device__ __forceinline__ void norm_rows(const float (&xr)[kBC][kPer], const float (&wr)[kPer],
+                                          int H, float eps, float* a_s, float* red) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 #pragma unroll
   for (int bc = 0; bc < kBC; ++bc) {
     float ss = 0.f;
-    for (int k = tid; k < H; k += kThreads) {
-      const float v = a_s[bc * H + k];
-      ss = fmaf(v, v, ss);
-    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) ss = fmaf(xr[bc][i], xr[bc][i], ss);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    if (lane == 0) red[bc * kWarps + warp] = ss;
+    if (lane == 0) red[bc * wstream::kWarps + warp] = ss;
   }
-  __syncthreads();
-  if (tid < kBC) {
-    float ss = 0.f;
+  wstream::cta_sync();
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) ss += red[tid * kWarps + wi];
-    rstd_s[tid] = rsqrtf(ss / (float)H + eps);
+  for (int bc = 0; bc < kBC; ++bc) {
+    float tot = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < wstream::kWarps; ++wi) tot += red[bc * wstream::kWarps + wi];
+    const float rstd = rsqrtf(tot / (float)H + eps);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = tid + i * wstream::kThreads;
+      if (k < H) a_s[bc * H + k] = rnd<T>(__fmul_rn(__fmul_rn(xr[bc][i], rstd), wr[i]));
+    }
   }
-  __syncthreads();
-  for (int i = tid; i < kBC * H; i += kThreads) {
-    const int bc = i / H, k = i % H;
-    a_s[i] = rnd<T>((a_s[i] * rstd_s[bc]) * to_f(nw[k]));
-  }
-  __syncthreads();
+  wstream::cta_sync();
 }
 
-// ---------------------------------------------------------------------------
-// B. fused_norm_matmul: grid (ceil(N / kCols)), one launch.
+// Grid: one CTA per column tile (ops/fused_block.py norm_matmul_geometry).
+// The producers stream the tile's rows of W from kernel entry; the
+// consumers have asked for their elements of x and of the norm weight
+// before that, normalise while the first stages land, and multiply out of
+// the ring.  Rows of x are taken kBC at a time, the tile streamed once for
+// each.  No float atomics: the same bits every run.
 template <typename T, typename W, int kBC>
-__global__ void __launch_bounds__(kThreads)
-norm_matmul_kernel(const T* __restrict__ x, const T* __restrict__ nw, const W* __restrict__ w,
-                   const float* __restrict__ wscale, T* __restrict__ out, int B, int H, int N,
-                   float eps) {
-  __shared__ float a_s[kBC * kMaxK];
-  __shared__ float red[kWarps * kBC * kCols];
-  __shared__ float res[kBC * kCols];
-  __shared__ float rstd_s[kBC];
-  const int col0 = blockIdx.x * kCols;
+__global__ void __launch_bounds__(wstream::kBlock, QWEN3TTS_NM_CTAS)
+    norm_matmul_kernel(const __grid_constant__ NArgs<T, W> a) {
+  constexpr int NS = kNmStages<W, kBC>;
+  extern __shared__ __align__(128) char smem[];
+  auto* ring_mem = reinterpret_cast<NmRing<W, kBC>*>(smem);
+  float* a_s = reinterpret_cast<float*>(smem + sizeof(NmRing<W, kBC>));
+  float* red = a_s + kBC * kMaxK;
+  float* res = red + wstream::kRedFloats<kBC>;
+  float* sc_s = res + kBC * kNmMaxCols;
+  float* nred = sc_s + kNmMaxCols;
+
+  const int tid = threadIdx.x, B = a.B, H = a.H, N = a.N;
+  const int n0 = blockIdx.x * a.C, C = min(a.C, N - n0);
+  const NSched sched = {wstream::make_job(a.w, N, n0, 0, 1, C, 0, H), (B + kBC - 1) / kBC};
+
+  // asked for before the producers start, so that these few loads do not
+  // queue behind the weights
+  float xr[kBC][kPer], wr[kPer], sc = 0.f;
+  if (tid < wstream::kThreads) {
+    load_rows<T, kBC>(a.x, a.nw, B, 0, H, xr, wr);
+    if (sizeof(W) == 1 && tid < C) sc = a.scale[n0 + tid];
+  }
+  wstream::ring_init(ring_mem);
+#ifdef QWEN3TTS_NM_EMPTY  // tools/kernel_probe.py: the launch and the ring's set-up alone
+  return;
+#endif
+  if (tid >= wstream::kThreads) {  // the producers
+    wstream::produce(ring_mem, sched, QWEN3TTS_NM_IN_FLIGHT);
+    return;
+  }
+  wstream::Consumer<NS, kNmStageBytes<W>> ring = {ring_mem, 0};
+  WSTREAM_STAMP(0, 0);
+#ifdef QWEN3TTS_STAMPS  // when the first stage lands (the consumers wait for it here)
+  ring.acquire();
+  WSTREAM_STAMP(0, 1);
+#endif
+  if (tid < C) sc_s[tid] = sc;
+
   for (int b0 = 0; b0 < B; b0 += kBC) {
-    for (int i = threadIdx.x; i < kBC * H; i += kThreads) {
-      const int b = b0 + i / H;
-      a_s[i] = b < B ? to_f(x[(size_t)b * H + i % H]) : 0.f;
+    if (b0 > 0) load_rows<T, kBC>(a.x, a.nw, B, b0, H, xr, wr);
+    norm_rows<T, kBC>(xr, wr, H, a.eps, a_s, nred);
+    WSTREAM_STAMP(0, 2);
+    wstream::stream_job<T, W, kBC>(ring, sched.jb, a_s, H, sc_s, red, res, b0 == 0 ? 1 : -1);
+    WSTREAM_STAMP(1, 2);
+    for (int i = tid; i < kBC * C; i += wstream::kThreads) {
+      const int b = b0 + i / C;
+      if (b < B) put(a.out + (size_t)b * N + n0 + i % C, res[i]);
     }
-    __syncthreads();
-    rms_norm_rows<T, kBC>(a_s, H, nw, eps, red, rstd_s);
-    gemv_tiles<T, W, kBC, 1>(a_s, H, w, wscale, N, {col0}, 0, H, red, res);
-    for (int i = threadIdx.x; i < kBC * kCols; i += kThreads) {
-      const int b = b0 + i / kCols, n = col0 + i % kCols;
-      if (b < B && n < N) put(out + (size_t)b * N + n, res[i]);
-    }
-    __syncthreads();  // a_s and res are rewritten by the next row chunk
   }
+  WSTREAM_STAMP(2, 2);
 }
 
 template <typename T, typename W, int kBC>
-cudaError_t norm_matmul(const void* x, const void* nw, const void* w, const void* wscale,
-                        void* out, int B, int H, int N, float eps, cudaStream_t st) {
-  norm_matmul_kernel<T, W, kBC><<<(N + kCols - 1) / kCols, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(nw), static_cast<const W*>(w),
-      static_cast<const float*>(wscale), static_cast<T*>(out), B, H, N, eps);
+cudaError_t norm_matmul(const NArgs<T, W>& a, cudaStream_t st) {
+  auto* kernel = norm_matmul_kernel<T, W, kBC>;
+  constexpr int smem = kNmSmem<W, kBC>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int grid = (a.N + a.C - 1) / a.C;
+  kernel<<<grid, wstream::kBlock, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, typename W>
+int norm_matmul_run(const void* x, const void* nw, const void* w, const float* scale, void* out,
+                    int B, int H, int N, int C, float eps, cudaStream_t st) {
+  const NArgs<T, W> a = {static_cast<const T*>(x), static_cast<const T*>(nw),
+                         static_cast<const W*>(w), scale, static_cast<T*>(out), B, H, N, C, eps};
+  return (int)(B == 1 ? norm_matmul<T, W, 1>(a, st) : norm_matmul<T, W, 4>(a, st));
 }
 
 // ---------------------------------------------------------------------------
 // C. fused_o_mlp: one cooperative launch, the weights through wstream.cuh.
-
-using wstream::Job;
 
 constexpr int kMaxCo = 64;    // widest o-projection column tile
 constexpr int kMaxCgu = 256;  // widest gate/up tile (intermediate columns of one CTA)
@@ -568,14 +534,18 @@ extern "C" {
 // w_int8: 1 = W is int8 with f32 per-column scales.  Returns the launch's
 // cudaError_t (0 on success); cudaErrorInvalidValue for a shape without an
 // instance.
-int qwen3tts_fused_norm_matmul(int dtype, int w_int8, const void* x, const void* nw,
-                               const void* w, const void* wscale, void* out, int B, int H,
-                               int N, float eps, void* stream) {
-  if (!shape_ok(B, H, N) || (w_int8 && wscale == nullptr)) return (int)cudaErrorInvalidValue;
+//
+// fused_norm_matmul: ceil(N / C) column tiles of C columns (a multiple of
+// 8, at most 256), one CTA each; w_scale only with an int8 W.
+int qwen3tts_fused_norm_matmul(int dtype, int w_int8, const void* x, const void* norm_w,
+                               const void* w, const float* w_scale, void* out, int B, int H, int N,
+                               int C, float eps, void* stream) {
+  if (!shape_ok(B, H, N) || C < kVec || C % kVec != 0 || C > kNmMaxCols ||
+      (w_int8 && w_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define QWEN3TTS_NM(T, W)                                                          \
-  return (int)(B == 1 ? norm_matmul<T, W, 1>(x, nw, w, wscale, out, B, H, N, eps, st) \
-                      : norm_matmul<T, W, 4>(x, nw, w, wscale, out, B, H, N, eps, st))
+#define QWEN3TTS_NM(T, W) \
+  return norm_matmul_run<T, W>(x, norm_w, w, w_scale, out, B, H, N, C, eps, st)
   if (dtype == 0 && !w_int8) QWEN3TTS_NM(__nv_bfloat16, __nv_bfloat16);
   if (dtype == 0 && w_int8) QWEN3TTS_NM(__nv_bfloat16, int8_t);
   if (dtype == 1 && !w_int8) QWEN3TTS_NM(float, float);
@@ -584,7 +554,7 @@ int qwen3tts_fused_norm_matmul(int dtype, int w_int8, const void* x, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// ptrs: x, attn, wo, wo_scale, norm_w, gu, gu_scale, wd, wd_scale, out,
+// fused_o_mlp.  ptrs: x, attn, wo, wo_scale, norm_w, gu, gu_scale, wd, wd_scale, out,
 // part1 and part2 (8-byte words, zeroed once: [KS, min(B, 4), H] and [NT,
 // min(B, 4), H]), sync (uint32 [3], {0, 1, 0} once: wstream.cuh launch_tags).  dims: B, H, Dq, I, KS, k_chunk, C_o, C_gu: the
 // o-projection runs ceil(H / C_o) column tiles x KS row splits of k_chunk

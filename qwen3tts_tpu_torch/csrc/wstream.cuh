@@ -1,6 +1,6 @@
-// A per-CTA weight stream for batch-1 matrix-vector kernels that walk
-// several dependent phases in one launch (fused_block.cu: fused_o_mlp;
-// predictor_step.cu: fused_micro_step).
+// A per-CTA weight stream for batch-1 matrix-vector kernels (fused_block.cu:
+// fused_norm_matmul, and fused_o_mlp, which walks several dependent phases in
+// one launch; predictor_step.cu: fused_micro_step).
 //
 // Such a kernel is bound by bytes: every call reads each weight once and
 // does two operations per element.  What it loses time to is latency: a
@@ -14,14 +14,16 @@
 //     range of one or two column ranges of a row-major matrix).
 //   * A CTA is kThreads consumer threads and kProducers producer threads.
 //     The producers (produce) walk the jobs ahead of the computation: they
-//     copy them, cut into stages of kStageBytes, into a ring of NS stages
-//     in shared memory with cp.async (16 bytes a copy; 8 where a tile's row
-//     segment is not a multiple of 16 bytes; one bulk copy a row where a
-//     row segment is at least 512 bytes), and each stage's `full` mbarrier
-//     counts the copies in.  They run from kernel entry on and wait only
-//     for a stage to be handed back (`empty`) and for the stage before to
-//     have landed (kInFlight): never for a grid barrier, a norm or an
-//     activation, so the ring is full whenever the consumers get to it.
+//     copy them, cut into stages (kStageBytes unless a kernel picks its
+//     own size), into a ring of NS stages in shared memory with cp.async
+//     (16 bytes a copy; 8 where a tile's row segment is not a multiple of
+//     16 bytes; one bulk copy a row where a row segment is at least 512
+//     bytes), and each stage's `full` mbarrier counts the copies in.  They
+//     run from kernel entry on and wait only for a stage to be handed back
+//     (`empty`) and for the stages before to have landed (kInFlight in
+//     flight, or as many as a kernel asks for): never for a grid barrier, a
+//     norm or an activation, so the ring is full whenever the consumers get
+//     to it.
 //     The copies cost the consumers no registers and no instructions, and
 //     a memory system that pushes back stalls the producers alone.
 //   * stream_job consumes one job: a consumer waits on the stage's `full`
@@ -98,9 +100,10 @@ constexpr int kVec = 8;              // columns per thread and row
 constexpr int kStageBytes = QWEN3TTS_STAGE_BYTES;  // one ring stage
 constexpr int kSmemBudget = 232448 - 2048;         // dynamic shared memory of a CTA
 
-// the stages that fit beside `fixed` bytes of other shared memory
-constexpr int ring_stages(int fixed) {
-  const int fit = (kSmemBudget - fixed) / (kStageBytes + 16);
+// the stages of `stage_bytes` that fit beside `fixed` bytes of other shared
+// memory
+constexpr int ring_stages(int fixed, int stage_bytes = kStageBytes) {
+  const int fit = (kSmemBudget - fixed) / (stage_bytes + 16);
   return fit < QWEN3TTS_RING_STAGES ? fit : QWEN3TTS_RING_STAGES;
 }
 
@@ -356,7 +359,9 @@ __device__ __forceinline__ Job empty_job() {
   return j;
 }
 
-__device__ __forceinline__ int rows_per_stage(const Job& j) { return kStageBytes / (j.nt * j.seg); }
+__device__ __forceinline__ int rows_per_stage(const Job& j, int stage_bytes) {
+  return stage_bytes / (j.nt * j.seg);
+}
 
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
@@ -453,29 +458,29 @@ __device__ __forceinline__ void issue_stage(char* slot, uint64_t* full, const Jo
   mbar_arrive_on_copies(full);
 }
 
-// The ring: NS stages of kStageBytes and, per stage, a `full` mbarrier (the
+// The ring: NS stages of SB bytes and, per stage, a `full` mbarrier (the
 // kProducers producer threads arrive on it when their copies have landed) and an
 // `empty` one (the kWarps consumer warps arrive when they have read it).
 // Stage n of the CTA's schedule lives in slot n % NS; its use n / NS gives
 // the parity to wait for.
-template <int NS>
+template <int NS, int SB = kStageBytes>
 struct alignas(128) RingMem {  // what follows it in shared memory stays 128-byte aligned
-  char stage[NS][kStageBytes];
+  char stage[NS][SB];
   uint64_t full[NS], empty[NS];
   int quiet;  // the consumers are between phases: issue nothing
 };
 
 // Consumer thread 0, around the stretch between two phases.
-template <int NS>
-__device__ __forceinline__ void set_quiet(RingMem<NS>* m, int on) {
+template <int NS, int SB>
+__device__ __forceinline__ void set_quiet(RingMem<NS, SB>* m, int on) {
 #if QWEN3TTS_QUIET
   if (threadIdx.x == 0) *reinterpret_cast<volatile int*>(&m->quiet) = on;
 #endif
 }
 
 // Every thread of the CTA, before the warps part ways.
-template <int NS>
-__device__ __forceinline__ void ring_init(RingMem<NS>* m) {
+template <int NS, int SB>
+__device__ __forceinline__ void ring_init(RingMem<NS, SB>* m) {
   if (threadIdx.x == 0) {
     m->quiet = 0;
     for (int i = 0; i < NS; ++i) {
@@ -492,14 +497,15 @@ __device__ __forceinline__ void ring_init(RingMem<NS>* m) {
 // (Sched::job(j, out) gives job j, possibly empty with k_lo >= k_hi, or
 // returns false past the last) and copy them, cut into stages, as far
 // ahead of the consumers as the ring allows.  They wait for nothing else:
-// not for a barrier, a norm or an activation.
-template <int NS, typename Sched>
-__device__ void produce(RingMem<NS>* m, const Sched& sched) {
+// not for a barrier, a norm or an activation.  At most `in_flight` stages
+// are in flight at once (kInFlight unless the kernel says otherwise).
+template <int NS, int SB, typename Sched>
+__device__ void produce(RingMem<NS, SB>* m, const Sched& sched, int in_flight = kInFlight) {
   Job jb;
   int n = 0;
   for (int j = 0; sched.job(j, jb); ++j) {
     if (jb.k_lo >= jb.k_hi) continue;
-    const int rps = rows_per_stage(jb);
+    const int rps = rows_per_stage(jb, SB);
     const Plan plan = make_plan(jb);
     for (int row0 = jb.k_lo; row0 < jb.k_hi; row0 += rps, ++n) {
       const int slot = n % NS, use = n / NS;
@@ -507,8 +513,8 @@ __device__ void produce(RingMem<NS>* m, const Sched& sched) {
 #if QWEN3TTS_QUIET
       while (*reinterpret_cast<volatile int*>(&m->quiet)) __nanosleep(32);
 #endif
-      if (kInFlight < NS && n >= kInFlight) {  // stage n - kInFlight has landed
-        const int before = n - kInFlight;      // (its slot is not reused before stage n)
+      if (in_flight < NS && n >= in_flight) {  // stage n - in_flight has landed
+        const int before = n - in_flight;      // (its slot is not reused before stage n)
         mbar_wait(&m->full[before % NS], (before / NS) & 1);
       }
       issue_stage(m->stage[slot], &m->full[slot], jb, plan, row0, min(rps, jb.k_hi - row0));
@@ -517,9 +523,9 @@ __device__ void produce(RingMem<NS>* m, const Sched& sched) {
 }
 
 // A consumer thread's place in the CTA's schedule.
-template <int NS>
+template <int NS, int SB = kStageBytes>
 struct Consumer {
-  RingMem<NS>* m;
+  RingMem<NS, SB>* m;
   int n;
   // the next stage, landed
   __device__ __forceinline__ const char* acquire() {
@@ -560,7 +566,9 @@ __device__ __forceinline__ void cvt8(const Raw8<float>& r, const float*, float* 
   o[4] = r.b.x; o[5] = r.b.y; o[6] = r.b.z; o[7] = r.b.w;
 }
 // int8 -> float without the conversion unit: byte q + 128 under the
-// exponent of 2^23 is the float 2^23 + q + 128, exactly.
+// exponent of 2^23 is the float 2^23 + q + 128, exactly.  The roundings to
+// bf16 go two to an instruction (QWEN3TTS_ONE_ROUNDING, one at a time, is a
+// variant of tools/kernel_probe.py: the same bits, 2-5 % slower).
 template <typename T>
 __device__ __forceinline__ void cvt8(const Raw8<int8_t>& r, const float* sc, float* o) {
   const uint32_t lo = r.v.x ^ 0x80808080u, hi = r.v.y ^ 0x80808080u;
@@ -568,8 +576,21 @@ __device__ __forceinline__ void cvt8(const Raw8<int8_t>& r, const float* sc, flo
   for (int i = 0; i < 4; ++i) {
     const float a = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540 + i)) - 8388736.f;
     const float b = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540 + i)) - 8388736.f;
-    o[i] = rnd<T>(__fmul_rn(a, sc[i]));
-    o[4 + i] = rnd<T>(__fmul_rn(b, sc[4 + i]));
+    o[i] = __fmul_rn(a, sc[i]);
+    o[4 + i] = __fmul_rn(b, sc[4 + i]);
+  }
+  if constexpr (sizeof(T) == 2) {
+#ifdef QWEN3TTS_ONE_ROUNDING
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = rnd<T>(o[i]);
+#else
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      const float2 f = __bfloat1622float2(__floats2bfloat162_rn(o[i], o[i + 1]));
+      o[i] = f.x;
+      o[i + 1] = f.y;
+    }
+#endif
   }
 }
 
@@ -582,11 +603,14 @@ template <int kBC> constexpr int kRedFloats = kThreads * (kVec * kBC + 4);
 // for the jobs in the order the producers walk them; a_s must be ready).  sc_s: the job's O1
 // per-column scales in shared memory (int8 weights), else unused.  Ends
 // with a cta_sync: res is ready, red free.
-template <typename T, typename W, int kBC, int NS>
-__device__ void stream_job(Consumer<NS>& ring, const Job& jb, const float* a_s, int a_stride,
+template <typename T, typename W, int kBC, int NS, int SB>
+__device__ void stream_job(Consumer<NS, SB>& ring, const Job& jb, const float* a_s, int a_stride,
                            const float* sc_s, float* red, float* res, int stamp_phase = -1) {
   constexpr int VB = kVec * (int)sizeof(W);  // bytes of a thread's vector
-  constexpr int U = 4;                       // rows a thread has in flight from shared memory
+#ifndef QWEN3TTS_ROWS_IN_FLIGHT
+#define QWEN3TTS_ROWS_IN_FLIGHT 4
+#endif
+  constexpr int U = QWEN3TTS_ROWS_IN_FLIGHT;  // rows a thread has in flight from shared memory
   const int rowbytes = jb.nt * jb.seg;
   const int LPR = rowbytes / VB;             // threads per stage row
   const int RG = kThreads / LPR;             // row groups
@@ -607,7 +631,7 @@ __device__ void stream_job(Consumer<NS>& ring, const Job& jb, const float* a_s, 
 #pragma unroll
     for (int v = 0; v < kVec; ++v) acc[bc][v] = 0.f;
 
-  const int rps = rows_per_stage(jb);
+  const int rps = rows_per_stage(jb, SB);
   for (int row0 = jb.k_lo; row0 < jb.k_hi; row0 += rps) {
     const int rows = min(rps, jb.k_hi - row0);
     const char* slot = ring.acquire();

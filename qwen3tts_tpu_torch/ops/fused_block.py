@@ -19,10 +19,12 @@ On CUDA tensors the wrappers launch the kernels of
 ``qwen3tts_tpu_torch/csrc/fused_block.cu`` (built at first use,
 ``ops/cuda_build.py``) or raise; on CPU tensors they run the plain versions.
 ``fused_norm_matmul.launches`` and ``fused_o_mlp.launches`` count calls that
-launched the kernel.  ``fused_o_mlp`` is one cooperative launch of one CTA
-per SM (one per 4 rows above 4) that streams its weights through a ring in
-shared memory (``csrc/wstream.cuh``); ``o_mlp_geometry`` cuts the work into
-one item per CTA.
+launched the kernel.  Both stream their weights through a ring in shared
+memory (``csrc/wstream.cuh``), one CTA per item of a geometry computed
+here: ``fused_norm_matmul`` is one launch of column tiles as narrow as
+fills the card (``norm_matmul_geometry``), rows taken 4 at a time inside it
+above batch 1; ``fused_o_mlp`` is one cooperative launch of one CTA per SM
+(one per 4 rows above 4), its work cut by ``o_mlp_geometry``.
 """
 from __future__ import annotations
 
@@ -38,8 +40,10 @@ from .quant import dequant
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 MAX_K = 2048  # longest activation row the kernels keep in shared memory
 MAX_GU_COLS = 256  # widest gate/up tile of fused_o_mlp
+MAX_NM_COLS = 256  # widest column tile of fused_norm_matmul
 ROWS = 4  # rows of one fused_o_mlp launch above batch 1
 STAGE_BYTES = 32768  # one stage of fused_o_mlp's ring
+NM_STAGE_WEIGHTS = 8192  # weights in one stage of fused_norm_matmul's ring
 _workspace: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
 
@@ -107,7 +111,7 @@ def fused_o_mlp_plain(x: torch.Tensor, attn: torch.Tensor, o_w: Any, norm_w: tor
 def bind(lib: ctypes.CDLL):
     """(fused_norm_matmul, fused_o_mlp, o_mlp_grid) of a built library."""
     nm = lib.qwen3tts_fused_norm_matmul
-    nm.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    nm.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     nm.restype = ctypes.c_int
     om = lib.qwen3tts_fused_o_mlp
@@ -175,6 +179,24 @@ def _check_rows(B: int, K: int, N: int, what: str):
                          f"(needs K <= {MAX_K}, N % 8 == 0)")
 
 
+def norm_matmul_geometry(H: int, N: int, grid: int) -> wstream.Geo:
+    """Items of one fused_norm_matmul launch on ``grid`` SMs: column tiles
+    only, as narrow as keeps the tiles within the grid (32 columns and 128
+    tiles at N 4096, 16 and 128 at N 2048 on 132 SMs).  Nothing crosses the
+    grid."""
+    return wstream.phase_geo(H, N, grid, split_rows=False, min_cols=wstream.VEC)
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_matmul_cols(H: int, N: int, device: torch.device) -> int:
+    """Column-tile width of fused_norm_matmul on ``device`` (or raise)."""
+    cols = norm_matmul_geometry(H, N, cuda_build.sm_count(device)).cols
+    if cols > MAX_NM_COLS:
+        raise ValueError(f"fused_norm_matmul: no kernel instance for N {N} (a tile of "
+                         f"{cols} > {MAX_NM_COLS} columns)")
+    return cols
+
+
 def fused_norm_matmul(x: torch.Tensor, norm_w: torch.Tensor, w: Any,
                       eps: float = 1e-6) -> torch.Tensor:
     """rms_norm(x, norm_w) @ w: [B, H] -> [B, N] in x's dtype.  CPU tensors
@@ -191,11 +213,12 @@ def fused_norm_matmul(x: torch.Tensor, norm_w: torch.Tensor, w: Any,
     quant = ws is not None
     _check_cuda(x, {"x": x, "norm_w": norm_w}, {"w": (wq, ws)})
     _check_rows(B, H, N, "fused_norm_matmul")
+    cols = _norm_matmul_cols(H, N, x.device)
     nm = _kernel_fns()[0]
     out = torch.empty((B, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = nm(_DTYPE_CODE[x.dtype], int(quant), x.data_ptr(), norm_w.data_ptr(),
-                wq.data_ptr(), ws.data_ptr() if quant else None, out.data_ptr(), B, H, N,
+                wq.data_ptr(), ws.data_ptr() if quant else None, out.data_ptr(), B, H, N, cols,
                 float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_norm_matmul kernel launch failed: cudaError {rc}")

@@ -2,10 +2,14 @@
 chunk + streaming-vocode pairing.
 
 Port of ``qwen3tts_tpu/runtime/engine.py``.  Where the JAX engine compiles
-fixed-shape programs and donates a KV pytree, this one runs eager PyTorch on
-a static KV cache allocated once and reused by every request.  All
-per-step state (position, counters, seen mask, done flags) lives in device
-tensors, and the cache is written at the device-side position with
+fixed-shape programs and donates a KV pytree, this one runs eager PyTorch.
+Each request takes its own KV cache (``new_kv``) and hands it back when its
+generation ends (``release``, as the JAX engine does) to a pool of one: a
+live request never shares its cache, and requests that run one after
+another reuse one cache without allocating.
+
+All per-step state (position, counters, seen mask, done flags) lives in
+device tensors, and the cache is written at the device-side position with
 ``index_copy_``, so a chunk of steps runs without any host sync; the host
 reads results once per chunk.  The host tracks the position itself (prefill
 length plus steps) to cap a chunk at ``max_seq_len - 1``.  The step's parts
@@ -25,6 +29,7 @@ flash-decode kernel.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -98,17 +103,26 @@ class Engine:
         self._pred_layers = unstack_layers(predictor_params["blocks"])
         self._suppress = torch.from_numpy(
             build_suppress_mask(tc.vocab_size, self.eos_id)).to(self.device)
-        self._kv = None  # static cache, allocated on first use and reused
+        # a finished generation's cache, handed to the next prefill (stale
+        # rows are never read: every read is bounded to the live prefix)
+        self._kv_pool = []
+        self._kv_lock = threading.Lock()
 
     def new_kv(self) -> Dict[str, torch.Tensor]:
-        """The static KV cache [L, B, S, KVH, D] (int8 plus scales with
-        ``kv_quant``).  Stale rows from an earlier request are never read:
-        every read is bounded to the live prefix."""
-        if self._kv is None:
-            self._kv = talker_lib.new_kv_cache(
-                self.talker_cfg, self.batch, self.max_seq_len, self.dtype, self.device,
-                kv_quant=self.kv_quant)
-        return self._kv
+        """A KV cache [L, B, S, KVH, D] (int8 plus scales with ``kv_quant``)
+        that no live request holds: the pooled one, or a new one."""
+        with self._kv_lock:
+            if self._kv_pool:
+                return self._kv_pool.pop()
+        return talker_lib.new_kv_cache(
+            self.talker_cfg, self.batch, self.max_seq_len, self.dtype, self.device,
+            kv_quant=self.kv_quant)
+
+    def release(self, state: Dict) -> None:
+        """Recycle a finished generation's KV cache into the pool (of one)."""
+        with self._kv_lock:
+            if state and "kv" in state and not self._kv_pool:
+                self._kv_pool.append(state["kv"])
 
     # ------------------------------------------------------------------
     @torch.inference_mode()

@@ -79,8 +79,11 @@ def fast_generate(
     t_prefill = time.time() - t0
 
     t1 = time.time()
-    chunks = [f for f, _, _ in _chunks(engine, state, tth, tth.shape[1], tpe,
-                                       device_chunk, max_new_tokens) if len(f)]
+    try:
+        chunks = [f for f, _, _ in _chunks(engine, state, tth, tth.shape[1], tpe,
+                                           device_chunk, max_new_tokens) if len(f)]
+    finally:
+        engine.release(state)
     t_decode = time.time() - t1
     steps = sum(c.shape[0] for c in chunks)
     timing = {
@@ -110,7 +113,9 @@ def fast_generate_streaming_audio(
     first_chunks: Tuple[int, ...] = (),
 ) -> Generator[Tuple[Frames, np.ndarray, Dict], None, None]:
     """Streaming generation with the streaming codec: yields
-    (codec_chunk [n,16], audio [n*spf] float32, timing) per chunk."""
+    (codec_chunk [n,16], audio [n*spf] float32, timing) per chunk.  The KV
+    cache goes back to the engine when the stream ends, also when the
+    generator is closed early."""
     t0 = time.time()
     tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
     state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
@@ -121,20 +126,23 @@ def fast_generate_streaming_audio(
     emitted = 0
     chunk_count = 0
     chunk_start = time.time()
-    for frames_np, audio_np, finished in _chunks(
-            engine, state, tth, tth.shape[1], tpe, chunk_size, max_new_tokens,
-            first_chunks, vocoder, voc_state):
-        n = frames_np.shape[0]
-        if n == 0:
-            break
-        emitted += n
-        yield frames_np, audio_np, {
-            "chunk_index": chunk_count,
-            "chunk_steps": n,
-            "prefill_ms": t_prefill * 1000 if chunk_count == 0 else 0,
-            "decode_ms": (time.time() - chunk_start) * 1000,
-            "total_steps_so_far": emitted,
-            "is_final": finished,
-        }
-        chunk_count += 1
-        chunk_start = time.time()
+    try:
+        for frames_np, audio_np, finished in _chunks(
+                engine, state, tth, tth.shape[1], tpe, chunk_size, max_new_tokens,
+                first_chunks, vocoder, voc_state):
+            n = frames_np.shape[0]
+            if n == 0:
+                break
+            emitted += n
+            yield frames_np, audio_np, {
+                "chunk_index": chunk_count,
+                "chunk_steps": n,
+                "prefill_ms": t_prefill * 1000 if chunk_count == 0 else 0,
+                "decode_ms": (time.time() - chunk_start) * 1000,
+                "total_steps_so_far": emitted,
+                "is_final": finished,
+            }
+            chunk_count += 1
+            chunk_start = time.time()
+    finally:
+        engine.release(state)

@@ -1,6 +1,6 @@
 """Measure the design choices behind the port's CUDA kernels on the card.
 
-    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash]
+    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm]
 
 ``stream`` (fused_o_mlp and fused_micro_step, csrc/wstream.cuh) builds the
 two sources once more per variant with a ``-DQWEN3TTS_...`` flag and, at the
@@ -19,6 +19,27 @@ two sources once more per variant with a ``-DQWEN3TTS_...`` flag and, at the
   call: when a CTA started the phase, when its first weight stage had
   landed, when it ended (median and slowest CTA); and for CTA 0 how long
   its thread 0 waited for each ring stage and how long it held it.
+
+``norm`` (fused_norm_matmul, csrc/fused_block.cu) builds the source once more
+per variant with a ``-DQWEN3TTS_...`` flag and, at the 0.6B talker's (N
+4096) and predictor's (N 2048) qkv shapes, H 1024, bf16 activations, int8
+and bf16 weights, prints:
+
+* nvcc's register, spill and shared-memory report of each instance;
+* the time of the shipped kernel (column tiles only), as chip_smoke.py
+  times it (a CUDA graph of one call per layer, each layer its own
+  weights), beside each variant (the launch and the ring's set-up alone;
+  int8 rounded to bf16 one at a time; stages of 4096 and 16384 weights
+  (shipped: 8192); one stage in flight; 8 rows a thread in flight; 512
+  consumers; 2 CTAs an SM), beside the row-split designs, built from
+  ``tools/norm_matmul_splits.cu`` ((b) 32-column tiles x row splits folded
+  through tagged words in L2 or through a cluster; clusters of up to 4 and
+  of up to 2 splits with row segments of up to 128 bytes, also at 2 CTAs
+  an SM) and the plain version;
+* the stream alone (no products) for column tiles of 8 to 128 columns;
+* from the stamped variant, per CTA of one call: entry, first stage landed
+  (its consumers wait for it there), norm done, last stage consumed and
+  folded, stored; and CTA 0's stages.
 
 ``flash`` (csrc/flash_decode.cu, csrc/matvec.cu) builds the shipped
 flash-decode source and three copies of it, each changed
@@ -46,7 +67,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import re
+import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -57,6 +81,10 @@ from ..ops import flash_decode as fd
 from ..ops import matvec as mv
 
 SRC = (cuda_build.CSRC / "flash_decode.cu").read_text()
+# the package's sources, and the row-split variants of fused_norm_matmul,
+# which only this probe builds
+PROBE_SOURCES = {**cuda_build.SOURCES,
+                 "norm_matmul_splits": Path(__file__).with_name("norm_matmul_splits.cu")}
 STAMPS = r'''
 __device__ unsigned long long g_stamp[1024 * 8];
 __device__ __forceinline__ void stamp(int i, int dep) {
@@ -282,28 +310,31 @@ STAMP_SHAPE = (160, 32, 3)  # CTA, phase, (start, first stage landed, end)
 O_MLP_PHASES = ["o-projection", "norm + gate|up", "down", "final sum"]
 
 
-def _build_stream_variants():
-    """Each variant of the two sources, one nvcc each, all at once."""
+def _build_variants(*groups):
+    """Each variant of each source of every (variants, sources) group, one
+    nvcc each, all at once: {(variant, source): library}.  fused_block.cu
+    takes no barrier or attention flag."""
     out_dir = cuda_build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for vname, defines in STREAM_VARIANTS.items():
-        for src in ("fused_block", "predictor_step"):
-            if src == "fused_block" and any("BARRIERS" in d or "ATTENTION" in d
-                                            for d in defines):
-                continue
-            so = out_dir / f"lib{src}_{'_'.join(defines).replace('=', '_')}.so"
-            cmd = cuda_build.nvcc_command(cuda_build.nvcc(), so, cuda_build.SOURCES[src],
-                                          defines)
-            procs[(vname, src)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                        stderr=subprocess.PIPE, text=True))
-    libs = {}
+    for variants, sources in groups:
+        for vname, defines in variants.items():
+            for src in sources:
+                if src == "fused_block" and any("BARRIERS" in d or "ATTENTION" in d
+                                                for d in defines):
+                    continue
+                so = out_dir / f"lib{src}_{'_'.join(defines).replace('=', '_') or 'copy'}.so"
+                cmd = cuda_build.nvcc_command(cuda_build.nvcc(), so, PROBE_SOURCES[src],
+                                              defines)
+                procs[(vname, src)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                            stderr=subprocess.PIPE, text=True))
+    libs, logs = {}, {}
     for key, (so, proc) in procs.items():
-        _, err = proc.communicate()
+        _, logs[key] = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {key}:\n{err}")
+            raise RuntimeError(f"nvcc failed on {key}:\n{logs[key]}")
         libs[key] = ctypes.CDLL(str(so))
-    return libs
+    return libs, logs
 
 
 def _read_stamps(lib, grid: int):
@@ -343,7 +374,7 @@ def _phase_lines(rel, names):
     lines = []
     for p, name in enumerate(names):
         col = rel[:, p]
-        if np.isnan(col[:, 0]).all():
+        if np.isnan(col).all():
             continue
         parts = []
         for k, kind in enumerate(("starts", "first stage landed", "ends")):
@@ -368,7 +399,7 @@ def stream_probe():
     from ..ops.quant import quantize_tensor
 
     dev = torch.device("cuda")
-    libs = _build_stream_variants()
+    libs, _ = _build_variants((STREAM_VARIANTS, ("fused_block", "predictor_step")))
     shipped = {"fused_block": cuda_build.library("fused_block"),
                "predictor_step": cuda_build.library("predictor_step")}
     g = torch.Generator(device=dev).manual_seed(2)
@@ -463,17 +494,205 @@ def stream_probe():
     _with_lib(ps, shipped["predictor_step"])
 
 
+# ---------------------------------------------------------------------------
+# fused_norm_matmul on the weight stream
+
+# variants of csrc/fused_block.cu, by -D flags
+NORM_VARIANTS = {
+    "stamped": ("QWEN3TTS_STAMPS",),
+    "a copy of the shipped source": (),
+    "the launch and the ring's set-up alone": ("QWEN3TTS_NM_EMPTY",),
+    "int8 rounded to bf16 one at a time": ("QWEN3TTS_ONE_ROUNDING",),
+    "4096 weights a stage": ("QWEN3TTS_NM_STAGE_WEIGHTS=4096",),
+    "16384 weights a stage": ("QWEN3TTS_NM_STAGE_WEIGHTS=16384",),
+    "one stage in flight": ("QWEN3TTS_NM_IN_FLIGHT=1",),
+    "8 rows a thread in flight": ("QWEN3TTS_ROWS_IN_FLIGHT=8",),
+    "512 consumers": ("QWEN3TTS_CONSUMERS=512", "QWEN3TTS_STAGE_BYTES=16384"),
+    "stream alone (no products)": ("QWEN3TTS_NO_COMPUTE",),
+    "2 CTAs an SM, tiles for twice the grid": ("QWEN3TTS_NM_CTAS=2",),
+}
+# the row-split variants (tools/norm_matmul_splits.cu), called with their
+# own geometry: (library, fold) of each
+SPLIT_LIBS = {"1 CTA an SM": (), "2 CTAs an SM": ("QWEN3TTS_NM_CTAS=2",)}
+SPLIT_FOLDS = {"tagged": ("1 CTA an SM", 0), "cluster": ("1 CTA an SM", 1),
+               "cluster, 2 CTAs an SM": ("2 CTAs an SM", 1)}
+# the stamps: (0: entry, first stage landed (the consumers wait for it
+# there in the stamped variant), norm done), (1: -, first stage taken, last
+# stage consumed and folded), (2: -, -, stored)
+NORM_PHASES = ["entry, first stage, norm", "weights", "store"]
+
+
+def _ptxas_lines(log: str, kernel: str):
+    """nvcc's ptxas report (registers, spills, shared memory) of each
+    instance of ``kernel``, one line each."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and ("Used" in line or "spill" in line):
+            out.append((name, line.split(":", 1)[-1].strip()))
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out), text=True,
+                               capture_output=True).stdout.splitlines()
+        out = [(m.group(0) if (m := re.search(kernel + r"<[^>]*>", n)) else n, v)
+               for n, (_, v) in zip(names, out)]
+    return [f"  {n}: {v}" for n, v in out]
+
+
+def _split_geo(H: int, N: int, grid: int, elt: int, max_splits: int, segment: int = 128):
+    """Column tiles x row splits for the row-split variants: as many items
+    as the grid holds, then the widest tiles, up to ``segment`` bytes of a
+    weight row of ``elt``-byte elements, at most ``max_splits`` splits."""
+    from ..ops import wstream
+
+    best = None
+    cols = wstream.tile_cols(N, grid, wstream.VEC)
+    while best is None or cols * elt <= segment:
+        tiles = -(-N // cols)
+        splits = max(1, min(max_splits, grid // tiles, -(-H // wstream.MIN_SPLIT_ROWS)))
+        if best is None or tiles * splits >= best[0]:
+            best = (tiles * splits, cols, splits)
+        cols *= 2
+    _, cols, splits = best
+    chunk = wstream.VEC * -(-H // (splits * wstream.VEC))
+    return wstream.Geo(cols, -(-H // chunk), chunk)
+
+
+def _split_fn(lib, fold, x, nw, ws, quant, geo, H, N):
+    """fused_norm_matmul of a row-split variant at ``geo`` with ``fold`` (0
+    tagged words, 1 a cluster), fn(i) over the layers' weights ``ws``, with
+    the workspace the tagged-word fold reads."""
+    nm = lib.qwen3tts_norm_matmul_split
+    nm.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    nm.restype = ctypes.c_int
+    part = torch.zeros((geo.splits, 1, N), dtype=torch.int64, device=x.device)
+    sync = torch.tensor([0, 1, 0], dtype=torch.int32, device=x.device)
+
+    def fn(i):
+        w = ws[i % len(ws)]
+        wq, sc = (w["q"], w["scale"]) if quant else (w, None)
+        out = torch.empty((1, N), dtype=x.dtype, device=x.device)
+        rc = nm(fold, int(quant), x.data_ptr(), nw.data_ptr(), wq.data_ptr(),
+                None if sc is None else sc.data_ptr(), out.data_ptr(), part.data_ptr(),
+                sync.data_ptr(), H, N, geo.cols, geo.splits, geo.chunk, 1e-6,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed: cudaError {rc}")
+        return out
+    return fn
+
+
+def norm_probe():
+    from ..ops import fused_block as fb
+    from ..ops import wstream
+    from ..ops.quant import quantize_tensor
+
+    dev = torch.device("cuda")
+    libs, logs = _build_variants((NORM_VARIANTS, ("fused_block",)),
+                                 (SPLIT_LIBS, ("norm_matmul_splits",)))
+    shipped = cuda_build.library("fused_block")
+    print("ptxas, fused_norm_matmul instances:")
+    print("\n".join(_ptxas_lines(logs[("a copy of the shipped source", "fused_block")],
+                                 "norm_matmul_kernel")))
+    grid = cuda_build.sm_count(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    H = 1024
+    shipped_geo = fb.norm_matmul_geometry
+
+    def use_geo(fn):  # the wrapper caches the tile width per shape
+        fb.norm_matmul_geometry = fn
+        fb._norm_matmul_cols.cache_clear()
+
+    # (where, N, layers, calls) as chip_smoke.py times them: one call per layer
+    for where, N, L, calls in (("talker", 4096, 28, 28), ("predictor", 2048, 5, 70)):
+        x = torch.randn((1, H), generator=g, device=dev).bfloat16()
+        nw = (1 + 0.1 * torch.randn((H,), generator=g, device=dev)).bfloat16()
+        geo = shipped_geo(H, N, grid)
+        for wname, quant in (("int8", True), ("bf16", False)):
+            elt = 1 if quant else 2
+            splits = {"(b) 32-column tiles x row splits": wstream.phase_geo(H, N, grid),
+                      "clusters of up to 4, 128-byte row segments": _split_geo(H, N, grid, elt, 4),
+                      "clusters of up to 2": _split_geo(H, N, grid, elt, 2)}
+            print(f"fused_norm_matmul {where} (H {H}, N {N}) x=bf16 w={wname} on {grid} SMs: "
+                  f"shipped {geo}" + "".join(f"; {k} {v}" for k, v in splits.items()))
+
+            def w():
+                t = torch.randn((H, N), generator=g, device=dev) * H ** -0.5
+                return quantize_tensor(t) if quant else t.bfloat16()
+            ws = [w() for _ in range(L)]
+
+            def call(i):
+                return fb.fused_norm_matmul(x, nw, ws[i % L])
+
+            line = []
+            for name in ["shipped", *(v for v in NORM_VARIANTS if v != "stamped"), "shipped"]:
+                if name.startswith("2 CTAs"):
+                    use_geo(lambda h, n, gr: shipped_geo(h, n, 2 * gr))
+                _with_lib(fb, libs[(name, "fused_block")] if name in NORM_VARIANTS else shipped)
+                line.append(f"{name} {graph_us(call, calls):.2f}")
+                use_geo(shipped_geo)
+            ref = fb.fused_norm_matmul_plain(x, nw, ws[0])
+            for gname, sgeo in splits.items():
+                if sgeo.splits == 1:
+                    continue
+                for lname in (("tagged", "cluster") if gname.startswith("(b)")
+                              else ("cluster", "cluster, 2 CTAs an SM")):
+                    lib, fold = SPLIT_FOLDS[lname]
+                    fn = _split_fn(libs[(lib, "norm_matmul_splits")], fold, x, nw, ws, quant,
+                                   sgeo, H, N)
+                    if (fn(0).float() - ref.float()).abs().max() > 0.1:
+                        raise AssertionError(f"the {lname} row-split variant disagrees")
+                    line.append(f"{gname} ({lname}) {graph_us(fn, calls):.2f}")
+            _with_lib(fb, libs[("stream alone (no products)", "fused_block")])
+            widths = []
+            for cols in (8, 16, 32, 64, 128):
+                other = wstream.Geo(cols, 1, H)
+                use_geo(lambda *a, other=other: other)
+                widths.append(f"{cols} columns ({wstream.num_items(H, N, other)} CTAs) "
+                              f"{graph_us(call, calls):.2f}")
+            use_geo(shipped_geo)
+            line.append("stream alone, column tiles of a width: " + ", ".join(widths))
+            _with_lib(fb, shipped)
+            plain_us = graph_us(lambda i: fb.fused_norm_matmul_plain(x, nw, ws[i % L]), calls)
+            line.append(f"plain {plain_us:.2f}")
+            print("  us/call: " + "; ".join(line))
+            stamped = libs[("stamped", "fused_block")]
+            _with_lib(fb, stamped)
+            for i in range(L + 1):
+                out = call(i)
+            if not torch.equal(call(0), out) or (out.float() - ref.float()).abs().max() > 0.1:
+                raise AssertionError("the stamped variant disagrees with the shipped kernel")
+            rel = _read_stamps(stamped, wstream.num_items(H, N, geo))
+            print(f"    the last CTA stored at {np.nanmax(rel[:, 2, 2]):.2f} us from the first "
+                  "CTA's entry")
+            print("    per CTA, us from the first CTA's entry, median (slowest): "
+                  "norm from entry to done; weights from the first stage landed to the last "
+                  "stage consumed and folded; stored")
+            print("\n".join(_phase_lines(rel, NORM_PHASES)))
+            n_stages = len(wstream.stage_schedule([(geo.chunk, geo.cols * elt)], 99,
+                                                  fb.NM_STAGE_WEIGHTS * elt))
+            print(f"    CTA 0's {n_stages} stages, us waited / us held: "
+                  + _stage_line(stamped, n_stages))
+            _with_lib(fb, shipped)
+            del ws
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: no CUDA device")
     import sys
 
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    print(torch.cuda.get_device_name(0))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True)
+    print(card.stdout.strip() or torch.cuda.get_device_name(0))
     if which in ("all", "stream"):
         stream_probe()
     if which in ("all", "flash"):
         flash_probe()
+    if which in ("all", "norm"):
+        norm_probe()
 
 
 def flash_probe():

@@ -187,6 +187,36 @@ def test_o_mlp_geometry_fills_the_card(shape):
     assert WS.num_items(Dq, Hh, geo_o) == WS.num_items(Hh, Ii, geo_mlp) == 128
 
 
+# (H, N) of the qkv projection: the 0.6B talker and predictor, the 1.7B
+# talker, tiny
+NORM_MM_SHAPES = {"0.6b-talker": (1024, 4096), "0.6b-predictor": (1024, 2048),
+                  "1.7b-talker": (2048, 4096), "tiny": (64, 128)}
+
+
+@pytest.mark.parametrize("shape", sorted(NORM_MM_SHAPES))
+def test_norm_matmul_geometry_covers_every_weight_once(shape):
+    """One launch on 132 SMs: column tiles only (nothing crosses the grid),
+    a multiple of 8 columns wide, every element of W taken exactly once, at
+    most one item per CTA."""
+    Hh, Nn = NORM_MM_SHAPES[shape]
+    geo = TF.norm_matmul_geometry(Hh, Nn, SMS)
+    assert geo.splits == 1 and geo.chunk >= Hh and geo.cols <= TF.MAX_NM_COLS
+    assert (_cover(Hh, Nn, geo, SMS) == 1).all()
+    assert WS.num_items(Hh, Nn, geo) <= SMS
+
+
+@pytest.mark.parametrize("shape,cols", [("0.6b-talker", 32), ("0.6b-predictor", 16)])
+def test_norm_matmul_geometry_fills_the_card(shape, cols):
+    """At the 0.6B shapes 128 of the 132 CTAs hold a tile: 32 columns at the
+    talker's N 4096, 16 at the predictor's N 2048 (32-column tiles would
+    give the predictor 64)."""
+    Hh, Nn = NORM_MM_SHAPES[shape]
+    geo = TF.norm_matmul_geometry(Hh, Nn, SMS)
+    assert geo.cols == cols
+    assert 120 <= WS.num_items(Hh, Nn, geo) <= SMS
+    assert sum(WS.item_of(c, Hh, Nn, geo) is not None for c in range(SMS)) >= 120
+
+
 @pytest.mark.parametrize("rows,row_bytes,stages", [
     (512, 64, 5),     # the 0.6B talker's o-projection item in bf16: one stage
     (1024, 96, 5),    # its gate|up tile: 341 rows a stage, a ragged last stage

@@ -96,7 +96,7 @@ def test_fused_engine_greedy_tokens_equal_jax(tiny_cfg, tiny_models, int8):
     eng, got, want = _greedy_tokens_both(tiny_cfg, tp, pp, use_fused_kernels=True,
                                          kv_quant=int8)
     assert eng.use_fused_kernels and eng.kv_quant == int8
-    assert (eng._kv["k"].dtype == torch.int8) == int8
+    assert (eng.new_kv()["k"].dtype == torch.int8) == int8
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
