@@ -32,12 +32,13 @@ Phases, in order; any failure raises and exits non-zero:
    one cache stack, warm in L2, and over two stacks, cold), torch.matmul
    for the matvecs; the micro-step also beside the per-layer paths and its
    grid barriers alone.
-3. slice  — FasterQwen3TTS("random:qwen3-tts-0.6b", bf16) on the card
-   answers three requests through the public API (non-streaming, then two
+3. slice  — FasterQwen3TTS("random:qwen3-tts-0.6b", bf16) on the card,
+   its engine rebuilt with use_cuda_graphs=False (eager chunks), answers
+   three requests through the public API (non-streaming, then two
    streaming at chunk 8), 48 steps each; checks audio length, range,
-   chunk count, and that the main path launched the kernel 28 times a step.
+   chunk count, and that the wrapper launched the kernel 28 times a step.
 4. slice-int8 — the same model with quantize="int8", kv_quant=True and the
-   engine rebuilt with use_fused_kernels=True answers a non-streaming and a
+   engine rebuilt with use_fused_kernels=True (eager) answers a non-streaming and a
    streaming (chunk 8) request, 48 steps each; checks the audio and that
    every step launched fused_norm_matmul and fused_o_mlp 98 times each
    (28 talker layers + 5 predictor layers x 14 micro-steps) and the
@@ -53,10 +54,31 @@ Phases, in order; any failure raises and exits non-zero:
    CPU's cache: held to 1e-4 wherever the int8 cache equals the CPU's, to
    2e-3 after an int8 entry flipped by one, at most 2 flips in all), and
    predictor micro-steps through the fused kernels; then greedy
-   predict_frame(micro_kernel=True) frames.
+   predict_frame(micro_kernel=True) frames; then, on the float32 and the
+   int8 model, captured chunks against eager ones: equal greedy tokens,
+   step for step (the first differing step fails the run).
+7. slice-graph — the main path: the API's captured chunks (CUDA graphs,
+   runtime/graphs.py) on the 0.6B at full width, on three paths (bf16; bf16
+   with use_micro_kernel=True; int8 weights + int8 KV cache +
+   use_fused_kernels=True), each eager and captured: warm-up seconds
+   (capture), a non-streamed (chunk 16) and a streamed (chunk 8) request
+   (96 steps captured, 48 eager): ms/step, RTF, TTFA, prefill ms, graph
+   replays; a streamed request under torch.profiler: the device's busy
+   share, and on the captured paths the kernels counted by name in the
+   replays (flash-decode 28 a step; fused_norm_matmul and fused_o_mlp 98
+   each; fused_micro_step 14), which must match.  Then on bf16: greedy
+   captured vs eager tokens (printed), three sampled requests by seed
+   (a, a repeat; b differs; fails otherwise), the streamed loop's
+   pipeline_depth 1-3, a request that ends in the cache's capped last
+   chunk (one replay, then 28 flash-decode launches a step from the eager
+   chunk, counted by the wrapper), warmup_all's seconds, and the dead
+   steps after an EOS at chunks 16 and 8.
 
 Prints the kernels' JSON line before the last line, and as the last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  The kernels' ``launches`` are those of
+the main path: counted in the profiler trace of the captured requests
+(a replay makes no Python call, so the wrappers' counters do not move);
+the matvecs' are the probe's.
 """
 from __future__ import annotations
 
@@ -800,16 +822,33 @@ def _check_audio(audio: np.ndarray, steps: int, spf: int, what: str):
         raise AssertionError(f"{what}: audio not finite or outside [-1, 1]")
 
 
-def slice_phase(card: str):
+def _load(**kw):
     from qwen3tts_tpu_torch import FasterQwen3TTS
+
+    t0 = time.time()
+    model = FasterQwen3TTS.from_pretrained("random:qwen3-tts-0.6b", device="cuda",
+                                           dtype="bfloat16", **kw)
+    torch.cuda.synchronize()
+    log(f"load random:qwen3-tts-0.6b {kw or ''}: {time.time() - t0:.1f}s")
+    return model
+
+
+def _engine(model, **kw):
+    """A new Engine on the model's weights (``use_cuda_graphs=False``: the
+    chunks run eagerly, every kernel launched by its wrapper)."""
+    from qwen3tts_tpu_torch.runtime.engine import Engine
+
+    kw.setdefault("max_seq_len", model.max_seq_len)
+    return Engine(model.params["talker"], model.params["predictor"], model.cfg, **kw)
+
+
+def slice_phase(card: str, model):
+    """The eager bf16 path through the public API: three requests, the
+    flash-decode wrapper's launches counted."""
     from qwen3tts_tpu_torch.ops.flash_decode import flash_decode
 
     steps, chunk, sync = STEPS, CHUNK, torch.cuda.synchronize
-    t0 = time.time()
-    model = FasterQwen3TTS.from_pretrained("random:qwen3-tts-0.6b", device="cuda",
-                                           dtype="bfloat16")
-    sync()
-    log(f"load random:qwen3-tts-0.6b: {time.time() - t0:.1f}s")
+    model.engine = _engine(model, use_cuda_graphs=False)
     layers = model.cfg.talker.num_hidden_layers
     spf = model.vocoder.spf
     with tempfile.TemporaryDirectory() as tmp:
@@ -866,23 +905,15 @@ def slice_phase(card: str):
     return launches, results
 
 
-def slice_int8_phase(card: str):
-    """The int8 + fused-block path: int8 weights, int8 KV cache, fused
+def slice_int8_phase(card: str, model):
+    """The int8 + fused-block path, eager: int8 weights, int8 KV cache, fused
     kernels; one non-streaming and one streaming (chunk 8) request."""
-    from qwen3tts_tpu_torch import FasterQwen3TTS
     from qwen3tts_tpu_torch.ops import fused_block as fb
     from qwen3tts_tpu_torch.ops.flash_decode import flash_decode
-    from qwen3tts_tpu_torch.runtime.engine import Engine
 
     steps, chunk, sync = STEPS, CHUNK, torch.cuda.synchronize
-    t0 = time.time()
-    model = FasterQwen3TTS.from_pretrained("random:qwen3-tts-0.6b", device="cuda",
-                                           dtype="bfloat16", quantize="int8", kv_quant=True)
-    model.engine = Engine(model.params["talker"], model.params["predictor"], model.cfg,
-                          max_seq_len=model.max_seq_len, use_fused_kernels=True,
-                          kv_quant=True)
-    sync()
-    log(f"load random:qwen3-tts-0.6b int8 + kv_quant + fused: {time.time() - t0:.1f}s")
+    model.engine = _engine(model, use_fused_kernels=True, kv_quant=True,
+                           use_cuda_graphs=False)
     kv = model.engine.new_kv()
     if kv["k"].dtype != torch.int8:
         raise AssertionError("kv_quant did not give an int8 cache")
@@ -1152,22 +1183,16 @@ def parity_int8_phase(card: str):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def slice_micro_phase(card: str):
+def slice_micro_phase(card: str, model):
     """The 0.6B bf16 model's predictor through predict_frame(micro_kernel=True)
     with the API's predictor policy (top-k 50, T 0.9) and a generator: 48
     frames, the launch count exactly 14 a frame, tokens in range, embed_sum
     finite; then host-wall ms/frame, synchronised, for the micro-step
     kernel, the default path and fused=True in the same call."""
-    from qwen3tts_tpu_torch import FasterQwen3TTS
     from qwen3tts_tpu_torch.models import predictor as predictor_lib
     from qwen3tts_tpu_torch.ops.predictor_step import fused_micro_step, micro_step_weights
 
     frames, sync = STEPS, torch.cuda.synchronize
-    t0 = time.time()
-    model = FasterQwen3TTS.from_pretrained("random:qwen3-tts-0.6b", device="cuda",
-                                           dtype="bfloat16")
-    sync()
-    log(f"load random:qwen3-tts-0.6b: {time.time() - t0:.1f}s")
     params, pcfg = model.params["predictor"], model.cfg.predictor
     _, policy = model._policies(0.9, 50, 1.0, True, 1.05, 2)
     w = micro_step_weights(params)  # once, outside the frame loop
@@ -1252,6 +1277,345 @@ def parity_micro_phase(card: str):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+GRAPH_STEPS = 96  # the slice-graph phase's timed captured requests (8 s of audio)
+EAGER_STEPS = 48  # ... eager ones (75-180 ms a step)
+PROFILED_STEPS = {"captured": 16, "eager": 8}  # streamed chunks of 8 under the profiler
+# kernel name in a profiler trace -> per-step launches on each captured path
+# (28 talker layers; 5 predictor layers x 14 micro-steps)
+TRACE_KERNELS = {"flash_decode": "flash_decode_kernel", "fused_norm_matmul": "norm_matmul_kernel",
+                 "fused_o_mlp": "o_mlp_kernel", "fused_micro_step": "micro_step_kernel"}
+GRAPH_PATHS = {  # path -> (model, Engine keywords, launches a step by kernel)
+    "bf16": ("bf16", {}, {"flash_decode": 28}),
+    "micro": ("bf16", {"use_micro_kernel": True}, {"flash_decode": 28, "fused_micro_step": 14}),
+    "int8_fused": ("int8", {"use_fused_kernels": True, "kv_quant": True},
+                   {"flash_decode": 28, "fused_norm_matmul": 98, "fused_o_mlp": 98}),
+}
+
+
+def _trace(fn):
+    """Run ``fn`` under torch.profiler (device activity only) and return
+    (launches by TRACE_KERNELS name, device ms of every kernel, memcpy and
+    memset, fn's wall ms under the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t) * 1e3
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    device_us = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        device_us += e.time_range.elapsed_us()
+        for name, kernel in TRACE_KERNELS.items():
+            if kernel in e.name:
+                counts[name] += 1
+    return counts, device_us / 1e3, wall
+
+
+class _Timings:
+    """Records the timing dict of the loops' last fast_generate (the API
+    logs it and returns the audio only)."""
+
+    def __init__(self):
+        from qwen3tts_tpu_torch.runtime import loops
+
+        self.loops, self.real, self.last = loops, loops.fast_generate, None
+
+        def recorded(*a, **kw):
+            ids, timing = self.real(*a, **kw)
+            self.last = timing
+            return ids, timing
+
+        loops.fast_generate = recorded
+
+    def close(self):
+        self.loops.fast_generate = self.real
+
+
+def _graph_requests(model, ref: str, want: dict, card: str, mode: str) -> dict:
+    """Warm-up (capture on the captured path), then a non-streamed (chunk 16)
+    and a streamed (chunk 8) request through the API (GRAPH_STEPS captured,
+    EAGER_STEPS eager), then a streamed request of PROFILED_STEPS without
+    and under the profiler."""
+    sync = torch.cuda.synchronize
+    graphs = model.engine.graphs
+    embeds, trailing, _ = model._prepare_clone(TEXT_A, ref, "English", True, True, None)
+    pol, ppol = model._policies(0.9, 50, 1.0, True, 1.05, 2)
+    sync()
+    t = time.time()
+    model._warmup(embeds.shape[1], trailing.shape[1], pol, ppol, chunk_sizes=(8, 16))
+    sync()
+    res = {"warmup_s": time.time() - t,
+           "captures": graphs.captures if graphs is not None else 0}
+    kw = dict(language="English", ref_audio=ref, ref_text="reference transcript")
+    kind = "captured" if graphs is not None else "eager"
+    n, spf = GRAPH_STEPS if graphs is not None else EAGER_STEPS, model.vocoder.spf
+    model.generate_voice_clone(text=TEXT_A, max_new_tokens=16, min_new_tokens=16, **kw)
+    replays = graphs.replays if graphs is not None else 0
+    rec = _Timings()
+    try:
+        sync()
+        t = time.time()
+        wavs, _ = model.generate_voice_clone(text=TEXT_A, max_new_tokens=n, min_new_tokens=n,
+                                             **kw)
+        sync()
+        wall = time.time() - t
+    finally:
+        rec.close()
+    _check_audio(wavs[0], n, spf, f"{mode} non-streamed")
+    res["non_streamed_chunk16"] = {"ms_per_step": wall / n * 1e3, "rtf": n / 12.0 / wall,
+                                   "prefill_ms": rec.last["prefill_ms"],
+                                   "decode_ms_per_step": rec.last["ms_per_step"]}
+    t = time.time()
+    first, chunks, timings = None, [], []
+    for audio, _sr, timing in model.generate_voice_clone_streaming(
+            text=TEXT_A, max_new_tokens=n, min_new_tokens=n, chunk_size=8, **kw):
+        first = first or (time.time() - t) * 1e3
+        chunks.append(audio)
+        timings.append(timing)
+    sync()
+    wall = time.time() - t
+    _check_audio(np.concatenate(chunks), n, spf, f"{mode} streamed")
+    res["streamed_chunk8"] = {"ms_per_step": wall / n * 1e3, "rtf": n / 12.0 / wall,
+                              "ttfa_ms": first, "prefill_ms": timings[0]["prefill_ms"]}
+    res["replays"] = (graphs.replays - replays) if graphs is not None else 0
+
+    steps = PROFILED_STEPS[kind]
+
+    def profiled():
+        list(model.generate_voice_clone_streaming(
+            text=TEXT_A, max_new_tokens=steps, min_new_tokens=steps, chunk_size=8, **kw))
+
+    sync()
+    t = time.time()
+    profiled()
+    sync()
+    wall = (time.time() - t) * 1e3
+    counts, device_ms, wall_prof = _trace(profiled)
+    res["steps"] = n
+    res["profiled_request"] = {"steps": steps, "wall_ms": wall,
+                               "wall_ms_under_profiler": wall_prof, "device_ms": device_ms,
+                               "busy_share": device_ms / wall,
+                               "launches": counts}
+    if graphs is not None:
+        # The tracer sometimes loses one step's records of a replay (seen on
+        # the H100: 27 x 28 flash-decode launches in a 16-step trace, 28 x
+        # 28 in the next): count the steps it recorded by flash-decode,
+        # then hold every kernel to its launches a step over those steps.
+        seen = counts["flash_decode"] / want["flash_decode"]
+        res["profiled_request"]["steps_in_trace"] = seen
+        if seen not in (steps, steps - 1) or any(
+                counts[name] != per_step * seen for name, per_step in want.items()):
+            raise AssertionError(f"{mode}: the replays of {steps} steps ran {counts}; want "
+                                 f"{want} a step")
+    log(f"  {mode}: " + json.dumps(res) + f"  [{card}]")
+    return res
+
+
+def _greedy_frames(engine, prompt, steps: int, chunk: int, seed=None):
+    """Frames of one request through the loops: greedy talker and predictor,
+    or sampled from ``seed``."""
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    if seed is None:
+        gen, pol, ppol = None, GenerationPolicy(do_sample=False), SamplingPolicy(do_sample=False)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        pol, ppol = GenerationPolicy(), SamplingPolicy()
+    ids, _ = loops.fast_generate(engine, *prompt, generator=gen, max_new_tokens=steps,
+                                 policy=dataclasses.replace(pol, min_new_tokens=steps),
+                                 pred_policy=ppol, device_chunk=chunk)
+    return ids
+
+
+def _dead_steps(model, prompt, card: str) -> dict:
+    """What a captured chunk's fixed length costs a request that ends at
+    EOS: a greedy request, rerun with the talker's EOS id set to a token it
+    first samples at step 40 or later, so that it stops there; chunks of 16
+    and of 8, the next one dispatched before each read; against the same
+    frames ended by the token budget instead."""
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import Engine, GenerationPolicy
+
+    ids = _greedy_frames(model.engine, prompt, 96, 16)
+    first_at = {}
+    for i, t in enumerate(ids[:, 0].tolist()):
+        first_at.setdefault(t, i)
+    k = min(i for i in first_at.values() if i >= 40)
+    cfg = dataclasses.replace(model.cfg, talker=dataclasses.replace(
+        model.cfg.talker, codec_eos_token_id=int(ids[k, 0])))
+    eng = Engine(model.params["talker"], model.params["predictor"], cfg,
+                 max_seq_len=model.max_seq_len)
+    pol = GenerationPolicy(do_sample=False, min_new_tokens=2)
+    ppol = SamplingPolicy(do_sample=False)
+    eng.warmup(prompt[0].shape[1], prompt[1].shape[1], pol, ppol, chunk_sizes=(16, 8))
+    res = {"eos_step": k}
+    for chunk in (16, 8):
+        for budget in (k, 96):  # the same frames without and with the EOS ending them
+            replays = eng.graphs.replays
+            torch.cuda.synchronize()
+            t = time.time()
+            out, _ = loops.fast_generate(eng, *prompt, generator=None, max_new_tokens=budget,
+                                         policy=pol, pred_policy=ppol, device_chunk=chunk)
+            ret = time.time() - t
+            torch.cuda.synchronize()
+            res[f"chunk{chunk}_{'budget' if budget == k else 'eos'}"] = {
+                "frames": len(out), "steps_run": chunk * (eng.graphs.replays - replays),
+                "return_ms": ret * 1e3, "device_tail_ms": (time.time() - t - ret) * 1e3}
+    log(f"  dead steps (EOS at step {k}): {json.dumps(res)}  [{card}]")
+    return res
+
+
+def slice_graph_phase(card: str, models: dict):
+    """The captured chunks through FasterQwen3TTS on the 0.6B at full width:
+    each path (bf16; bf16 with the micro-step kernel; int8 weights + int8 KV
+    cache + fused kernels) eager and captured, non-streamed (chunk 16) and
+    streamed (chunk 8); the captured paths' kernels counted in a profiler
+    trace of their replays; greedy captured vs eager tokens; sampled replays
+    by seed; the pipeline depth; the cache's capped last chunk; warmup_all;
+    and the cost of dead steps after an EOS."""
+    from qwen3tts_tpu_torch.ops.flash_decode import flash_decode
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy, bucket_for
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.wav")
+        _ref_wav(ref)
+        for path, (which, kw, want) in GRAPH_PATHS.items():
+            model = models[which]
+            for mode, graphs in (("eager", False), ("captured", True)):
+                model.engine = _engine(model, use_cuda_graphs=graphs, **kw)
+                results.setdefault(path, {})[mode] = _graph_requests(
+                    model, ref, want, card, f"{path} {mode}")
+
+        model = models["bf16"]
+        prompt = model._prepare_clone(TEXT_A, ref, "English", True, True, None)
+        eager, captured = _engine(model, use_cuda_graphs=False), _engine(model)
+        g_eager, g_capt = (_greedy_frames(e, prompt, 48, 16) for e in (eager, captured))
+        equal = (g_eager == g_capt).all(axis=1)
+        first_diff = int(np.argmin(equal)) if not equal.all() else None
+        log(f"  bf16 0.6B greedy, captured vs eager: {int(equal.sum())} of {len(equal)} frames "
+            f"equal, {int((g_eager[:, 0] == g_capt[:, 0]).sum())} codebook-0 tokens equal, "
+            f"first differing step {first_diff}  [{card}]")
+        seeded = {s: _greedy_frames(captured, prompt, 48, 16, seed=s) for s in (11, 12)}
+        again = _greedy_frames(captured, prompt, 48, 16, seed=11)
+        same_as_eager = np.array_equal(_greedy_frames(eager, prompt, 48, 16, seed=11),
+                                       seeded[11])
+        log(f"  sampled replays: seed 11 twice equal={np.array_equal(seeded[11], again)}, "
+            f"seeds 11 and 12 differ={not np.array_equal(seeded[11], seeded[12])}, "
+            f"seed 11 equals the eager request={same_as_eager}")
+        if not np.array_equal(seeded[11], again) or np.array_equal(seeded[11], seeded[12]):
+            raise AssertionError("sampled replays do not repeat by seed")
+
+        # the pipeline depth of the streamed audio loop, captured chunk 8
+        # (the first request captures the sampled policy's graphs)
+        depth = {}
+        for d in (1, 1, 2, 3, 1, 2, 3):
+            torch.cuda.synchronize()
+            t = time.time()
+            first = None
+            for _f, _a, _t in loops.fast_generate_streaming_audio(
+                    captured, model.vocoder, *prompt, generator=None,
+                    max_new_tokens=GRAPH_STEPS, policy=GenerationPolicy(
+                        min_new_tokens=GRAPH_STEPS), chunk_size=8, pipeline_depth=d):
+                first = first or (time.time() - t) * 1e3
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            depth.setdefault(str(d), []).append({"ttfa_ms": first,
+                                                 "rtf": GRAPH_STEPS / 12.0 / wall})
+        depth["1"].pop(0)  # the capture
+        log(f"  pipeline_depth (streamed, chunk 8, {GRAPH_STEPS} steps): {json.dumps(depth)}"
+            f"  [{card}]")
+
+        # the cache's last chunk: capped below the chunk size, so eager
+        T = prompt[0].shape[1]
+        max_seq = max(bucket_for(T), T + 1 + 16 + 5)
+        capped = max_seq - 1 - T - 16
+        model.engine = _engine(model, max_seq_len=max_seq)
+        kw = dict(language="English", ref_audio=ref, ref_text="reference transcript",
+                  max_new_tokens=64, min_new_tokens=64)
+        model.generate_voice_clone(text=TEXT_A, **kw)  # captures
+        flash_decode.launches = 0
+        replays = model.engine.graphs.replays
+        wavs, _ = model.generate_voice_clone(text=TEXT_A, **kw)
+        torch.cuda.synchronize()
+        cap = {"steps": len(wavs[0]) // model.vocoder.spf, "replays":
+               model.engine.graphs.replays - replays, "eager_flash_launches": flash_decode.launches}
+        log(f"  capped last chunk (max_seq_len {max_seq}, prompt {T}): {json.dumps(cap)}")
+        if cap != {"steps": 16 + capped, "replays": 1, "eager_flash_launches": 28 * capped}:
+            raise AssertionError(f"capped chunk: {cap}, want {16 + capped} steps, one replay "
+                                 f"and {28 * capped} eager flash-decode launches")
+
+        model.engine = _engine(model)
+        torch.cuda.synchronize()
+        warm_all = {"seconds": model.warmup_all(chunk_sizes=(8, 16)),
+                    "captures": model.engine.graphs.captures}
+        log(f"  warmup_all (5 trailing-text buckets x chunks 8, 16, with and without the "
+            f"codec): {json.dumps(warm_all)}  [{card}]")
+        dead = _dead_steps(model, prompt, card)
+    return {"paths": results, "greedy_equal_frames": int(equal.sum()),
+            "greedy_frames": len(equal), "sampled_equals_eager": same_as_eager,
+            "pipeline_depth": depth, "capped": cap, "warmup_all": warm_all, "dead_steps": dead}
+
+
+def graph_parity_phase(card: str):
+    """Captured against eager chunks on the small float32 model of the
+    parity phase (TF32 off) and on the int8 one (int8 weights, int8 KV
+    cache, fused kernels): the same kernels in the same order give equal
+    greedy tokens, step for step."""
+    from qwen3tts_tpu_torch.core.loader import init_random
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.ops.quant import quantize_bundle
+    from qwen3tts_tpu_torch.runtime.engine import Engine, GenerationPolicy
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        base = get_preset("tiny")
+        talker = dataclasses.replace(base.talker, head_dim=128, mrope_section=(24, 20, 20))
+        cfg = dataclasses.replace(base, talker=talker)
+        H = cfg.talker.hidden_size
+        rng = np.random.default_rng(5)
+        embeds = rng.standard_normal((1, 12, H)).astype(np.float32) * 0.1
+        tth = torch.from_numpy(rng.standard_normal((1, 16, H)).astype(np.float32) * 0.1)
+        tpe = torch.from_numpy(rng.standard_normal((1, 1, H)).astype(np.float32) * 0.1)
+        for name, seed, kw in (("float32", 3, {}),
+                               ("int8", 4, dict(use_fused_kernels=True, kv_quant=True))):
+            params = init_random(cfg, seed=seed, dtype=torch.float32, device="cuda")
+            if name == "int8":
+                params = quantize_bundle(params, "int8")
+            frames = {}
+            for graphs in (False, True):
+                eng = Engine(params["talker"], params["predictor"], cfg, max_seq_len=128,
+                             use_cuda_graphs=graphs, **kw)
+                state = eng.prefill(embeds, None, GenerationPolicy(do_sample=False,
+                                                                   min_new_tokens=99),
+                                    SamplingPolicy(do_sample=False))
+                out = [state["token"][:, None].expand(1, 16).cpu()]
+                for _ in range(4):
+                    _, f, n, lens, _ = eng.decode_chunk(state, tth.cuda(), 7, tpe.cuda(), 8)
+                    out.append(f[0, : int(lens[0])].cpu())
+                frames[graphs] = torch.cat(out)
+            equal = (frames[True] == frames[False]).all(dim=1)
+            first = None if bool(equal.all()) else int(torch.argmin(equal.int()))
+            log(f"parity {name} captured vs eager (TF32 off): {int(equal.sum())} of "
+                f"{len(equal)} steps equal, first differing step {first}  [{card}]")
+            if first is not None:
+                raise AssertionError(f"{name}: captured and eager chunks differ at step {first}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
@@ -1264,16 +1628,30 @@ def main():
     f_err, f_times, f_bounds = fused_kernel_phase(card)
     m_err, m_out = micro_kernel_phase(card)
     v_err, v_launches, v_times = matvec_phase(card)
+    models = {"bf16": _load(), "int8": _load(quantize="int8", kv_quant=True)}
     log("== slice ==")
-    launches, results = slice_phase(card)
+    _, results = slice_phase(card, models["bf16"])
     log("== slice-int8 ==")
-    q_launches, q_results = slice_int8_phase(card)
+    _, q_results = slice_int8_phase(card, models["int8"])
     log("== slice-micro ==")
-    m_launches, m_frames = slice_micro_phase(card)
+    _, m_frames = slice_micro_phase(card, models["bf16"])
     log("== parity ==")
     parity_phase(card)
     parity_int8_phase(card)
     parity_micro_phase(card)
+    graph_parity_phase(card)
+    log("== slice-graph ==")
+    g = slice_graph_phase(card, models)
+    # the main path: the captured chunks, their kernels counted in the
+    # profiler trace of their replays (the wrappers' counters count Python
+    # calls, which a replay makes none of)
+    traced = {path: g["paths"][path]["captured"]["profiled_request"]["launches"]
+              for path in GRAPH_PATHS}
+    launches = traced["bf16"]["flash_decode"]
+    q_launches = {"flash_decode_int8kv": traced["int8_fused"]["flash_decode"],
+                  "fused_norm_matmul": traced["int8_fused"]["fused_norm_matmul"],
+                  "fused_o_mlp": traced["int8_fused"]["fused_o_mlp"]}
+    m_launches = traced["micro"]["fused_micro_step"]
     log("slice: " + json.dumps({"card": card, "requests": results,
                                 "kernel_max_abs_err": max_err,
                                 "kernel_ms": {str(k): v[0] for k, v in times.items()},
@@ -1281,12 +1659,13 @@ def main():
                                 "sdpa_ms": {str(k): v for k, v in
                                             fd_extra["library_ms"].items()}}))
     log("slice-int8: " + json.dumps({
-        "card": card, "requests": q_results, "launches": q_launches,
+        "card": card, "requests": q_results, "traced_launches": q_launches,
         "int8kv_max_abs_err": q_err,
         "int8kv_ms": {str(k): v[0] for k, v in q_times.items()},
         "int8kv_plain_ms": {str(k): v[1] for k, v in q_times.items()},
         "fused_max_abs_err": f_err,
         "fused_ms": {" ".join(k): v for k, v in f_times.items()}}))
+    log("slice-graph: " + json.dumps({"card": card, **g}))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],

@@ -7,6 +7,14 @@ class's signatures and defaults, including ``quantize="int8" |
 "int8-talker" | "int8-predictor"`` (int8 weight-only) and ``kv_quant=True``
 (int8 KV cache).  ICL clone (``xvec_only=False``), custom voice, voice
 design, batching, the parity loops and the w8a8 modes are not ported yet.
+
+As the JAX class compiles its decode programs before its first generation
+(``_warmup``), this one captures them: the first request's
+``Engine.warmup`` captures the chunk graphs (decode, and decode + vocode)
+at chunk sizes 8 and 16, or the streaming request's own, for the request's
+trailing-text bucket; a later request with another bucket or chunk size
+captures its graph when it first needs it.  ``warmup_all`` captures every
+bucket up front.  On the CPU nothing is captured.
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ logger = logging.getLogger(__name__)
 
 
 class FasterQwen3TTS:
-    """Qwen3-TTS voice clone on PyTorch (eager, batch 1)."""
+    """Qwen3-TTS voice clone on PyTorch (captured decode chunks on the card,
+    batch 1)."""
 
     def __init__(self, cfg: TTSModelConfig, params: Dict, *, max_seq_len: int = 2048,
                  seed: int = 0, tokenizer_json: Optional[str] = None,
@@ -144,6 +153,25 @@ class FasterQwen3TTS:
         # the JAX package: greedy decoding makes only codebook 0 greedy
         return pol, SamplingPolicy(do_sample=True, top_k=50, top_p=1.0, temperature=0.9)
 
+    def _warmup(self, prefill_len: int, tth_len: int, policy, pred_policy,
+                chunk_sizes=(8, 16)):
+        """Capture the engine's chunk graphs before its first generation."""
+        if self.engine.warmed_up:
+            return
+        logger.info("Capturing the decode chunks as CUDA graphs (one-time)...")
+        self.engine.warmup(prefill_len, tth_len, policy, pred_policy, chunk_sizes,
+                           vocoder=self.vocoder)
+
+    def warmup_all(self, chunk_sizes=(8, 16), max_prefill: Optional[int] = None) -> float:
+        """Capture every (trailing-text bucket x chunk size) chunk graph,
+        with and without the vocoder, so that no request captures
+        mid-stream (servers call this at startup).  Returns seconds."""
+        pol, ppol = self._policies(0.9, 50, 1.0, True, 1.05, 2)
+        dt = self.engine.warmup_all(pol, ppol, chunk_sizes, max_prefill=max_prefill,
+                                    vocoder=self.vocoder)
+        logger.info("warmup_all finished in %.1fs", dt)
+        return dt
+
     @staticmethod
     def _unsupported(parity_mode: bool):
         if parity_mode:
@@ -179,6 +207,7 @@ class FasterQwen3TTS:
             text, ref_audio, language, xvec_only, non_streaming_mode, instruct)
         pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
                                    repetition_penalty, min_new_tokens)
+        self._warmup(embeds.shape[1], trailing.shape[1], pol, ppol)
         codec_ids, timing = loops.fast_generate(
             self.engine, embeds, trailing, tpe, generator=self._gen,
             max_new_tokens=max_new_tokens, policy=pol, pred_policy=ppol)
@@ -220,6 +249,8 @@ class FasterQwen3TTS:
             text, ref_audio, language, xvec_only, non_streaming_mode, instruct)
         pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
                                    repetition_penalty, min_new_tokens)
+        self._warmup(embeds.shape[1], trailing.shape[1], pol, ppol,
+                     chunk_sizes=tuple(dict.fromkeys(list(first_chunks) + [chunk_size])))
         for _codes, audio, timing in loops.fast_generate_streaming_audio(
                 self.engine, self.vocoder, embeds, trailing, tpe, generator=self._gen,
                 max_new_tokens=max_new_tokens, policy=pol, pred_policy=ppol,

@@ -11,6 +11,13 @@ launch of ``ops/predictor_step.py:fused_micro_step`` (proj + every block +
 final norm), gated as in the JAX package: batch 1, no sliding window,
 unquantized blocks.  The lm_heads may be int8 weight-only
 (``ops/quant.py:quantize_bundle``).
+
+A frame reads nothing from the host and allocates nothing that a replayed
+CUDA graph could not reuse: ``frame_scratch`` holds the 17-slot cache (every
+read is masked to the slots the frame has written) and the frame's fixed
+positions, RoPE rows and masks, made once by the caller; the sampling
+``temperature`` and ``top_p`` may be 0-d tensors (``runtime/engine.py``'s
+knobs).
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from ..core.config import PredictorConfig
 from ..ops.predictor_step import fused_micro_step, micro_step_weights
 from ..ops.quant import is_quantized
 from ..ops.rope import mrope_cos_sin
-from ..ops.sampling import sample_logits
+from ..ops.sampling import Knob, sample_logits
 from .layers import (
     BlockSpec,
     decode_mask,
@@ -39,6 +46,16 @@ Params = Dict
 
 
 @dataclasses.dataclass(frozen=True)
+class StaticPolicy:
+    """The structural part of the predictor's sampling policy: what a
+    captured frame is keyed on."""
+
+    do_sample: bool = True
+    top_k: int = 50
+    use_top_p: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class SamplingPolicy:
     """Predictor sampling policy (defaults mirror the JAX package)."""
 
@@ -46,6 +63,11 @@ class SamplingPolicy:
     top_k: int = 50
     top_p: float = 1.0
     temperature: float = 0.9
+
+    @property
+    def static(self) -> StaticPolicy:
+        return StaticPolicy(do_sample=self.do_sample, top_k=self.top_k,
+                            use_top_p=self.top_p < 1.0)
 
 
 def block_spec(cfg: PredictorConfig) -> BlockSpec:
@@ -95,39 +117,66 @@ def _rope(cfg: PredictorConfig, pos_1d: torch.Tensor):
     return mrope_cos_sin(pos_1d, cfg.head_dim, cfg.rope_theta, None)
 
 
+def frame_scratch(cfg: PredictorConfig, batch: int, dtype, device) -> Dict:
+    """What every frame of one batch size reuses: the 17-slot cache and, per
+    micro-step, its slot ``pos`` (int32 [1]), RoPE rows and decode mask; the
+    2-token prefill's RoPE rows and mask.  Make it once, outside any CUDA
+    graph that reads it."""
+    B, S, dev = batch, cfg.max_seq, torch.device(device)
+    zero_pad = torch.zeros((B,), dtype=torch.int32, device=dev)
+    steps = []
+    for cb in range(1, cfg.num_codebooks):
+        pos = torch.full((1,), cb + 1, dtype=torch.int32, device=dev)  # slot 2 + (cb - 1)
+        cos, sin = _rope(cfg, pos.long().expand(B, 1))
+        steps.append({"pos": pos, "cos": cos, "sin": sin,
+                      "mask": decode_mask(S, cb + 1, zero_pad, cfg.sliding_window)})
+    cos, sin = _rope(cfg, torch.arange(2, device=dev).expand(B, 2))
+    return {"kv": init_kv_cache(block_spec(cfg), B, S, dtype, dev), "steps": steps,
+            "prefill": {"cos": cos, "sin": sin,
+                        "mask": prefill_mask(2, 2, zero_pad, cfg.sliding_window)}}
+
+
 def predict_frame(
     params: Params,
     cfg: PredictorConfig,
     pred_input: torch.Tensor,  # [B, 2, H_talker] = cat(past_hidden, token0_embed)
     generator: Optional[torch.Generator],
-    policy: SamplingPolicy,
+    policy,  # SamplingPolicy or StaticPolicy
     layers: Optional[Sequence[Params]] = None,
     fused: bool = False,
     micro_kernel: bool = False,
     micro_weights: Optional[Dict] = None,
+    temperature: Optional[Knob] = None,  # default: policy.temperature
+    top_p: Optional[Knob] = None,  # default: policy.top_p
+    scratch: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the 15-codebook frame.  Returns (tokens [B, 15] int64, embed_sum
     [B, 1, H_talker]) with embed_sum = sum_i codec_embeddings[i][tokens_i].
     ``micro_weights`` is ``micro_step_weights(params)``, prepared once
-    outside the frame loop (made here when it is not given)."""
+    outside the frame loop (made here when it is not given); ``scratch`` is
+    ``frame_scratch`` for this batch, dtype and device (made here when it is
+    not given)."""
+    if isinstance(policy, SamplingPolicy):
+        temperature = policy.temperature if temperature is None else temperature
+        top_p = policy.top_p if top_p is None else top_p
+        policy = policy.static
     B = pred_input.shape[0]
     dev = pred_input.device
     spec = block_spec(cfg)
-    S = cfg.max_seq
     layers = layers if layers is not None else params["blocks"]
-    kv = init_kv_cache(spec, B, S, pred_input.dtype, dev)
-    zero_pad = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if scratch is None:
+        scratch = frame_scratch(cfg, B, pred_input.dtype, dev)
+    kv = scratch["kv"]
 
     def sample(logits):
-        return sample_logits(generator, logits, temperature=policy.temperature,
-                             top_k=policy.top_k, top_p=policy.top_p,
+        return sample_logits(generator, logits, temperature=temperature,
+                             top_k=policy.top_k, top_p=top_p, use_top_p=policy.use_top_p,
                              do_sample=policy.do_sample)
 
     # prefill: 2 tokens, local [B, 2, 2] mask
     h = _proj(params, pred_input)
-    cos, sin = _rope(cfg, torch.arange(2, device=dev).expand(B, 2))
-    m = prefill_mask(2, 2, zero_pad, cfg.sliding_window)
-    h, kv = stack_forward(layers, h, cos, sin, kv, 0, m, spec)
+    pre = scratch["prefill"]
+    h, kv = stack_forward(layers, h, pre["cos"], pre["sin"], kv, 0, pre["mask"], spec)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     tok = sample(_lm_logits(params, 0, h[:, -1, :]))
     toks = [tok]
@@ -138,24 +187,19 @@ def predict_frame(
             and not is_quantized(params["blocks"]["qkv_proj"])):
         w = micro_weights if micro_weights is not None else micro_step_weights(params)
         kk, vv = kv["k"][:, 0], kv["v"][:, 0]  # [L, S, KVH, D] views, written in place
-        for cb in range(1, cfg.num_codebooks):
-            pos = torch.full((1,), cb + 1, dtype=torch.int32, device=dev)
-            cos, sin = _rope(cfg, pos.reshape(1, 1))
+        for cb, st in enumerate(scratch["steps"], start=1):
             h, kk, vv = fused_micro_step(w, params["codec_embeddings"][cb - 1][tok],
-                                         cos[0, 0], sin[0, 0], kk, vv, pos,
+                                         st["cos"][0, 0], st["sin"][0, 0], kk, vv, st["pos"],
                                          eps=cfg.rms_norm_eps)
             tok = sample(_lm_logits(params, cb, h))
             toks.append(tok)
         tokens = torch.stack(toks, dim=1)  # [1, 15]
         return tokens, embed_sum_for(params, tokens, pred_input.dtype)
 
-    for cb in range(1, cfg.num_codebooks):
+    for cb, st in enumerate(scratch["steps"], start=1):
         x = _proj(params, params["codec_embeddings"][cb - 1][tok])[:, None, :]
-        pos = cb + 1  # cache slot 2 + (cb - 1)
-        cos, sin = _rope(cfg, torch.full((B, 1), pos, device=dev))
-        m_d = decode_mask(S, pos, zero_pad,
-                          cfg.sliding_window)
-        x, kv = stack_forward(layers, x, cos, sin, kv, pos, m_d, spec, fused=fused)
+        x, kv = stack_forward(layers, x, st["cos"], st["sin"], kv, cb + 1, st["mask"], spec,
+                              fused=fused)
         x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
         tok = sample(_lm_logits(params, cb, x[:, -1, :]))
         toks.append(tok)

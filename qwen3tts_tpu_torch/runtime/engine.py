@@ -1,35 +1,56 @@
 """Batch-1 decode runtime: prefill, the fused frame step, chunks, and the
 chunk + streaming-vocode pairing.
 
-Port of ``qwen3tts_tpu/runtime/engine.py``.  Where the JAX engine compiles
-fixed-shape programs and donates a KV pytree, this one runs eager PyTorch.
-Each request takes its own KV cache (``new_kv``) and hands it back when its
-generation ends (``release``, as the JAX engine does) to a pool of one: a
-live request never shares its cache, and requests that run one after
-another reuse one cache without allocating.
+Port of ``qwen3tts_tpu/runtime/engine.py``.  Where the JAX engine compiles a
+chunk of steps into one program (``jax.jit`` of ``_chunk_impl`` and of the
+decode + vocode composite), this one captures it into one CUDA graph
+(``runtime/graphs.py``) on the card, keyed as the JAX programs are: chunk
+size, trailing-text length, the policies' structure (``StaticPolicy``), with
+or without the vocoder, and, since a graph reads fixed addresses, the KV
+cache it was captured on.  ``decode_chunk`` and ``chunk_vocode`` replay the
+graph for their key, capturing it first when there is none, as JAX compiles
+on a new static argument.  On CPU tensors (and with
+``use_cuda_graphs=False``) the same steps run eagerly.  The one eager chunk
+on the card is the cache's last, which the host caps below the chunk size.
 
-All per-step state (position, counters, seen mask, done flags) lives in
-device tensors, and the cache is written at the device-side position with
-``index_copy_``, so a chunk of steps runs without any host sync; the host
-reads results once per chunk.  The host tracks the position itself (prefill
-length plus steps) to cap a chunk at ``max_seq_len - 1``.  The step's parts
-are named ranges for ``torch.profiler``: ``predictor_frame``,
-``talker_step`` and ``codec_stream``.
+The numeric sampling knobs are one float32 device tensor made per
+generation (``make_knobs``), so a request with another temperature replays
+the same graph.  The decode step updates its state in place: a replayed
+graph keeps reading and writing the tensors it captured.  All per-step state
+(position, counters, seen mask, done flags) lives in device tensors, and the
+cache is written at the device-side position, so a chunk runs without any
+host sync; the host reads results once per chunk.  The host tracks the
+position itself (``pos_host``: prefill length plus steps) to cap a chunk at
+``max_seq_len - 1``.  The step's parts are named ranges for
+``torch.profiler``: ``predictor_frame``, ``talker_step`` and
+``codec_stream``.
+
+Each request takes its own KV cache (``new_kv``) and hands it back when its
+generation ends (``release``, as the JAX engine does).  The pool keeps one
+cache, and besides it every cache that graphs were captured on, so that the
+graphs are replayed again: a live request never shares its cache, and
+requests that run one after another reuse one cache and its graphs.
 
 At batch 1 the JAX engine's bucket padding plus cache roll equals an
-unpadded prefill with pad 0 and ``pos = T``, which is what runs here;
-``bucket_for`` still rejects prompts longer than the largest bucket.
+unpadded prefill with pad 0 and ``pos = T``, which is what runs here; the
+prefill stays eager.  ``bucket_for`` still rejects prompts longer than the
+largest bucket.
 
-Options as in the JAX engine: ``use_fused_kernels`` (default off) runs the
-talker's decode step and the predictor's 14 micro-steps through the fused
-block kernels (``ops/fused_block.py``); ``kv_quant`` keeps the talker's KV
-cache in int8 with f32 per-(slot, head) scales, read by the int8-KV
-flash-decode kernel.
+Options as in the JAX engine: ``use_flash_decode`` (default on; ``False``
+runs the plain masked attention, for debugging); ``use_fused_kernels``
+(default off) runs the talker's decode step and the predictor's 14
+micro-steps through the fused block kernels (``ops/fused_block.py``);
+``use_micro_kernel`` (default off) runs each predictor micro-step as one
+launch of ``ops/predictor_step.py:fused_micro_step`` where
+``predict_frame``'s gate lets it (int8 predictor blocks keep the other
+paths); ``kv_quant`` keeps the talker's KV cache in int8 with f32
+per-(slot, head) scales, read by the int8-KV flash-decode kernel.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, Optional
 
 import torch
@@ -41,9 +62,14 @@ from ..models import predictor as predictor_lib
 from ..models import talker as talker_lib
 from ..models.layers import unstack_layers
 from ..models.predictor import SamplingPolicy
+from ..ops.predictor_step import micro_step_weights
+from ..ops.quant import is_quantized
 from ..ops.sampling import apply_repetition_penalty, build_suppress_mask, sample_logits
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
+# Trailing-text buckets: the loops pad the trailing text to one of these, so
+# a few captured chunks serve every text length.
+TTH_BUCKETS = (16, 64, 256, 1024, 2048)
 
 
 def bucket_for(n: int, buckets=PREFILL_BUCKETS) -> int:
@@ -57,6 +83,18 @@ def bucket_for(n: int, buckets=PREFILL_BUCKETS) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class StaticPolicy:
+    """The structural part of a sampling policy: what a captured chunk is
+    keyed on.  The numbers (temperature, top_p, penalty, min_new_tokens)
+    are device knobs (``make_knobs``), so changing them captures nothing."""
+
+    do_sample: bool = True
+    top_k: int = 50
+    use_top_p: bool = False
+    use_rep_penalty: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class GenerationPolicy:
     """Sampling policy for the talker's codebook-0 head."""
 
@@ -67,9 +105,45 @@ class GenerationPolicy:
     repetition_penalty: float = 1.05
     min_new_tokens: int = 2
 
+    @property
+    def static(self) -> StaticPolicy:
+        return StaticPolicy(do_sample=self.do_sample, top_k=self.top_k,
+                            use_top_p=self.top_p < 1.0,
+                            use_rep_penalty=self.repetition_penalty != 1.0)
+
+
+def make_knobs(policy: GenerationPolicy, pred_policy: SamplingPolicy,
+               device) -> torch.Tensor:
+    """The numeric knobs as one float32 [6] tensor on ``device``, made once
+    per generation: [temperature, top_p, repetition_penalty, min_new_tokens,
+    predictor temperature, predictor top_p].  The copy to the card is
+    asynchronous (from pinned memory)."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    host = torch.tensor([policy.temperature, policy.top_p, policy.repetition_penalty,
+                         float(policy.min_new_tokens), pred_policy.temperature,
+                         pred_policy.top_p], dtype=torch.float32)
+    if cuda:
+        host = host.pin_memory()
+    return host.to(device, non_blocking=cuda)
+
+
+def upload(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A host array or tensor on ``device`` in ``dtype``: to the card
+    asynchronously, from pinned memory."""
+    t = torch.as_tensor(x)
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, dtype)
+
+
+# the decode state's tensors: what a captured chunk reads and writes in place
+STATE_TENSORS = ("past_hidden", "token", "pos", "pad_count", "gen_step", "seen", "n_gen",
+                 "done", "knobs")
+
 
 class Engine:
-    """Eager runtime for one (talker, predictor) model instance at batch 1."""
+    """Runtime for one (talker, predictor) model instance at batch 1."""
 
     def __init__(
         self,
@@ -78,7 +152,10 @@ class Engine:
         cfg: TTSModelConfig,
         *,
         max_seq_len: int = 2048,
+        use_flash_decode: Optional[bool] = None,
         use_fused_kernels: Optional[bool] = None,
+        use_micro_kernel: bool = False,
+        use_cuda_graphs: Optional[bool] = None,
         kv_quant: bool = False,
     ):
         self.cfg = cfg
@@ -95,34 +172,60 @@ class Engine:
         tc = cfg.talker
         # the flash wrapper takes its plain version on CPU tensors; on the
         # card it launches the kernel, or raises for a head layout it lacks
-        self.use_flash_decode = True
+        self.use_flash_decode = use_flash_decode is not False
         # off unless asked for, as in the JAX engine (engine.py:142-153)
         self.use_fused_kernels = bool(use_fused_kernels)
+        self.use_micro_kernel = bool(use_micro_kernel)
+        self._micro_weights = None
+        if self.use_micro_kernel and not is_quantized(predictor_params["blocks"]["qkv_proj"]):
+            self._micro_weights = micro_step_weights(predictor_params)
         self.kv_quant = kv_quant
         self._talker_layers = unstack_layers(talker_params["blocks"])
         self._pred_layers = unstack_layers(predictor_params["blocks"])
+        self._frame_scratch = predictor_lib.frame_scratch(cfg.predictor, self.batch,
+                                                          self.dtype, self.device)
         self._suppress = torch.from_numpy(
             build_suppress_mask(tc.vocab_size, self.eos_id)).to(self.device)
-        # a finished generation's cache, handed to the next prefill (stale
+        if use_cuda_graphs is None:
+            use_cuda_graphs = self.device.type == "cuda"
+        self.graphs = None
+        if use_cuda_graphs:
+            from .graphs import ChunkGraphs
+
+            self.graphs = ChunkGraphs(self)
+        # finished generations' caches, handed to the next prefill (stale
         # rows are never read: every read is bounded to the live prefix)
         self._kv_pool = []
         self._kv_lock = threading.Lock()
+        self.warmed_up = False
+
+    def _has_graphs(self, kv) -> bool:
+        return self.graphs is not None and self.graphs.has_graphs(kv)
 
     def new_kv(self) -> Dict[str, torch.Tensor]:
         """A KV cache [L, B, S, KVH, D] (int8 plus scales with ``kv_quant``)
-        that no live request holds: the pooled one, or a new one."""
+        that no live request holds: a pooled one (one with captured graphs
+        first), or a new one."""
         with self._kv_lock:
             if self._kv_pool:
-                return self._kv_pool.pop()
+                i = next((i for i, kv in enumerate(self._kv_pool) if self._has_graphs(kv)),
+                         len(self._kv_pool) - 1)
+                return self._kv_pool.pop(i)
         return talker_lib.new_kv_cache(
             self.talker_cfg, self.batch, self.max_seq_len, self.dtype, self.device,
             kv_quant=self.kv_quant)
 
     def release(self, state: Dict) -> None:
-        """Recycle a finished generation's KV cache into the pool (of one)."""
+        """Recycle a finished generation's KV cache: into an empty pool, and
+        always when graphs were captured on it."""
         with self._kv_lock:
-            if state and "kv" in state and not self._kv_pool:
-                self._kv_pool.append(state["kv"])
+            if not state or "kv" not in state:
+                return
+            kv = state["kv"]
+            if any(k is kv for k in self._kv_pool):
+                return
+            if not self._kv_pool or self._has_graphs(kv):
+                self._kv_pool.append(kv)
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -130,8 +233,8 @@ class Engine:
                 policy: GenerationPolicy,
                 pred_policy: SamplingPolicy = SamplingPolicy()) -> Dict:
         """Run the prompt [1, T, H] (numpy or tensor) into the cache and sample
-        the first token.  Returns the decode state."""
-        embeds = torch.as_tensor(embeds).to(self.device, self.dtype)
+        the first token.  Returns the decode state.  Eager on every device."""
+        embeds = upload(embeds, self.device, self.dtype)
         B, T, _ = embeds.shape
         if B != self.batch:
             raise ValueError(f"engine batch {self.batch} got prompt batch {B}")
@@ -143,12 +246,12 @@ class Engine:
         last, logits, kv = talker_lib.prefill(
             self.talker_params, self.talker_cfg, embeds, pad, self.new_kv(),
             layers=self._talker_layers)
+        knobs = make_knobs(policy, pred_policy, dev)
+        st = policy.static
         token = sample_logits(
-            generator, logits, temperature=policy.temperature, top_k=policy.top_k,
-            top_p=policy.top_p, do_sample=policy.do_sample,
-            suppress_mask=self._suppress,
-            suppress_eos=torch.full((B,), policy.min_new_tokens > 0, device=dev),
-            eos_id=self.eos_id)
+            generator, logits, temperature=knobs[0], top_k=st.top_k, top_p=knobs[1],
+            use_top_p=st.use_top_p, do_sample=st.do_sample, suppress_mask=self._suppress,
+            suppress_eos=knobs[3] > 0, eos_id=self.eos_id)
         return {
             "kv": kv,
             "past_hidden": last,
@@ -161,19 +264,22 @@ class Engine:
                                 device=dev),
             "n_gen": torch.zeros((B,), dtype=torch.int64, device=dev),
             "done": token == self.eos_id,
+            "knobs": knobs,
             "generator": generator,
             "policy": policy,
             "pred_policy": pred_policy,
         }
 
     # ------------------------------------------------------------------
-    def _one_step(self, state: Dict, tth: torch.Tensor, tth_len: int,
-                  tpe: torch.Tensor) -> torch.Tensor:
-        """One frame step, updating ``state`` in place: predictor frame,
-        talker decode step, repetition penalty, sampling.  Returns the frame
-        [B, 16] (input token + 15 predictor codebooks).  No host sync."""
+    def _one_step(self, state: Dict, tth: torch.Tensor, tth_len, tpe: torch.Tensor
+                  ) -> torch.Tensor:
+        """One frame step, updating the state's tensors in place: predictor
+        frame, talker decode step, repetition penalty, sampling.  Returns the
+        frame [B, 16] (input token + 15 predictor codebooks).  ``tth_len``
+        is an int or a device tensor.  No host sync."""
         tcfg = self.talker_cfg
-        policy: GenerationPolicy = state["policy"]
+        policy: StaticPolicy = state["policy"].static
+        knobs = state["knobs"]
         gen = state["generator"]
         token = state["token"]
         B = token.shape[0]
@@ -183,8 +289,10 @@ class Engine:
         with record_function("predictor_frame"):
             cb_tokens, cb_embed_sum = predictor_lib.predict_frame(
                 self.predictor_params, self.pred_cfg, pred_input, gen,
-                state["pred_policy"], layers=self._pred_layers,
-                fused=self.use_fused_kernels)
+                state["pred_policy"].static, layers=self._pred_layers,
+                fused=self.use_fused_kernels, micro_kernel=self.use_micro_kernel,
+                micro_weights=self._micro_weights, temperature=knobs[4], top_p=knobs[5],
+                scratch=self._frame_scratch)
         frame = torch.cat([token[:, None], cb_tokens], dim=1)  # [B, 16]
 
         # next talker input = sum of the 16 codec embeds + trailing text hidden
@@ -202,69 +310,202 @@ class Engine:
             logits = talker_lib.codec_head(self.talker_params, hidden[:, 0, :])
 
         seen = state["seen"]
-        seen[torch.arange(B, device=self.device), token] = True
-        if policy.repetition_penalty != 1.0:
-            logits = apply_repetition_penalty(logits, seen, policy.repetition_penalty)
-        n_gen = state["n_gen"] + 1
+        seen.scatter_(1, token[:, None], True)  # a scalar fill: no host copy under capture
+        if policy.use_rep_penalty:
+            logits = apply_repetition_penalty(logits, seen, knobs[2])
+        n_gen = state["n_gen"]
+        n_gen += 1
         next_token = sample_logits(
-            gen, logits, temperature=policy.temperature, top_k=policy.top_k,
-            top_p=policy.top_p, do_sample=policy.do_sample,
-            suppress_mask=self._suppress,
-            suppress_eos=n_gen < policy.min_new_tokens, eos_id=self.eos_id)
+            gen, logits, temperature=knobs[0], top_k=policy.top_k, top_p=knobs[1],
+            use_top_p=policy.use_top_p, do_sample=policy.do_sample,
+            suppress_mask=self._suppress, suppress_eos=n_gen < knobs[3].long(),
+            eos_id=self.eos_id)
 
-        state["past_hidden"] = hidden
-        state["token"] = next_token
+        state["past_hidden"].copy_(hidden)
+        token.copy_(next_token)
         state["pos"] += 1
-        state["pos_host"] += 1
-        state["gen_step"] = gs + 1
-        state["n_gen"] = n_gen
-        state["done"] = state["done"] | (next_token == self.eos_id)
+        gs += 1
+        state["done"] |= next_token == self.eos_id
         return frame
+
+    def _run_steps(self, state: Dict, tth, tth_len, tpe, frames: torch.Tensor,
+                   lens: torch.Tensor, steps: int) -> None:
+        """``steps`` frame steps into ``frames[:, :steps]``; ``lens`` counts
+        each row's steps that began before its EOS."""
+        for i in range(steps):
+            live = ~state["done"]
+            frames[:, i] = self._one_step(state, tth, tth_len, tpe)
+            lens += live
 
     @staticmethod
     def _tth(tth: torch.Tensor, tpe: torch.Tensor) -> torch.Tensor:
         """An empty trailing text falls back to the tts_pad embedding."""
         return tth if tth.shape[1] else tpe
 
+    def _steps(self, state: Dict, chunk_size: int) -> int:
+        """Steps of a chunk: ``chunk_size``, fewer when the cache would fill."""
+        return max(0, min(chunk_size, self.max_seq_len - 1 - state["pos_host"]))
+
+    @staticmethod
+    def _own(state: Dict) -> None:
+        """Copy the state's tensors once before the first step updates them
+        in place: what prefill returned stays as the caller saw it."""
+        if not state.get("owned"):
+            for k in STATE_TENSORS:
+                state[k] = state[k].clone()
+            state["owned"] = True
+
+    def _eager_chunk(self, state: Dict, tth, tth_len, tpe, chunk_size: int, steps: int):
+        self._own(state)
+        B = self.batch
+        frames = torch.zeros((B, chunk_size, 16), dtype=torch.int64, device=self.device)
+        lens = torch.zeros((B,), dtype=torch.int64, device=self.device)
+        self._run_steps(state, tth, tth_len, tpe, frames, lens, steps)
+        return frames, lens, state["done"].clone()
+
     @torch.inference_mode()
-    def decode_chunk(self, state: Dict, tth, tth_len: int, tpe, chunk_size: int):
+    def decode_step(self, state: Dict, tth, tth_len, tpe):
+        """One frame step, eagerly (the parity / debug path).  Returns
+        (state, frame [B, 16])."""
+        self._own(state)
+        frame = self._one_step(state, self._tth(tth, tpe), tth_len, tpe)
+        state["pos_host"] += 1
+        return state, frame
+
+    @torch.inference_mode()
+    def decode_chunk(self, state: Dict, tth, tth_len, tpe, chunk_size: int):
         """Run up to ``chunk_size`` steps (fewer when the cache would fill).
         Returns (state, frames [B, chunk_size, 16], n_steps, lens [B], done [B])
         — frames/lens/done are device tensors.  ``lens[b]`` counts row b's
         valid frames: a row freezes at its EOS, and the frames after it are
-        dropped by the caller."""
-        steps = max(0, min(chunk_size, self.max_seq_len - 1 - state["pos_host"]))
-        B = self.batch
-        frames = torch.zeros((B, chunk_size, 16), dtype=torch.int64, device=self.device)
-        lens = torch.zeros((B,), dtype=torch.int64, device=self.device)
+        dropped by the caller.  A replayed chunk returns its graph's output
+        buffers, which its next replay overwrites: copy them first (the
+        loops enqueue their copies to the host before the next chunk)."""
+        steps = self._steps(state, chunk_size)
         tth = self._tth(tth, tpe)
-        for i in range(steps):
-            live = ~state["done"]
-            frames[:, i] = self._one_step(state, tth, tth_len, tpe)
-            lens += live
-        return state, frames, steps, lens, state["done"]
+        if self.graphs is not None and steps == chunk_size:
+            frames, lens, done = self.graphs.run(state, tth, tth_len, tpe, chunk_size)
+        else:
+            frames, lens, done = self._eager_chunk(state, tth, tth_len, tpe, chunk_size,
+                                                   steps)
+        state["pos_host"] += steps
+        return state, frames, steps, lens, done
 
     def at_limit(self, state: Dict) -> bool:
         return state["pos_host"] >= self.max_seq_len - 1
 
+    def _vocode(self, vocoder, voc_state: Dict, frames: torch.Tensor, pcm16: bool):
+        """Row 0's frames [1, n, 16] through the streaming codec: (audio
+        [n*spf], float32 or with ``pcm16`` int16 PCM, voc_state')."""
+        with record_function("codec_stream"):
+            audio, voc_state = codec_lib.decode_stream(vocoder.params, vocoder.cfg,
+                                                       voc_state, frames[:1])
+        audio = audio[0]
+        if pcm16:
+            audio = torch.clamp(torch.round(audio * 32767.0), -32768.0, 32767.0
+                                ).to(torch.int16)
+        return audio, voc_state
+
     @torch.inference_mode()
-    def chunk_vocode(self, vocoder, state: Dict, tth, tth_len: int, tpe,
+    def chunk_vocode(self, vocoder, state: Dict, tth, tth_len, tpe,
                      chunk_size: int, voc_state: Dict, pcm16: bool = False):
         """decode_chunk, then the chunk's frames through the streaming codec.
         Returns (state, frames, n_steps, lens, done, audio [n_steps*spf],
         voc_state').  With ``pcm16`` the audio is int16 PCM.  Frames after an
         EOS enter the codec stream only in the final chunk, where the stream
-        ends."""
-        state, frames, n, lens, done = self.decode_chunk(
-            state, tth, tth_len, tpe, chunk_size)
-        if n == 0:
-            audio = torch.zeros((0,), dtype=torch.float32, device=self.device)
+        ends.  A replayed chunk returns its graph's buffers, as
+        ``decode_chunk`` does, and its stream state lives in the graph's
+        buffers too: pass the returned ``voc_state`` on."""
+        steps = self._steps(state, chunk_size)
+        tth = self._tth(tth, tpe)
+        if self.graphs is not None and steps == chunk_size:
+            frames, lens, done, audio, voc_state = self.graphs.run(
+                state, tth, tth_len, tpe, chunk_size, vocoder=vocoder, voc_state=voc_state,
+                pcm16=pcm16)
         else:
-            with record_function("codec_stream"):
-                audio, voc_state = codec_lib.decode_stream(
-                    vocoder.params, vocoder.cfg, voc_state, frames[:1, :n])
-            audio = audio[0]
-        if pcm16:
-            audio = torch.clamp(torch.round(audio * 32767.0), -32768.0, 32767.0
-                                ).to(torch.int16)
-        return state, frames, n, lens, done, audio, voc_state
+            frames, lens, done = self._eager_chunk(state, tth, tth_len, tpe, chunk_size,
+                                                   steps)
+            if steps == 0:
+                audio = torch.zeros((0,), dtype=torch.int16 if pcm16 else torch.float32,
+                                    device=self.device)
+            else:
+                audio, voc_state = self._vocode(vocoder, voc_state, frames[:, :steps], pcm16)
+        state["pos_host"] += steps
+        return state, frames, steps, lens, done, audio, voc_state
+
+    # ------------------------------------------------------------------
+    # warmup: capture the chunk graphs ahead of the requests that replay them
+    # ------------------------------------------------------------------
+
+    def _warm_chunks(self, state: Dict, Tt: int, chunk_sizes, vocoder, policy,
+                     pred_policy, prefill_len: int, gen) -> Dict:
+        """decode_chunk (and chunk_vocode) at each chunk size, for trailing
+        text of bucket ``Tt``; a new prefill when the cache would cap a
+        chunk.  Returns the state."""
+        H = self.talker_cfg.hidden_size
+        tth = torch.zeros((self.batch, Tt, H), dtype=self.dtype, device=self.device)
+        tpe = torch.zeros((self.batch, 1, H), dtype=self.dtype, device=self.device)
+        embeds = torch.zeros((self.batch, prefill_len, H), dtype=self.dtype,
+                             device=self.device)
+        for cs in dict.fromkeys(chunk_sizes):
+            for with_vocoder in (False, True) if vocoder is not None else (False,):
+                if self._steps(state, cs) < cs:
+                    self.release(state)
+                    state = self.prefill(embeds, gen, policy, pred_policy)
+                if with_vocoder:
+                    self.chunk_vocode(vocoder, state, tth, 0, tpe, cs, vocoder.stream_state())
+                else:
+                    self.decode_chunk(state, tth, 0, tpe, cs)
+        return state
+
+    def warmup(self, prefill_len: int, tth_len: int, policy: GenerationPolicy,
+               pred_policy: SamplingPolicy, chunk_sizes=(8,), vocoder=None) -> float:
+        """Capture the chunk graphs (and, with a ``vocoder``, the decode +
+        vocode graphs) at ``chunk_sizes`` for ``tth_len``'s trailing-text
+        bucket, and run each once.  The prefill stays eager and unpadded at
+        batch 1, so nothing of it is captured (the bucketed, left-padded
+        prefill comes with batching).  On CPU tensors the chunks run eagerly
+        and nothing is captured.  Returns seconds."""
+        t0 = time.time()
+        bucket_for(prefill_len)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        prefill_len = max(prefill_len, 1)
+        H = self.talker_cfg.hidden_size
+        state = self.prefill(torch.zeros((self.batch, prefill_len, H), dtype=self.dtype,
+                                         device=self.device), gen, policy, pred_policy)
+        try:
+            state = self._warm_chunks(state, bucket_for(max(tth_len, 1), TTH_BUCKETS),
+                                      chunk_sizes, vocoder, policy, pred_policy,
+                                      prefill_len, gen)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            self.release(state)
+        self.warmed_up = True
+        return time.time() - t0
+
+    def warmup_all(self, policy: GenerationPolicy, pred_policy: SamplingPolicy,
+                   chunk_sizes=(8, 16), max_prefill: Optional[int] = None,
+                   max_tth: Optional[int] = None, vocoder=None) -> float:
+        """Capture every (trailing-text bucket x chunk size) graph, with the
+        vocoder's too when one is given, so that no request captures
+        mid-stream.  The warm-up prompt is ``max_prefill`` tokens long (the
+        smallest prefill bucket by default): the prefill is eager, so no
+        bucket of it is captured.  Returns seconds."""
+        t0 = time.time()
+        prefill_len = min(max_prefill or PREFILL_BUCKETS[0], self.max_seq_len - 1)
+        bucket_for(prefill_len)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        H = self.talker_cfg.hidden_size
+        state = self.prefill(torch.zeros((self.batch, prefill_len, H), dtype=self.dtype,
+                                         device=self.device), gen, policy, pred_policy)
+        try:
+            for Tt in (b for b in TTH_BUCKETS if b <= (max_tth or TTH_BUCKETS[-1])):
+                state = self._warm_chunks(state, Tt, chunk_sizes, vocoder, policy,
+                                          pred_policy, prefill_len, gen)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            self.release(state)
+        self.warmed_up = True
+        return time.time() - t0

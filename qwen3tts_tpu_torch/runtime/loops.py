@@ -1,23 +1,42 @@
-"""Decode loops: non-streaming and streaming with audio.
+"""Decode loops: non-streaming, streaming frames, and streaming with audio.
 
-Port of ``qwen3tts_tpu/runtime/loops.py`` (``fast_generate`` and
-``fast_generate_streaming_audio``) with the same timing-dict keys.  Each
-chunk runs on the device without a host sync; the host reads the chunk's
-frames, valid lengths and done flags once per chunk.  Timings bracket work
-that ends in a device synchronize, so they are wall times of finished work.
+Port of ``qwen3tts_tpu/runtime/loops.py`` (``fast_generate``,
+``fast_generate_streaming`` and ``fast_generate_streaming_audio``) with the
+same timing-dict keys.  The trailing text is padded to a ``TTH_BUCKETS``
+length (``bucketed=True``), so that a few captured chunks serve every text.
+
+The loops are pipelined: chunk k+1 is dispatched before chunk k is read
+(``pipeline_depth`` chunks ahead in the audio stream), and each chunk's
+frames, valid lengths, done flags and audio are copied to pinned host
+buffers as soon as the chunk is dispatched, before any later chunk can
+overwrite its graph's buffers; the host waits on the copies' event, never
+on a device value.  After an EOS the chunks already dispatched still run on
+the card (a captured chunk runs all its steps); their frames are dropped.
+When the stream ends the newest state's cache goes back to the engine, also
+when a streaming generator is closed early.  Timings bracket work that ends
+in a device synchronize, so they are wall times of finished work, except
+the audio stream's ``prefill_ms``, which is the host's dispatch of the
+prompt (its device time lands in the first chunk, as in the JAX loop).
 """
 from __future__ import annotations
 
 import time
+from collections import deque
 from typing import Dict, Generator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.predictor import SamplingPolicy
-from .engine import Engine, GenerationPolicy
+from .engine import TTH_BUCKETS, Engine, GenerationPolicy, bucket_for, upload
 
 Frames = np.ndarray  # [steps, 16] int32
+
+# Chunks dispatched ahead of the one the audio stream reads.  One is enough
+# on the H100: a replayed chunk of 8 steps keeps the card busy for longer
+# than the host takes to read the one before it and dispatch the next
+# (PERF.md, chip_smoke.py's slice-graph depth sweep).
+PIPELINE_DEPTH = 1
 
 
 def _sync(device: torch.device) -> None:
@@ -26,37 +45,89 @@ def _sync(device: torch.device) -> None:
 
 
 def _to_device(engine: Engine, *arrays):
-    return tuple(torch.as_tensor(a).to(engine.device, engine.dtype) for a in arrays)
+    return tuple(upload(a, engine.device, engine.dtype) for a in arrays)
 
 
-def _chunks(engine: Engine, state: Dict, tth, tth_len: int, tpe, chunk_size: int,
-            max_new_tokens: int, first_chunks: Tuple[int, ...] = (), vocoder=None,
-            voc_state=None):
-    """Yields (frames [n,16] int32, audio float32 [n*spf] or None, done) per
-    chunk; ``n`` counts row 0's valid frames, capped at the token budget."""
+def _pad_tth(tth: torch.Tensor, tpe: torch.Tensor, bucketed: bool
+             ) -> Tuple[torch.Tensor, int]:
+    """Pad the trailing text [B, T, H] with the tts_pad embedding to a
+    ``TTH_BUCKETS`` length (or to at least 1).  Returns (padded, T)."""
+    B, T, H = tth.shape
+    Tb = bucket_for(max(T, 1), TTH_BUCKETS) if bucketed else max(T, 1)
+    if Tb > T:
+        tth = torch.cat([tth, tpe.expand(B, Tb - T, H)], dim=1)
+    return tth, T
+
+
+class _Fetch:
+    """A chunk's device outputs on their way to the host: copied into
+    host buffers (pinned, asynchronously, on the card) when the chunk is
+    dispatched; ``get`` waits for the copies alone."""
+
+    def __init__(self, tensors):
+        self.host, self.event = list(tensors), None
+        if tensors[0].device.type == "cuda":
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def get(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+
+def _chunk_iter(engine: Engine, state: Dict, tth, tth_len: int, tpe, chunk_size: int,
+                max_new_tokens: int, first_chunks: Tuple[int, ...] = (), depth: int = 1,
+                vocoder=None, voc_state=None):
+    """Yields (frames [n, 16] int32, audio float32 [n*spf] or None, done)
+    per chunk, ``n`` row 0's valid frames within the token budget.  Up to
+    ``depth`` chunks are dispatched ahead of the one read, growing by at
+    most two between reads (the first read is not held up by a burst).
+    ``first_chunks`` ramps up the first chunk sizes.  Releases the state's
+    cache when it stops, also when closed early."""
     sizes = list(first_chunks) + [chunk_size]
-    emitted = 0
-    i = 0
-    while emitted < max_new_tokens:
-        size = min(sizes[min(i, len(sizes) - 1)], max_new_tokens - emitted)
+    spf = vocoder.spf if vocoder is not None else 0
+    q: deque = deque()
+    planned = 0
+
+    def dispatch():
+        nonlocal planned, voc_state
+        size = sizes[min(len(q) + n_read, len(sizes) - 1)]
         if vocoder is None:
-            state, frames, n, lens, done = engine.decode_chunk(
-                state, tth, tth_len, tpe, size)
-            audio = None
+            _, frames, n, lens, done = engine.decode_chunk(state, tth, tth_len, tpe, size)
+            outs = [frames, lens, done]
         else:
-            state, frames, n, lens, done, audio, voc_state = engine.chunk_vocode(
+            _, frames, n, lens, done, audio, voc_state = engine.chunk_vocode(
                 vocoder, state, tth, tth_len, tpe, size, voc_state)
-        # the one host read of this chunk
-        n_val = int(lens[0])
-        frames_np = frames[0, :n_val].to(torch.int32).cpu().numpy()
-        audio_np = audio[: n_val * vocoder.spf].float().cpu().numpy() if audio is not None else None
-        done_val = bool(done.all()) or engine.at_limit(state)
-        emitted += n_val
-        finished = done_val or n == 0 or emitted >= max_new_tokens
-        yield frames_np, audio_np, finished
-        if finished:
-            return
-        i += 1
+            outs = [frames, lens, done, audio]
+        q.append((n, _Fetch(outs)))
+        planned += n
+
+    n_read = emitted = 0
+    try:
+        dispatch()
+        while q:
+            grown = 0
+            while (planned < max_new_tokens and len(q) <= depth and grown < 2
+                   and not engine.at_limit(state)):
+                dispatch()
+                grown += 1
+            n, fetch = q.popleft()
+            n_read += 1
+            frames, lens, done, *audio = fetch.get()
+            n_val = min(int(lens[0]), max_new_tokens - emitted)
+            emitted += n_val
+            finished = (bool(done.all()) or emitted >= max_new_tokens or n == 0
+                        or (not q and engine.at_limit(state)))
+            yield (frames[0, :n_val].astype(np.int32),
+                   audio[0][: n_val * spf].astype(np.float32) if audio else None, finished)
+            if finished:
+                return
+    finally:
+        engine.release(state)
 
 
 def fast_generate(
@@ -70,20 +141,19 @@ def fast_generate(
     policy: GenerationPolicy = GenerationPolicy(),
     pred_policy: SamplingPolicy = SamplingPolicy(),
     device_chunk: int = 16,
+    bucketed: bool = True,
 ) -> Tuple[Optional[Frames], Dict]:
     """Non-streaming generation.  Returns ([steps,16] codec ids, timing)."""
     t0 = time.time()
     tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+    tth, tth_len = _pad_tth(tth, tpe, bucketed)
     state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
     _sync(engine.device)
     t_prefill = time.time() - t0
 
     t1 = time.time()
-    try:
-        chunks = [f for f, _, _ in _chunks(engine, state, tth, tth.shape[1], tpe,
-                                           device_chunk, max_new_tokens) if len(f)]
-    finally:
-        engine.release(state)
+    chunks = [f for f, _, _ in _chunk_iter(engine, state, tth, tth_len, tpe, device_chunk,
+                                           max_new_tokens) if len(f)]
     t_decode = time.time() - t1
     steps = sum(c.shape[0] for c in chunks)
     timing = {
@@ -98,6 +168,59 @@ def fast_generate(
     return np.concatenate(chunks, axis=0), timing
 
 
+def fast_generate_streaming(
+    engine: Engine,
+    talker_input_embeds,
+    trailing_text_hiddens,
+    tts_pad_embed,
+    *,
+    generator: Optional[torch.Generator],
+    max_new_tokens: int = 2048,
+    policy: GenerationPolicy = GenerationPolicy(),
+    pred_policy: SamplingPolicy = SamplingPolicy(),
+    chunk_size: int = 8,
+    bucketed: bool = True,
+    first_chunks: Tuple[int, ...] = (),
+) -> Generator[Tuple[Frames, Dict], None, None]:
+    """Streaming generation of codec frames: yields ([chunk_steps, 16],
+    timing) per chunk, chunk k+1 running on the device while the caller
+    handles chunk k."""
+    t0 = time.time()
+    tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+    tth, tth_len = _pad_tth(tth, tpe, bucketed)
+    state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
+    _sync(engine.device)
+    t_prefill = time.time() - t0
+    yield from _timed(_chunk_iter(engine, state, tth, tth_len, tpe, chunk_size,
+                                  max_new_tokens, first_chunks), t_prefill, audio=False)
+
+
+def _timed(chunks, t_prefill: float, audio: bool):
+    """The chunks with the JAX loops' timing dicts; closes ``chunks`` (and
+    so releases its cache) when it stops."""
+    emitted = chunk_count = 0
+    chunk_start = time.time()
+    try:
+        for frames, wav, finished in chunks:
+            n = frames.shape[0]
+            if n == 0:
+                break
+            emitted += n
+            timing = {
+                "chunk_index": chunk_count,
+                "chunk_steps": n,
+                "prefill_ms": t_prefill * 1000 if chunk_count == 0 else 0,
+                "decode_ms": (time.time() - chunk_start) * 1000,
+                "total_steps_so_far": emitted,
+                "is_final": finished,
+            }
+            yield (frames, wav, timing) if audio else (frames, timing)
+            chunk_count += 1
+            chunk_start = time.time()
+    finally:
+        chunks.close()
+
+
 def fast_generate_streaming_audio(
     engine: Engine,
     vocoder,
@@ -110,39 +233,24 @@ def fast_generate_streaming_audio(
     policy: GenerationPolicy = GenerationPolicy(),
     pred_policy: SamplingPolicy = SamplingPolicy(),
     chunk_size: int = 8,
+    bucketed: bool = True,
     first_chunks: Tuple[int, ...] = (),
+    pipeline_depth: Optional[int] = None,
 ) -> Generator[Tuple[Frames, np.ndarray, Dict], None, None]:
     """Streaming generation with the streaming codec: yields
-    (codec_chunk [n,16], audio [n*spf] float32, timing) per chunk.  The KV
-    cache goes back to the engine when the stream ends, also when the
+    (codec_chunk [n,16], audio [n*spf] float32, timing) per chunk, each
+    chunk one decode + vocode program (``Engine.chunk_vocode``).
+    ``pipeline_depth`` chunks (``PIPELINE_DEPTH`` by default) are
+    dispatched ahead of the one read.  The prefill is not synced: it flows
+    into the first chunk, so ``prefill_ms`` is the host's dispatch time.
+    The KV cache goes back to the engine when the stream ends, also when the
     generator is closed early."""
     t0 = time.time()
     tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+    tth, tth_len = _pad_tth(tth, tpe, bucketed)
     state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
-    _sync(engine.device)
     t_prefill = time.time() - t0
-
-    voc_state = vocoder.stream_state()
-    emitted = 0
-    chunk_count = 0
-    chunk_start = time.time()
-    try:
-        for frames_np, audio_np, finished in _chunks(
-                engine, state, tth, tth.shape[1], tpe, chunk_size, max_new_tokens,
-                first_chunks, vocoder, voc_state):
-            n = frames_np.shape[0]
-            if n == 0:
-                break
-            emitted += n
-            yield frames_np, audio_np, {
-                "chunk_index": chunk_count,
-                "chunk_steps": n,
-                "prefill_ms": t_prefill * 1000 if chunk_count == 0 else 0,
-                "decode_ms": (time.time() - chunk_start) * 1000,
-                "total_steps_so_far": emitted,
-                "is_final": finished,
-            }
-            chunk_count += 1
-            chunk_start = time.time()
-    finally:
-        engine.release(state)
+    yield from _timed(_chunk_iter(
+        engine, state, tth, tth_len, tpe, chunk_size, max_new_tokens, first_chunks,
+        depth=PIPELINE_DEPTH if pipeline_depth is None else max(1, pipeline_depth),
+        vocoder=vocoder, voc_state=vocoder.stream_state()), t_prefill, audio=True)

@@ -2,16 +2,21 @@
 
     python -m qwen3tts_tpu_torch.tools.step_profile [--steps 48] [--out DIR]
         [--quantize int8|int8-talker|int8-predictor] [--kv-quant] [--fused]
+        [--micro] [--graph]
 
 Loads ``random:qwen3-tts-0.6b`` in bf16 (with ``--quantize``, int8
-weight-only; ``--kv-quant``, an int8 KV cache; ``--fused``, the engine
-rebuilt with ``use_fused_kernels=True``), warms up, then runs one streaming
-request (chunk 8) without and then under ``torch.profiler`` and prints:
+weight-only; ``--kv-quant``, an int8 KV cache; ``--fused``,
+``use_fused_kernels=True``; ``--micro``, ``use_micro_kernel=True``) with
+an engine that runs its chunks eagerly, or with ``--graph`` replays them as
+captured CUDA graphs (the API's default), warms up (capturing the graphs),
+then runs one streaming request (chunk 8) without and then under
+``torch.profiler`` and prints:
 wall time per step (the profiler's own cost shows as the difference),
 the host time inside each named range of the engine (``predictor_frame``,
 ``talker_step``, ``codec_stream``), the device time summed over all kernels
 and its share of the unprofiled wall time (the device's busy share), and the
-kernels with the most device time.  ``--out`` also writes a Chrome trace.
+kernels with the most device time, with their device ms and launches a
+step.  ``--out`` also writes a Chrome trace.
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ def main(argv=None):
     ap.add_argument("--quantize", default=None, help="int8, int8-talker or int8-predictor")
     ap.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
     ap.add_argument("--fused", action="store_true", help="use_fused_kernels=True")
+    ap.add_argument("--micro", action="store_true", help="use_micro_kernel=True")
+    ap.add_argument("--graph", action="store_true", help="replay captured chunks")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA device")
@@ -58,10 +65,10 @@ def main(argv=None):
     model = FasterQwen3TTS.from_pretrained("random:qwen3-tts-0.6b", device="cuda",
                                            dtype="bfloat16", quantize=args.quantize,
                                            kv_quant=args.kv_quant)
-    if args.fused:
-        model.engine = Engine(model.params["talker"], model.params["predictor"], model.cfg,
-                              max_seq_len=model.max_seq_len, use_fused_kernels=True,
-                              kv_quant=args.kv_quant)
+    model.engine = Engine(model.params["talker"], model.params["predictor"], model.cfg,
+                          max_seq_len=model.max_seq_len, use_fused_kernels=args.fused,
+                          use_micro_kernel=args.micro, use_cuda_graphs=args.graph,
+                          kv_quant=args.kv_quant)
     with tempfile.TemporaryDirectory() as tmp:
         ref = os.path.join(tmp, "ref.wav")
         t = np.linspace(0, 3.0, 72_000, dtype=np.float32)
@@ -93,7 +100,8 @@ def main(argv=None):
     device_ms = sum(k[1] for k in kernels)
     report = {
         "card": card,
-        "path": {"quantize": args.quantize, "kv_quant": args.kv_quant, "fused": args.fused},
+        "path": {"quantize": args.quantize, "kv_quant": args.kv_quant, "fused": args.fused,
+                 "micro": args.micro, "graph": args.graph},
         "steps": args.steps,
         "wall_ms": wall * 1e3,
         "wall_ms_per_step": wall * 1e3 / args.steps,
@@ -107,6 +115,8 @@ def main(argv=None):
         "device_busy_share_under_profiler": device_ms / (wall * 1e3),
         "device_ops_per_step": sum(k[2] for k in kernels) / args.steps,
         "top_kernels_ms": [[k[0][:80], round(k[1], 3), k[2]] for k in kernels[:12]],
+        "top_kernels_ms_and_launches_per_step": [
+            [k[0][:80], round(k[1] / args.steps, 4), k[2] / args.steps] for k in kernels[:16]],
     }
     print(json.dumps(report, indent=1))
     if args.out:

@@ -744,3 +744,212 @@ def test_micro_frame_on_card_matches_cpu():
                                    atol=1e-4)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ---------------------------------------------------------------------------
+# captured decode chunks (runtime/graphs.py)
+
+
+def _graph_model(mode: str, seed: int = 8):
+    """(params, cfg) of a small model whose every part has a kernel instance
+    on the card (talker head_dim 128, predictor head_dim 64), and Engine
+    options for ``mode``: float32 or bf16 default, int8 weights + int8 KV
+    cache + fused kernels, or the micro-step kernel."""
+    from qwen3tts_tpu_torch.core.loader import init_random
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.ops.quant import quantize_bundle
+
+    base = get_preset("tiny")
+    cfg = dataclasses.replace(
+        base, talker=dataclasses.replace(base.talker, head_dim=128, mrope_section=(24, 20, 20)),
+        predictor=dataclasses.replace(base.predictor, head_dim=64))
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    params = init_random(cfg, seed=seed, dtype=dtype, device="cuda")
+    kw = {}
+    if mode == "int8":
+        params = quantize_bundle(params, "int8")
+        kw = dict(use_fused_kernels=True, kv_quant=True)
+    elif mode == "micro":
+        kw = dict(use_micro_kernel=True)
+    return params, cfg, kw
+
+
+def _engines(params, cfg, kw):
+    from qwen3tts_tpu_torch.runtime.engine import Engine
+
+    return {graphs: Engine(params["talker"], params["predictor"], cfg, max_seq_len=128,
+                           use_cuda_graphs=graphs, **kw) for graphs in (False, True)}
+
+
+def _greedy_chunks(eng, seed: int, chunks: int = 3, chunk: int = 8):
+    """Greedy frames of prefill + ``chunks`` decode chunks of ``chunk``."""
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    H = eng.talker_cfg.hidden_size
+    g = torch.Generator().manual_seed(seed)
+    embeds, tth, tpe = (torch.randn(s, generator=g) * 0.1 for s in
+                        ((1, 12, H), (1, 16, H), (1, 1, H)))
+    state = eng.prefill(embeds, None, GenerationPolicy(do_sample=False, min_new_tokens=99),
+                        SamplingPolicy(do_sample=False))
+    tth, tpe = tth.to("cuda", eng.dtype), tpe.to("cuda", eng.dtype)
+    out = []
+    for _ in range(chunks):
+        _, frames, n, lens, _ = eng.decode_chunk(state, tth, 5, tpe, chunk)
+        out.append(frames[0, : int(lens[0])].cpu())
+    eng.release(state)
+    return torch.cat(out)
+
+
+@pytest.fixture()
+def no_tf32():
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float32", "bf16", "int8", "micro"])
+def test_captured_chunks_equal_eager_tokens(mode, no_tf32):
+    """The same kernels in the same order, captured or eager, give the same
+    greedy tokens; the captured engine replays a graph for every chunk."""
+    _need_card()
+    params, cfg, kw = _graph_model(mode)
+    eng = _engines(params, cfg, kw)
+    eager, captured = _greedy_chunks(eng[False], 1), _greedy_chunks(eng[True], 1)
+    assert eng[False].graphs is None and eng[True].graphs.replays == 3
+    assert eng[True].graphs.captures == 1
+    torch.testing.assert_close(captured, eager, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_seeded_replays_repeat_and_seeds_differ():
+    """Sampled requests through captured chunks: seeds a, a repeat token for
+    token, seed b differs, and each equals the eager engine's request with
+    the same seed (a replay draws the eager steps' Philox offsets)."""
+    _need_card()
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    params, cfg, kw = _graph_model("float32")
+    eng = _engines(params, cfg, kw)
+    H = cfg.talker.hidden_size
+    g = torch.Generator().manual_seed(4)
+    prompt = [torch.randn(s, generator=g).numpy() * 0.1 for s in
+              ((1, 12, H), (1, 7, H), (1, 1, H))]
+
+    def run(e, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        ids, _ = loops.fast_generate(e, *prompt, generator=gen, max_new_tokens=24,
+                                     policy=GenerationPolicy(min_new_tokens=24),
+                                     pred_policy=SamplingPolicy(), device_chunk=8)
+        return ids
+
+    a1, a2, b = run(eng[True], 5), run(eng[True], 5), run(eng[True], 6)
+    np.testing.assert_array_equal(a1, a2)
+    assert not np.array_equal(a1, b)
+    np.testing.assert_array_equal(a1, run(eng[False], 5))
+    np.testing.assert_array_equal(b, run(eng[False], 6))
+
+
+@pytest.mark.cuda
+def test_interleaved_captured_streams_equal_eager():
+    """Two streamed requests on one captured engine, advanced in turn: each
+    holds its own cache (and so captures its own graphs) and gives its eager
+    tokens and audio."""
+    _need_card()
+    from qwen3tts_tpu_torch.audio.vocoder import Vocoder
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    params, cfg, kw = _graph_model("float32")
+    eng = _engines(params, cfg, kw)
+    voc = Vocoder(params["codec"], cfg.codec, compute_dtype=None)
+    H = cfg.talker.hidden_size
+    g = torch.Generator().manual_seed(9)
+    prompts = [[torch.randn(s, generator=g).numpy() * 0.1 for s in
+                ((1, T, H), (1, 6, H), (1, 1, H))] for T in (10, 14)]
+
+    def stream(e, p):
+        return loops.fast_generate_streaming_audio(
+            e, voc, *p, generator=None, max_new_tokens=24,
+            policy=GenerationPolicy(do_sample=False, min_new_tokens=24),
+            pred_policy=SamplingPolicy(do_sample=False), chunk_size=8)
+
+    want = [[(f, a) for f, a, _ in stream(eng[False], p)] for p in prompts]
+    streams = [stream(eng[True], p) for p in prompts]
+    got = [[], []]
+    for _ in range(3):
+        for i, s in enumerate(streams):
+            f, a, _ = next(s)
+            got[i].append((f, a))
+    for s in streams:
+        with pytest.raises(StopIteration):
+            next(s)
+    for g_i, w_i in zip(got, want):
+        for (f, a), (wf, wa) in zip(g_i, w_i):
+            np.testing.assert_array_equal(f, wf)
+            np.testing.assert_allclose(a, wa, atol=1e-5)
+    assert eng[True].graphs.captures == 2  # one decode + vocode graph per cache
+    assert len(eng[True]._kv_pool) == 2  # both caches hold graphs: both pooled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,module", [("float32", "flash"), ("int8", "fused"),
+                                         ("micro", "micro")])
+def test_capture_without_eager_step_raises(mode, module):
+    """A step captured before any eager call of its shape finds no workspace
+    and raises (the wrappers refuse to allocate during capture): the reason
+    the engine runs one eager step before each capture."""
+    _need_card()
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    params, cfg, kw = _graph_model(mode)
+    eng = _engines(params, cfg, kw)[True]
+    H = cfg.talker.hidden_size
+    state = eng.prefill(np.zeros((1, 6, H), np.float32), None,
+                        GenerationPolicy(do_sample=False), SamplingPolicy(do_sample=False))
+    eng._own(state)
+    tpe = torch.zeros((1, 1, H), device="cuda")
+    torch.cuda.synchronize()
+    {"flash": fd._workspace, "fused": fb._workspace, "micro": ps._workspace}[module].clear()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before"):
+        with torch.cuda.graph(graph):
+            eng._one_step(state, tpe, 0, tpe)
+
+
+@pytest.mark.cuda
+def test_decode_vocode_graph_equals_eager_audio(no_tf32):
+    """chunk_vocode replayed from its graph gives the eager path's frames and,
+    through a float32 codec, its audio within 1e-5; the stream state lives
+    in the graph's buffers and carries across chunks."""
+    _need_card()
+    from qwen3tts_tpu_torch.audio.vocoder import Vocoder
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    params, cfg, kw = _graph_model("float32")
+    eng = _engines(params, cfg, kw)
+    voc = Vocoder(params["codec"], cfg.codec, compute_dtype=None)
+    H = cfg.talker.hidden_size
+    embeds = torch.randn((1, 9, H), generator=torch.Generator().manual_seed(2)) * 0.1
+    tpe = torch.zeros((1, 1, H), device="cuda")
+    out = {}
+    for graphs, e in eng.items():
+        state = e.prefill(embeds, None, GenerationPolicy(do_sample=False, min_new_tokens=99),
+                          SamplingPolicy(do_sample=False))
+        vst, chunks = voc.stream_state(), []
+        for _ in range(3):
+            _, frames, n, lens, done, audio, vst = e.chunk_vocode(voc, state, tpe, 0, tpe, 8,
+                                                                   vst)
+            chunks.append((frames.cpu().clone(), audio.cpu().clone()))
+        out[graphs] = chunks
+    assert eng[True].graphs.replays == 3
+    for (f, a), (wf, wa) in zip(out[True], out[False]):
+        torch.testing.assert_close(f, wf, atol=0, rtol=0)
+        torch.testing.assert_close(a, wa, atol=1e-5, rtol=0)
