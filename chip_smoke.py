@@ -16,10 +16,12 @@ Phases, in order; any failure raises and exits non-zero:
    the 0.6B talker's and predictor's shapes, with bf16 and int8 weights
    (both at 1, 2 and 32 rows, two runs bit-equal, one captured graph each
    replayed after its inputs were rewritten);
-   fused_micro_step at the 0.6B predictor's shapes over a frame's 14
-   chained micro-steps, the cache slot by slot, two runs bit-equal, one
-   captured graph replayed after x, pos, the rope rows and the cache were
-   rewritten;
+   the same two at the 1.7B talker's shapes (H 2048, qkv N 4096, I 6144)
+   at one row;
+   fused_micro_step at the 0.6B predictor's shapes, then with the 1.7B's
+   2048-wide input projection, over a frame's 14 chained micro-steps, the
+   cache slot by slot, two runs bit-equal, one captured graph replayed
+   after x, pos, the rope rows and the cache were rewritten;
    matvec and matvec_kt at the probe's default (K 1024, N 65536) and the
    talker's qkv shape (1024 x 4096), then the probe's 20-call run.
    bf16 (the main path's dtype) is held to 2e-3 + 1.6e-2*|ref|, float32 to
@@ -62,7 +64,7 @@ Phases, in order; any failure raises and exits non-zero:
    with use_micro_kernel=True; int8 weights + int8 KV cache +
    use_fused_kernels=True), each eager and captured: warm-up seconds
    (capture), a non-streamed (chunk 16) and a streamed (chunk 8) request
-   (96 steps captured, 48 eager): ms/step, RTF, TTFA, prefill ms, graph
+   (96 steps captured, 32 eager): ms/step, RTF, TTFA, prefill ms, graph
    replays; a streamed request under torch.profiler: the device's busy
    share, and on the captured paths the kernels counted by name in the
    replays (flash-decode 28 a step; fused_norm_matmul and fused_o_mlp 98
@@ -73,6 +75,26 @@ Phases, in order; any failure raises and exits non-zero:
    chunk (one replay, then 28 flash-decode launches a step from the eager
    chunk, counted by the wrapper), warmup_all's seconds, and the dead
    steps after an EOS at chunks 16 and 8.
+8. slice-icl — ICL voice clone (xvec_only=False) through the API on the
+   bf16 0.6B: a 3 s reference and its transcript; the voice prompt's first
+   and cached cost, then encode, codec priming, prompt build and prefill
+   alone (TTFA's parts); non-streamed and streamed (chunk 8) requests of
+   48 steps (audio length and range checked, the reference cut off), the
+   streamed one again uncached, and one streamed request on the int8 +
+   kv_quant + fused model; the wait between long-form segments
+   (generate_longform_streaming, three groups, chunk 8) ended by the budget
+   and by an EOS.  Then a small float32 model, TF32 off, card vs CPU: the
+   codec encoder's codes equal but for at most one frame with a near tie,
+   and the captured streamed ICL request (greedy, codec primed) gives the
+   CPU's frames and audio within 1e-4.
+9. slice-voices — parity_mode=True (24 steps, streamed chunk 8) beside the
+   fast path on the 0.6B; then, each loaded after the last is freed,
+   random:qwen3-tts-0.6b-custom (a named speaker) and
+   random:qwen3-tts-1.7b-design (instruct): load and warm-up seconds,
+   non-streamed and streamed 48-step requests (ms/step, RTF, TTFA), and a
+   traced streamed request (flash-decode 28 a step); the 1.7B again with
+   use_micro_kernel=True, a traced 48-step request (flash-decode 28 and the
+   micro-step 14 a step).
 
 Prints the kernels' JSON line before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  The kernels' ``launches`` are those of
@@ -415,11 +437,12 @@ def _captured(fn):
 
 def fused_kernel_phase(card: str):
     """fused_norm_matmul and fused_o_mlp against their plain versions at the
-    0.6B talker's shapes (H 1024, qkv N 4096, Dq 2048, I 3072) and the
-    predictor's (qkv N 2048, Dq 1024): bf16 with bf16 and with int8
-    weights, float32 with float32 and with int8 weights, at B = 1, 2 and 32,
-    two runs bit-equal at each; for each kernel one captured graph replayed
-    after x and attn were rewritten.  Timing (B = 1): one call
+    0.6B talker's shapes (H 1024, qkv N 4096, Dq 2048, I 3072), the
+    predictor's (qkv N 2048, Dq 1024) and the 1.7B talker's (H 2048, qkv N
+    4096, Dq 2048, I 6144): bf16 with bf16 and with int8 weights, float32
+    with float32 and with int8 weights, at B = 1, 2 and 32 (the 1.7B talker:
+    B = 1), two runs bit-equal at each; for each kernel one captured graph
+    replayed after x and attn were rewritten.  Timing (B = 1): one call
     per layer in a CUDA graph, each layer with its own weights, as a step
     makes them (28 talker calls; 70 predictor calls over its 5 layers)."""
     from qwen3tts_tpu_torch.ops import fused_block as fb
@@ -428,7 +451,9 @@ def fused_kernel_phase(card: str):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     shapes = {"talker": dict(H=1024, Dq=2048, N=4096, I=3072, layers=28, calls=28),
-              "predictor": dict(H=1024, Dq=1024, N=2048, I=3072, layers=5, calls=70)}
+              "predictor": dict(H=1024, Dq=1024, N=2048, I=3072, layers=5, calls=70),
+              "talker_1.7b": dict(H=2048, Dq=2048, N=4096, I=6144, layers=28, calls=28,
+                                  rows=(1,))}
     max_err = {"fused_norm_matmul": 0.0, "fused_o_mlp": 0.0}
     times, bounds = {}, {}
     for where, sh in shapes.items():
@@ -459,7 +484,7 @@ def fused_kernel_phase(card: str):
                         lambda xx, aa: fb.fused_o_mlp(xx, aa, w0["o"], nw, w0["gu"], w0["d"]),
                         lambda xx, aa: fb.fused_o_mlp_plain(xx, aa, w0["o"], nw, w0["gu"],
                                                             w0["d"]))}
-                for B in (1, 2, 32):  # more than 4 rows: 4 at a time
+                for B in sh.get("rows", (1, 2, 32)):  # more than 4 rows: 4 at a time
                     xb = x if B == 1 else torch.randn((B, H), generator=g, device=dev).to(dt)
                     ab = attn if B == 1 else torch.randn((B, Dq), generator=g, device=dev).to(dt)
                     for kname, (fn, plain) in kernels.items():
@@ -528,14 +553,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _predictor_weights(dtype, seed: int):
-    """Random 0.6B predictor parameters on the card (all 5 layers), the
-    norm weights and the proj bias moved off 1 / 0."""
+def _predictor_weights(dtype, seed: int, preset: str = "qwen3-tts-0.6b"):
+    """Random predictor parameters of ``preset`` on the card (all 5 layers;
+    the input projection from the talker's width), the norm weights and the
+    proj bias moved off 1 / 0."""
     from qwen3tts_tpu_torch.core.presets import get_preset
     from qwen3tts_tpu_torch.models import predictor as predictor_lib
 
     dev = torch.device("cuda")
-    cfg = get_preset("qwen3-tts-0.6b")
+    cfg = get_preset(preset)
     g = torch.Generator(device=dev).manual_seed(seed)
     p = predictor_lib.init_params(g, cfg.predictor, cfg.talker.hidden_size, dtype, dev)
 
@@ -570,9 +596,10 @@ def _permuted(w, g):
     }, {"in": pt, "out": torch.argsort(ph)}
 
 
-def micro_kernel_phase(card: str):
-    """fused_micro_step against its plain version at the 0.6B predictor's
-    shapes, random weights of all 5 layers: 14 chained micro-steps (pos
+def micro_kernel_phase(card: str, preset: str = "qwen3-tts-0.6b"):
+    """fused_micro_step against its plain version at ``preset``'s predictor
+    shapes (the 1.7B's projects its input from 2048 wide, the 0.6B's from
+    1024), random weights of all 5 layers: 14 chained micro-steps (pos
     2..15, a frame's), h at every step and the cache slot by slot after.
     Each step's plain version runs on the kernel's cache as it stood before
     the step.  float32 (F32_TOL) also runs the plain chain on its own; bf16
@@ -592,7 +619,7 @@ def micro_kernel_phase(card: str):
     dev = torch.device("cuda")
     max_err, out = {}, {}
     for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        cfg, params = _predictor_weights(dt, seed=10)
+        cfg, params = _predictor_weights(dt, seed=10, preset=preset)
         pcfg, Ht = cfg.predictor, cfg.talker.hidden_size
         w = ps.micro_step_weights(params)
         g = torch.Generator(device=dev).manual_seed(11)
@@ -675,8 +702,8 @@ def micro_kernel_phase(card: str):
                                      f"x=f32 free-running chain step {i}"))
             for a, b in ((run0[-2], kp), (run0[-1], vp)):
                 err = max(err, _held("fused_micro_step", a, b, tol, "x=f32 chain cache"))
-        log(f"  fused_micro_step x={dname}: {steps} chained steps and the cache slot by slot "
-            f"within {tol}, two runs bit-equal; max_abs_err={err:.3e}; the plain version "
+        log(f"  fused_micro_step {preset} x={dname}: {steps} chained steps and the cache slot "
+            f"by slot within {tol}, two runs bit-equal; max_abs_err={err:.3e}; the plain version "
             f"against itself summed in another order: max_abs {spread:.3e}")
         max_err[dname] = err
         if dname != "bf16":
@@ -709,7 +736,7 @@ def micro_kernel_phase(card: str):
                    + L * (live + 1) * KVH * D * 2 * k0.element_size())
         n_ops = 2 * sum(w[k].numel() for k in ("proj_w", "qkv", "o", "gu", "dn"))
         b_ms, b_by = bound(n_bytes, n_ops, dt)
-        log(f"  timing fused_micro_step bf16 (CUDA graph of one {steps}-step frame, per "
+        log(f"  timing fused_micro_step {preset} bf16 (CUDA graph of one {steps}-step frame, per "
             f"micro-step): kernel {t['kernel'] * 1e3:.2f} us ({b_ms / t['kernel'] * 100:.1f} % "
             f"of the {b_ms * 1e3:.2f} us bound, {n_bytes / 1e6:.1f} MB), plain "
             f"{t['plain'] * 1e3:.2f} us, stack_forward {t['stack_forward'] * 1e3:.2f} us, "
@@ -822,14 +849,15 @@ def _check_audio(audio: np.ndarray, steps: int, spf: int, what: str):
         raise AssertionError(f"{what}: audio not finite or outside [-1, 1]")
 
 
-def _load(**kw):
+def _load(preset: str = "qwen3-tts-0.6b", **kw):
     from qwen3tts_tpu_torch import FasterQwen3TTS
 
     t0 = time.time()
-    model = FasterQwen3TTS.from_pretrained("random:qwen3-tts-0.6b", device="cuda",
+    model = FasterQwen3TTS.from_pretrained(f"random:{preset}", device="cuda",
                                            dtype="bfloat16", **kw)
     torch.cuda.synchronize()
-    log(f"load random:qwen3-tts-0.6b {kw or ''}: {time.time() - t0:.1f}s")
+    model.load_s = time.time() - t0
+    log(f"load random:{preset} {kw or ''}: {model.load_s:.1f}s")
     return model
 
 
@@ -1278,8 +1306,8 @@ def parity_micro_phase(card: str):
 
 
 GRAPH_STEPS = 96  # the slice-graph phase's timed captured requests (8 s of audio)
-EAGER_STEPS = 48  # ... eager ones (75-180 ms a step)
-PROFILED_STEPS = {"captured": 16, "eager": 8}  # streamed chunks of 8 under the profiler
+EAGER_STEPS = 32  # ... eager ones (75-180 ms a step)
+PROFILED_STEPS = {"captured": 16, "eager": 4}  # streamed chunks under the profiler
 # kernel name in a profiler trace -> per-step launches on each captured path
 # (28 talker layers; 5 predictor layers x 14 micro-steps)
 TRACE_KERNELS = {"flash_decode": "flash_decode_kernel", "fused_norm_matmul": "norm_matmul_kernel",
@@ -1316,6 +1344,34 @@ def _trace(fn):
     return counts, device_us / 1e3, wall
 
 
+TRACE_TRIES = 3  # traces of one request before a count that differs fails
+
+
+def _held_trace(fn, want: dict, steps: int, what: str):
+    """Trace ``fn``, a captured request of ``steps`` steps, and hold every
+    traced kernel to exactly ``want`` launches a step (0 when not named).
+    A replay launches every node of its graph, but the tracer now and then
+    drops kernel records (seen on the H100: one step's 28 flash-decode
+    records of 448 in a 16-step trace; 2 of 1344 in a 48-step one, the
+    micro-step's 672 all there): a trace that counts fewer, and none more,
+    is taken again, up to TRACE_TRIES traces.  Returns (counts, device ms,
+    wall ms under the profiler, the counts of every trace taken)."""
+    expect = {name: want.get(name, 0) * steps for name in TRACE_KERNELS}
+    traces = []
+    for _ in range(TRACE_TRIES):
+        counts, device_ms, wall = _trace(fn)
+        traces.append(counts)
+        if counts == expect:
+            return counts, device_ms, wall, traces
+        if any(counts[name] > expect[name] for name in TRACE_KERNELS) or len(
+                traces) == TRACE_TRIES:
+            break
+        log(f"  {what}: a trace of {steps} steps holds {counts}, fewer records than "
+            f"{expect}: tracing the request again")
+    raise AssertionError(f"{what}: the replays of {steps} steps ran {traces}; want {want} "
+                         f"a step")
+
+
 class _Timings:
     """Records the timing dict of the loops' last fast_generate (the API
     logs it and returns the audio only)."""
@@ -1343,7 +1399,8 @@ def _graph_requests(model, ref: str, want: dict, card: str, mode: str) -> dict:
     and under the profiler."""
     sync = torch.cuda.synchronize
     graphs = model.engine.graphs
-    embeds, trailing, _ = model._prepare_clone(TEXT_A, ref, "English", True, True, None)
+    embeds, trailing, _, _ = model._prepare_clone(TEXT_A, ref, "", "English", True, True, True,
+                                                  None)
     pol, ppol = model._policies(0.9, 50, 1.0, True, 1.05, 2)
     sync()
     t = time.time()
@@ -1395,23 +1452,17 @@ def _graph_requests(model, ref: str, want: dict, card: str, mode: str) -> dict:
     profiled()
     sync()
     wall = (time.time() - t) * 1e3
-    counts, device_ms, wall_prof = _trace(profiled)
+    if graphs is not None:
+        counts, device_ms, wall_prof, traces = _held_trace(profiled, want, steps, mode)
+    else:
+        (counts, device_ms, wall_prof), traces = _trace(profiled), None
     res["steps"] = n
     res["profiled_request"] = {"steps": steps, "wall_ms": wall,
                                "wall_ms_under_profiler": wall_prof, "device_ms": device_ms,
                                "busy_share": device_ms / wall,
                                "launches": counts}
-    if graphs is not None:
-        # The tracer sometimes loses one step's records of a replay (seen on
-        # the H100: 27 x 28 flash-decode launches in a 16-step trace, 28 x
-        # 28 in the next): count the steps it recorded by flash-decode,
-        # then hold every kernel to its launches a step over those steps.
-        seen = counts["flash_decode"] / want["flash_decode"]
-        res["profiled_request"]["steps_in_trace"] = seen
-        if seen not in (steps, steps - 1) or any(
-                counts[name] != per_step * seen for name, per_step in want.items()):
-            raise AssertionError(f"{mode}: the replays of {steps} steps ran {counts}; want "
-                                 f"{want} a step")
+    if traces is not None:
+        res["profiled_request"]["traces"] = len(traces)
     log(f"  {mode}: " + json.dumps(res) + f"  [{card}]")
     return res
 
@@ -1497,7 +1548,7 @@ def slice_graph_phase(card: str, models: dict):
                     model, ref, want, card, f"{path} {mode}")
 
         model = models["bf16"]
-        prompt = model._prepare_clone(TEXT_A, ref, "English", True, True, None)
+        prompt = model._prepare_clone(TEXT_A, ref, "", "English", True, True, True, None)[:3]
         eager, captured = _engine(model, use_cuda_graphs=False), _engine(model)
         g_eager, g_capt = (_greedy_frames(e, prompt, 48, 16) for e in (eager, captured))
         equal = (g_eager == g_capt).all(axis=1)
@@ -1616,32 +1667,419 @@ def graph_parity_phase(card: str):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+# ---------------------------------------------------------------------------
+# slice-icl and slice-voices: the rest of the single-request API
+# ---------------------------------------------------------------------------
+
+ICL_REF_TEXT = "A three second reference that the cloned voice continues from."
+INSTRUCT = "A calm, low voice, speaking slowly and clearly."
+LONGFORM_TEXT = ("The first group of this long text is one sentence of about this length. "
+                 "The second group follows it with other words in another order. "
+                 "The third group ends the text with a last sentence of its own.")
+LONGFORM_BUDGET = 48  # frames a segment when the budget ends it
+
+
+def _timed_request(call, steps: int, spf: int, what: str) -> dict:
+    """One non-streamed request ``call() -> ([wav], sr)``: wall ms/step, RTF
+    and the loop's prefill ms; the audio checked."""
+    rec = _Timings()
+    try:
+        torch.cuda.synchronize()
+        t = time.time()
+        wavs, _ = call()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    finally:
+        rec.close()
+    _check_audio(wavs[0], steps, spf, what)
+    return {"ms_per_step": wall / steps * 1e3, "rtf": steps / 12.0 / wall,
+            "prefill_ms": rec.last["prefill_ms"]}
+
+
+def _streamed_request(call, steps: int, chunk: int, spf: int, what: str) -> dict:
+    """One streamed request ``call()`` yielding (audio, sr, timing): wall
+    ms/step, RTF, TTFA and the first chunk's prefill ms; the chunks, the
+    audio and the final flag checked."""
+    torch.cuda.synchronize()
+    t = time.time()
+    first, chunks, timings = None, [], []
+    for audio, _sr, timing in call():
+        first = first or (time.time() - t) * 1e3
+        chunks.append(audio)
+        timings.append(timing)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    if len(chunks) != -(-steps // chunk):
+        raise AssertionError(f"{what}: {len(chunks)} chunks for {steps} steps at {chunk}")
+    _check_audio(np.concatenate(chunks), steps, spf, what)
+    if not timings[-1]["is_final"] or timings[-1]["total_steps_so_far"] != steps:
+        raise AssertionError(f"{what}: bad final timing {timings[-1]}")
+    return {"ms_per_step": wall / steps * 1e3, "rtf": steps / 12.0 / wall, "ttfa_ms": first,
+            "prefill_ms": timings[0]["prefill_ms"]}
+
+
+def _longform_gap(card: str, model, ref: str) -> dict:
+    """The wait between segments of generate_longform_streaming (three
+    sentence groups, chunk 8, the talker greedy): from one segment's last
+    chunk to the next segment's first, with every group ended by the token
+    budget, then by an EOS.  The EOS run's engine takes as EOS id the token
+    that the budget run's greedy segments all sample, latest; each segment
+    draws the predictor's samples from the same seed in both runs, so the
+    EOS run repeats the budget run's frames up to that token."""
+    from qwen3tts_tpu_torch.api import longform
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import Engine
+
+    groups = longform.split_sentences(LONGFORM_TEXT, 80)
+    if len(groups) != 3:
+        raise AssertionError(f"long form: {len(groups)} sentence groups, want 3")
+    real_stream = model.generate_voice_clone_streaming
+    real_loop = loops.fast_generate_streaming_audio
+    frames = []
+
+    def reseeded(*a, **kw):
+        model._gen.manual_seed(21)
+        yield from real_stream(*a, **kw)
+
+    def recorded(*a, **kw):
+        frames.append([])
+        for f, audio, timing in real_loop(*a, **kw):
+            frames[-1].append(f)
+            yield f, audio, timing
+
+    def run(min_new: int) -> dict:
+        frames.clear()
+        first, last = {}, {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _audio, _sr, timing in longform.generate_longform_streaming(
+                model, LONGFORM_TEXT, "English", ref, "", max_chars=80, chunk_size=8,
+                do_sample=False, max_new_tokens=LONGFORM_BUDGET, min_new_tokens=min_new):
+            if not timing["is_gap"]:
+                now = (time.time() - t0) * 1e3
+                first.setdefault(timing["segment"], now)
+                last[timing["segment"]] = now
+        torch.cuda.synchronize()
+        return {"frames": [sum(len(f) for f in seg) for seg in frames],
+                "gap_ms": [first[i + 1] - last[i] for i in range(len(groups) - 1)],
+                "segment_ms": [last[i] - first[i] for i in range(len(groups))],
+                "first_chunk_ms": first[0], "wall_ms": (time.time() - t0) * 1e3}
+
+    saved = model.engine
+    model.generate_voice_clone_streaming = reseeded
+    loops.fast_generate_streaming_audio = recorded
+    try:
+        out = {"budget": run(LONGFORM_BUDGET)}
+        firsts = []
+        for seg in frames:
+            f0 = {}
+            for i, tok in enumerate(np.concatenate(seg)[:, 0].tolist()):
+                f0.setdefault(tok, i)
+            firsts.append({tok: i for tok, i in f0.items() if i >= 8})
+        # the token in the most segments, then the latest first sample
+        eos = max(set().union(*firsts), key=lambda tok: (
+            sum(tok in f for f in firsts), min(f.get(tok, LONGFORM_BUDGET) for f in firsts)))
+        cfg = dataclasses.replace(model.cfg, talker=dataclasses.replace(
+            model.cfg.talker, codec_eos_token_id=int(eos)))
+        model.engine = Engine(model.params["talker"], model.params["predictor"], cfg,
+                              max_seq_len=model.max_seq_len)
+        out["eos"] = run(2)
+        out["eos"]["eos_step"] = [f.get(eos) for f in firsts]
+    finally:
+        model.engine = saved
+        del model.generate_voice_clone_streaming
+        loops.fast_generate_streaming_audio = real_loop
+    if out["budget"]["frames"] != [LONGFORM_BUDGET] * 3 or out["eos"]["frames"] != [
+            f.get(eos, LONGFORM_BUDGET) for f in firsts]:
+        raise AssertionError(f"long form frames: {out}")
+    log(f"  long form (3 groups, chunk 8, greedy talker): {json.dumps(out)}  [{card}]")
+    return out
+
+
+def slice_icl_phase(card: str, models: dict) -> dict:
+    """ICL voice clone through the API on the 0.6B: a 3 s reference with its
+    transcript, the voice prompt timed on first use (speaker embedding +
+    codec encode) and from its cache; after a warm-up request, the parts of
+    TTFA alone (encode, codec priming, prompt build, synchronised prefill);
+    then non-streamed and streamed (chunk 8) requests of STEPS steps on the
+    bf16 model (audio length: steps x spf, the reference cut off), the
+    streamed one again with the voice prompt uncached, and one streamed
+    request on the int8 + kv_quant + fused model; then the wait between
+    long-form segments."""
+    sync = torch.cuda.synchronize
+    model = models["bf16"]
+    steps, spf = STEPS, model.vocoder.spf
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.wav")
+        _ref_wav(ref)
+        kw = dict(language="English", ref_audio=ref, ref_text=ICL_REF_TEXT, xvec_only=False,
+                  max_new_tokens=steps, min_new_tokens=steps)
+        model._voice_prompt_cache.clear()
+        sync()
+        t = time.time()
+        vcp = model._voice_prompt(ref, ICL_REF_TEXT, False, True)
+        sync()
+        first_ms = (time.time() - t) * 1e3
+        t = time.time()
+        model._voice_prompt(ref, ICL_REF_TEXT, False, True)
+        cached_ms = (time.time() - t) * 1e3
+        codes = vcp["ref_code"]
+        n_ref = 42  # 3 s and 0.5 s of silence, 12 frames a second
+        if (codes.shape != (n_ref, 16) or codes.min() < 0
+                or codes.max() >= model.cfg.codec.codebook_size):
+            raise AssertionError(f"ICL reference codes {codes.shape} out of range")
+        model.generate_voice_clone(text=TEXT_A, **{**kw, "max_new_tokens": 8,
+                                                   "min_new_tokens": 8})  # warm-up
+
+        # TTFA's parts alone, warm (the second of two runs of each)
+        audio, _ = model._load_ref_audio_with_silence(ref)
+        pol, ppol = model._policies(0.9, 50, 1.0, True, 1.05, steps)
+        parts = {}
+        for _ in range(2):
+            sync()
+            t = time.time()
+            model.vocoder.encode(audio)
+            sync()
+            parts["encode_ms"] = (time.time() - t) * 1e3
+            t = time.time()
+            model.engine.vocode_prime(model.vocoder, model.vocoder.stream_state(), codes)
+            sync()
+            parts["priming_ms"] = (time.time() - t) * 1e3
+            t = time.time()
+            embeds, _, _, _ = model._prepare_clone(TEXT_A, ref, ICL_REF_TEXT, "English", False,
+                                                   True, True, None)
+            parts["prompt_build_ms"] = (time.time() - t) * 1e3
+            sync()
+            t = time.time()
+            state = model.engine.prefill(embeds, model._gen, pol, ppol)
+            sync()
+            parts["prefill_ms"] = (time.time() - t) * 1e3
+            model.engine.release(state)
+        res["prompt"] = {"ref_frames": n_ref, "prompt_tokens": int(embeds.shape[1]),
+                         "voice_prompt_first_ms": first_ms, "voice_prompt_cached_ms": cached_ms,
+                         **parts}
+        res["non_streamed"] = _timed_request(
+            lambda: model.generate_voice_clone(text=TEXT_A, **kw), steps, spf,
+            "ICL non-streamed")
+        res["streamed_chunk8"] = _streamed_request(
+            lambda: model.generate_voice_clone_streaming(text=TEXT_A, chunk_size=CHUNK, **kw),
+            steps, CHUNK, spf, "ICL streamed")
+        s = res["streamed_chunk8"]
+        s["ttfa_split_ms"] = {k: parts[f"{k}_ms"] for k in ("prompt_build", "priming", "prefill")}
+        s["ttfa_split_ms"]["first_chunk"] = s["ttfa_ms"] - sum(s["ttfa_split_ms"].values())
+        model._voice_prompt_cache.clear()
+        res["streamed_chunk8_uncached"] = _streamed_request(
+            lambda: model.generate_voice_clone_streaming(text=TEXT_C, chunk_size=CHUNK, **kw),
+            steps, CHUNK, spf, "ICL streamed, voice prompt uncached")
+
+        m8 = models["int8"]
+        m8.generate_voice_clone(text=TEXT_A, **{**kw, "max_new_tokens": 8,
+                                                "min_new_tokens": 8})  # warm-up
+        res["int8_streamed_chunk8"] = _streamed_request(
+            lambda: m8.generate_voice_clone_streaming(text=TEXT_A, chunk_size=CHUNK, **kw),
+            steps, CHUNK, spf, "int8 ICL streamed")
+        log(f"  ICL: {json.dumps(res)}  [{card}]")
+        res["longform"] = _longform_gap(card, model, ref)
+    return res
+
+
+def icl_parity_phase(card: str):
+    """A small float32 model (the talker's head layout, so the card runs
+    flash-decode), TF32 off for matmul and cuDNN: the codec encoder's codes
+    on the card equal the CPU's except at frames where the CPU's best and
+    second-best RVQ distances lie within 1e-4 relative (at most one such
+    frame may differ); then the CPU's ICL prompt, greedy, streamed at chunk
+    8 with its reference codes priming the codec: the card's captured
+    chunks give the CPU's frames and its audio within F32_ATOL."""
+    from qwen3tts_tpu_torch import FasterQwen3TTS
+    from qwen3tts_tpu_torch.audio.wav import read_wav
+    from qwen3tts_tpu_torch.core.loader import init_random
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models import codec as codec_lib
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        base = get_preset("tiny")
+        talker = dataclasses.replace(base.talker, head_dim=128, mrope_section=(24, 20, 20))
+        cfg = dataclasses.replace(base, talker=talker)
+        params = init_random(cfg, seed=6, dtype=torch.float32, device="cpu")
+        move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) \
+            else [move(v) for v in t] if isinstance(t, list) else t.cuda()
+        models = {dev: FasterQwen3TTS(cfg, p, max_seq_len=512,
+                                      vocoder_compute_dtype=torch.float32)
+                  for dev, p in (("cpu", params), ("cuda", move(params)))}
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = os.path.join(tmp, "ref.wav")
+            _ref_wav(ref)
+            audio, _ = read_wav(ref)
+            codes = {dev: m.vocoder.encode(audio) for dev, m in models.items()}
+            cpu = models["cpu"].vocoder
+            T = len(audio) // cpu.spf
+            _, margins = codec_lib.rvq(codec_lib.encode_hidden(
+                cpu.params, cfg.codec, torch.from_numpy(audio[: T * cpu.spf])[None]),
+                cpu.params["encoder"]["codebooks"])
+            near = (margins[0] < 1e-4).any(-1).numpy()
+            differ = (codes["cpu"] != codes["cuda"]).any(-1)
+            log(f"parity codec encode (float32, TF32 off, {T} frames): {int(differ.sum())} "
+                f"frames differ, {int(near.sum())} frames with a near tie on the CPU  [{card}]")
+            if differ.sum() > 1 or (differ & ~near).any():
+                raise AssertionError("card and CPU encode disagree beyond a near tie")
+
+            prompt = models["cpu"]._prepare_clone(TEXT_C, ref, ICL_REF_TEXT, "English", False,
+                                                  True, True, None)
+            n = 24
+            out = {}
+            for dev, m in models.items():
+                fr, au = [], []
+                for f, a, _ in loops.fast_generate_streaming_audio(
+                        m.engine, m.vocoder, *prompt[:3], generator=None, max_new_tokens=n,
+                        policy=GenerationPolicy(do_sample=False, min_new_tokens=n),
+                        pred_policy=SamplingPolicy(do_sample=False), chunk_size=8,
+                        ref_codes=prompt[3]):
+                    fr.append(f)
+                    au.append(a)
+                out[dev] = (np.concatenate(fr), np.concatenate(au))
+        replays = models["cuda"].engine.graphs.replays
+        same = np.array_equal(out["cpu"][0], out["cuda"][0])
+        err = float(np.abs(out["cpu"][1] - out["cuda"][1]).max())
+        log(f"parity ICL streamed (float32, TF32 off, {n} greedy steps, {len(prompt[3])} "
+            f"reference frames, {replays} replays): frames equal={same}, audio "
+            f"max_abs_err={err:.3e} (tol {F32_ATOL})  [{card}]")
+        if replays != n // 8 or not same or err > F32_ATOL:
+            raise AssertionError("card and CPU disagree on the captured ICL stream")
+        return {"encode_frames_differ": int(differ.sum()), "near_ties": int(near.sum()),
+                "audio_max_abs_err": err}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _voice_requests(card: str, model, prompt, call, stream, what: str, want: dict,
+                    traced_steps: int) -> dict:
+    """Warm-up (capture), a non-streamed and a streamed (chunk 8) request of
+    STEPS steps through ``call`` / ``stream`` (no arguments but the token
+    budget), then a streamed request of ``traced_steps`` under the profiler:
+    its kernels counted by name, ``want`` a step."""
+    sync = torch.cuda.synchronize
+    steps, spf = STEPS, model.vocoder.spf
+    pol, ppol = model._policies(0.9, 50, 1.0, True, 1.05, 2)
+    sync()
+    t = time.time()
+    model._warmup(prompt[0].shape[1], prompt[1].shape[1], pol, ppol, chunk_sizes=(8, 16))
+    sync()
+    res = {"warmup_s": time.time() - t, "captures": model.engine.graphs.captures,
+           "prompt_tokens": int(prompt[0].shape[1])}
+    budget = dict(max_new_tokens=steps, min_new_tokens=steps)
+    res["non_streamed"] = _timed_request(lambda: call(**budget), steps, spf,
+                                         f"{what} non-streamed")
+    res["streamed_chunk8"] = _streamed_request(lambda: stream(chunk_size=CHUNK, **budget),
+                                               steps, CHUNK, spf, f"{what} streamed")
+    counts, device_ms, wall, traces = _held_trace(lambda: list(stream(
+        chunk_size=CHUNK, max_new_tokens=traced_steps, min_new_tokens=traced_steps)),
+        want, traced_steps, what)
+    res["profiled_request"] = {"steps": traced_steps, "launches": counts,
+                               "device_ms": device_ms, "wall_ms_under_profiler": wall,
+                               "traces": len(traces)}
+    log(f"  {what}: {json.dumps(res)}  [{card}]")
+    return res
+
+
+def slice_voices_phase(card: str, models: dict) -> dict:
+    """parity_mode=True (24 steps, streamed chunk 8) on the 0.6B beside the
+    captured fast path; then, each model loaded after the last is freed,
+    random:qwen3-tts-0.6b-custom (a named speaker) and
+    random:qwen3-tts-1.7b-design (``instruct``), captured, non-streamed and
+    streamed, STEPS steps, the kernels of a traced streamed request counted
+    (flash-decode 28 a step); the 1.7B again with use_micro_kernel=True
+    (a traced 48-step request: flash-decode 28 and the micro-step 14 a
+    step).  Frees every model it ends with, the 0.6B ones included."""
+    import gc
+
+    res = {}
+    model = models["bf16"]
+    n, spf = 24, model.vocoder.spf
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.wav")
+        _ref_wav(ref)
+        kw = dict(text=TEXT_A, language="English", ref_audio=ref, ref_text="",
+                  max_new_tokens=n, min_new_tokens=n, chunk_size=CHUNK)
+        res["parity_mode"] = {
+            mode: _streamed_request(lambda: model.generate_voice_clone_streaming(
+                parity_mode=mode == "parity", **kw), n, CHUNK, spf, f"0.6B {mode}")
+            for mode in ("fast", "parity")}
+    log(f"  parity_mode vs the captured fast path (0.6B bf16, {n} steps, streamed chunk 8): "
+        f"{json.dumps(res['parity_mode'])}  [{card}]")
+    del model
+    models.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name, preset in (("custom", "qwen3-tts-0.6b-custom"),
+                         ("design", "qwen3-tts-1.7b-design")):
+        m = _load(preset)
+        if name == "custom":
+            args = (TEXT_A, sorted(m.cfg.talker.spk_id)[0], "English")
+            call, stream = m.generate_custom_voice, m.generate_custom_voice_streaming
+            prompt = m._custom_prompt(*args, None)
+        else:
+            args = (TEXT_A, INSTRUCT, "English")
+            call, stream = m.generate_voice_design, m.generate_voice_design_streaming
+            prompt = m._design_prompt(*args)
+        out = {"load_s": m.load_s, "speaker_or_instruct": args[1]}
+        out["default"] = _voice_requests(
+            card, m, prompt, lambda **k: call(*args, **k), lambda **k: stream(*args, **k),
+            f"{name} ({preset})", {"flash_decode": 28}, 16)
+        if name == "design":
+            m.engine = _engine(m, use_micro_kernel=True)
+            out["micro"] = _voice_requests(
+                card, m, prompt, lambda **k: call(*args, **k), lambda **k: stream(*args, **k),
+                f"{name} ({preset}) use_micro_kernel", {"flash_decode": 28, "fused_micro_step": 14},
+                STEPS)
+        res[name] = out
+        del m, call, stream
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
     import qwen3tts_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    t0 = time.time()
     card = probe()
     log("== kernel ==")
     max_err, times, fd_extra = kernel_phase(card)
     q_err, q_times, q_bounds = int8kv_kernel_phase(card)
     f_err, f_times, f_bounds = fused_kernel_phase(card)
     m_err, m_out = micro_kernel_phase(card)
+    m17_err, m17_out = micro_kernel_phase(card, "qwen3-tts-1.7b")
     v_err, v_launches, v_times = matvec_phase(card)
     models = {"bf16": _load(), "int8": _load(quantize="int8", kv_quant=True)}
-    log("== slice ==")
+    log(f"== slice == ({time.time() - t0:.0f} s)")
     _, results = slice_phase(card, models["bf16"])
-    log("== slice-int8 ==")
+    log(f"== slice-int8 == ({time.time() - t0:.0f} s)")
     _, q_results = slice_int8_phase(card, models["int8"])
-    log("== slice-micro ==")
+    log(f"== slice-micro == ({time.time() - t0:.0f} s)")
     _, m_frames = slice_micro_phase(card, models["bf16"])
-    log("== parity ==")
+    log(f"== parity == ({time.time() - t0:.0f} s)")
     parity_phase(card)
     parity_int8_phase(card)
     parity_micro_phase(card)
     graph_parity_phase(card)
-    log("== slice-graph ==")
+    log(f"== slice-graph == ({time.time() - t0:.0f} s)")
     g = slice_graph_phase(card, models)
+    log(f"== slice-icl == ({time.time() - t0:.0f} s)")
+    icl = slice_icl_phase(card, models)
+    icl_parity = icl_parity_phase(card)
+    log(f"== slice-voices == ({time.time() - t0:.0f} s)")
+    voices = slice_voices_phase(card, models)
     # the main path: the captured chunks, their kernels counted in the
     # profiler trace of their replays (the wrappers' counters count Python
     # calls, which a replay makes none of)
@@ -1666,6 +2104,16 @@ def main():
         "fused_max_abs_err": f_err,
         "fused_ms": {" ".join(k): v for k, v in f_times.items()}}))
     log("slice-graph: " + json.dumps({"card": card, **g}))
+    log("slice-icl: " + json.dumps({"card": card, **icl, "parity": icl_parity}))
+    k17 = {name: {"ms": {w: f_times[(name, "talker_1.7b", w)][0] for w in ("int8", "bf16")},
+                  "plain_ms": {w: f_times[(name, "talker_1.7b", w)][1] for w in ("int8", "bf16")},
+                  "bound_ms": {w: f_bounds[(name, "talker_1.7b", w)][0]
+                               for w in ("int8", "bf16")}}
+           for name in ("fused_norm_matmul", "fused_o_mlp")}
+    k17["fused_micro_step"] = {"ms": m17_out["times"]["kernel"],
+                               "plain_ms": m17_out["times"]["plain"],
+                               "bound_ms": m17_out["bound_ms"], "max_abs_err": m17_err}
+    log("slice-voices: " + json.dumps({"card": card, **voices, "kernels_1.7b": k17}))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],

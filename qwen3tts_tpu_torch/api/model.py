@@ -1,12 +1,21 @@
 """FasterQwen3TTS — the public API class of the PyTorch port.
 
-Port of ``qwen3tts_tpu/api/model.py`` for x-vector voice clone:
-``from_pretrained("random:<preset>", device=..., dtype=...)``,
-``generate_voice_clone`` and ``generate_voice_clone_streaming`` with the JAX
-class's signatures and defaults, including ``quantize="int8" |
-"int8-talker" | "int8-predictor"`` (int8 weight-only) and ``kv_quant=True``
-(int8 KV cache).  ICL clone (``xvec_only=False``), custom voice, voice
-design, batching, the parity loops and the w8a8 modes are not ported yet.
+Port of ``qwen3tts_tpu/api/model.py`` for single requests:
+``from_pretrained("random:<preset>", device=..., dtype=...)``; voice clone
+from an x-vector or, with ``xvec_only=False``, in-context from the
+reference's codec codes and transcript (``generate_voice_clone[_streaming]``,
+``create_voice_clone_prompt``); the predefined speakers of a custom-voice
+model (``generate_custom_voice[_streaming]``); instruction-conditioned voice
+design (``generate_voice_design[_streaming]``); and ``parity_mode=True``,
+the per-step loop of ``runtime/loops.py``.  Signatures, defaults and guards
+are the JAX class's, including ``quantize="int8" | "int8-talker" |
+"int8-predictor"`` (int8 weight-only) and ``kv_quant=True`` (int8 KV cache).
+Batching, checkpoints and the w8a8 modes are not ported yet.
+
+An ICL prompt carries the reference's codec frames: the non-streamed audio
+is the decode of reference + generated frames with the reference's samples
+cut off, and the streamed audio comes from a codec stream primed with the
+reference frames, which gives the same samples.
 
 As the JAX class compiles its decode programs before its first generation
 (``_warmup``), this one captures them: the first request's
@@ -18,6 +27,7 @@ bucket up front.  On the CPU nothing is captured.
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 from pathlib import Path
 from typing import Dict, Generator, Optional, Tuple, Union
@@ -25,7 +35,7 @@ from typing import Dict, Generator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..audio.vocoder import Vocoder
+from ..audio.vocoder import StatefulStreamDecoder, Vocoder
 from ..audio.wav import read_wav, resample
 from ..core.config import DTYPES, TTSModelConfig
 from ..core.loader import load_pretrained, resolve_device
@@ -97,6 +107,15 @@ class FasterQwen3TTS:
     # voice-clone prompt
     # ------------------------------------------------------------------
 
+    def _load_ref_audio_with_silence(self, ref_audio: Union[str, Path],
+                                     silence_secs: float = 0.5) -> Tuple[np.ndarray, int]:
+        """Reference audio (mono) with trailing silence appended, so that an
+        ICL prompt ends on silence rather than mid-phoneme."""
+        audio, sr = read_wav(ref_audio)
+        if silence_secs > 0:
+            audio = np.concatenate([audio, np.zeros(int(silence_secs * sr), np.float32)])
+        return audio, sr
+
     @torch.inference_mode()
     def extract_speaker_embedding(self, ref_audio: Union[str, Path, np.ndarray],
                                   sr: Optional[int] = None) -> np.ndarray:
@@ -112,36 +131,82 @@ class FasterQwen3TTS:
         emb = speaker_lib.embed(self.params["speaker"], self.cfg.speaker_encoder, wav)
         return emb.float().cpu().numpy()
 
-    def _voice_prompt(self, ref_audio, xvec_only: bool) -> Dict:
-        if not xvec_only:
-            raise NotImplementedError(
-                "ICL voice clone (xvec_only=False) needs codec.encode, which the "
-                "PyTorch port does not have yet")
+    def create_voice_clone_prompt(
+        self,
+        ref_audio: Union[str, Path, Tuple[np.ndarray, int]],
+        ref_text: str = "",
+        x_vector_only_mode: bool = False,
+    ) -> Dict:
+        """{'ref_spk_embedding', 'ref_code' ([Tr, 16] codec codes, ICL only),
+        'x_vector_only_mode', 'icl_mode', 'ref_text'}."""
         if isinstance(ref_audio, tuple):
-            import hashlib
+            audio, sr = ref_audio
+        else:
+            audio, sr = read_wav(ref_audio)
+        out = {
+            "ref_spk_embedding": self.extract_speaker_embedding(audio, sr),
+            "ref_code": None,
+            "x_vector_only_mode": x_vector_only_mode,
+            "icl_mode": not x_vector_only_mode,
+            "ref_text": ref_text,
+        }
+        if not x_vector_only_mode:
+            out["ref_code"] = self.vocoder.encode(resample(audio, sr, self.cfg.codec.sample_rate))
+        return out
 
+    def _voice_prompt(self, ref_audio, ref_text: str, xvec_only: bool,
+                      append_silence: bool) -> Dict:
+        """The voice prompt of a path or an in-memory ``(audio, sr)`` tuple,
+        cached by (path or sha1 of the samples, ref_text, xvec_only,
+        append_silence).  ICL appends 0.5 s of silence when asked."""
+        if isinstance(ref_audio, tuple):
             audio, sr = ref_audio
             audio = np.asarray(audio, np.float32)
-            key = hashlib.sha1(audio.tobytes()).hexdigest()
+            ident = hashlib.sha1(audio.tobytes()).hexdigest()
         else:
-            key = str(ref_audio)
-        if key not in self._voice_prompt_cache:
-            if isinstance(ref_audio, tuple):
-                xvec = self.extract_speaker_embedding(audio, sr)
-            else:
-                xvec = self.extract_speaker_embedding(ref_audio)
-            self._voice_prompt_cache[key] = {"ref_spk_embedding": xvec}
-        return self._voice_prompt_cache[key]
+            ident = str(ref_audio)
+        key = (ident, ref_text, xvec_only, append_silence)
+        if key in self._voice_prompt_cache:
+            return self._voice_prompt_cache[key]
+        if isinstance(ref_audio, tuple):
+            if not xvec_only and append_silence:
+                audio = np.concatenate([audio, np.zeros(int(0.5 * sr), np.float32)])
+            vcp = self.create_voice_clone_prompt(
+                (audio, sr), "" if xvec_only else ref_text, x_vector_only_mode=xvec_only)
+        elif xvec_only:
+            vcp = self.create_voice_clone_prompt(ref_audio, "", x_vector_only_mode=True)
+        else:
+            audio, sr = self._load_ref_audio_with_silence(
+                ref_audio, 0.5 if append_silence else 0.0)
+            vcp = self.create_voice_clone_prompt((audio, sr), ref_text)
+        self._voice_prompt_cache[key] = vcp
+        return vcp
 
-    def _prepare_clone(self, text, ref_audio, language, xvec_only, non_streaming_mode,
-                       instruct):
+    def _prepare_clone(self, text, ref_audio, ref_text, language, xvec_only,
+                       non_streaming_mode, append_silence, instruct):
+        """(talker_input_embeds, trailing, tts_pad_embed, ref_codes or None),
+        host numpy float32: the loops upload them."""
         input_ids = self.tokenizer.build_assistant_ids(text)
         instruct_ids = self.tokenizer.build_instruct_ids(instruct) if instruct else None
-        vcp = self._voice_prompt(ref_audio, xvec_only)
+        vcp = self._voice_prompt(ref_audio, ref_text, xvec_only, append_silence)
         spk = self.prompt_builder.project_speaker(vcp["ref_spk_embedding"])
+        ref_ids = None
+        if vcp["icl_mode"] and vcp.get("ref_text"):
+            ref_ids = self.tokenizer.build_ref_ids(vcp["ref_text"])
+        embeds, trailing, tpe = self.prompt_builder.build(
+            input_ids=input_ids, ref_ids=ref_ids, spk_embedding=spk,
+            ref_codes=vcp["ref_code"],
+            icl_mode=vcp["icl_mode"] and vcp["ref_code"] is not None and ref_ids is not None,
+            language=language, non_streaming_mode=non_streaming_mode,
+            instruct_ids=instruct_ids)
+        return embeds, trailing, tpe, (vcp["ref_code"] if not xvec_only else None)
+
+    def _prepare_custom(self, text, language, speaker, instruct):
+        input_ids = self.tokenizer.build_assistant_ids(text)
+        instruct_ids = self.tokenizer.build_instruct_ids(instruct) if instruct else None
         return self.prompt_builder.build(
-            input_ids=input_ids, spk_embedding=spk, language=language,
-            non_streaming_mode=non_streaming_mode, instruct_ids=instruct_ids)
+            input_ids=input_ids, language=language, speaker=speaker,
+            non_streaming_mode=False, instruct_ids=instruct_ids)
 
     def _policies(self, temperature, top_k, top_p, do_sample, repetition_penalty,
                   min_new_tokens):
@@ -172,14 +237,42 @@ class FasterQwen3TTS:
         logger.info("warmup_all finished in %.1fs", dt)
         return dt
 
-    @staticmethod
-    def _unsupported(parity_mode: bool):
-        if parity_mode:
-            raise NotImplementedError("parity_mode is not ported to PyTorch yet")
-
     # ------------------------------------------------------------------
     # generation
     # ------------------------------------------------------------------
+
+    def generate(self, *a, **k):
+        raise NotImplementedError(
+            "Default voice generation not yet implemented. "
+            "Use generate_voice_clone() with reference audio."
+        )
+
+    def _finish_audio(self, codec_ids: Optional[np.ndarray], ref_codes, timing):
+        """The waveform of the generated frames; after an ICL prompt, the
+        decode of reference + generated frames with the reference's
+        ``len(ref_codes) * spf`` samples cut off."""
+        if codec_ids is None:
+            logger.warning("Generation returned no tokens")
+            return [np.zeros(1, np.float32)], self.sample_rate
+        if ref_codes is not None and len(ref_codes):
+            wav = self.vocoder.decode(np.concatenate([np.asarray(ref_codes), codec_ids]))
+            wav = wav[len(ref_codes) * self.vocoder.spf:]
+        else:
+            wav = self.vocoder.decode(codec_ids)
+        dur = timing["steps"] / self.cfg.codec.frame_rate
+        total = timing["prefill_ms"] / 1000 + timing["decode_s"]
+        logger.info("Generated %.2fs audio in %.2fs (%.1fms/step, RTF: %.2f)", dur, total,
+                    timing["ms_per_step"], dur / total if total > 0 else 0.0)
+        return [wav], self.sample_rate
+
+    def _generate(self, embeds, trailing, tpe, ref_codes, pol, ppol, max_new_tokens,
+                  parity_mode: bool = False):
+        if not parity_mode:
+            self._warmup(embeds.shape[1], trailing.shape[1], pol, ppol)
+        gen = loops.parity_generate if parity_mode else loops.fast_generate
+        codec_ids, timing = gen(self.engine, embeds, trailing, tpe, generator=self._gen,
+                                max_new_tokens=max_new_tokens, policy=pol, pred_policy=ppol)
+        return self._finish_audio(codec_ids, ref_codes, timing)
 
     def generate_voice_clone(
         self,
@@ -201,25 +294,15 @@ class FasterQwen3TTS:
         parity_mode: bool = False,
     ) -> Tuple[list, int]:
         """Voice-cloned speech.  Returns ([waveform float32], sample_rate).
-        ``ref_text`` and ``append_silence`` matter only for ICL clone."""
-        self._unsupported(parity_mode)
-        embeds, trailing, tpe = self._prepare_clone(
-            text, ref_audio, language, xvec_only, non_streaming_mode, instruct)
+        ``ref_text`` and ``append_silence`` matter only for ICL clone
+        (``xvec_only=False``); ``parity_mode`` runs the per-step loop."""
+        embeds, trailing, tpe, ref_codes = self._prepare_clone(
+            text, ref_audio, ref_text, language, xvec_only, non_streaming_mode,
+            append_silence, instruct)
         pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
                                    repetition_penalty, min_new_tokens)
-        self._warmup(embeds.shape[1], trailing.shape[1], pol, ppol)
-        codec_ids, timing = loops.fast_generate(
-            self.engine, embeds, trailing, tpe, generator=self._gen,
-            max_new_tokens=max_new_tokens, policy=pol, pred_policy=ppol)
-        if codec_ids is None:
-            logger.warning("Generation returned no tokens")
-            return [np.zeros(1, np.float32)], self.sample_rate
-        wav = self.vocoder.decode(codec_ids)
-        dur = timing["steps"] / self.cfg.codec.frame_rate
-        total = timing["prefill_ms"] / 1000 + timing["decode_s"]
-        logger.info("Generated %.2fs audio in %.2fs (%.1fms/step, RTF: %.2f)", dur, total,
-                    timing["ms_per_step"], dur / total if total > 0 else 0.0)
-        return [wav], self.sample_rate
+        return self._generate(embeds, trailing, tpe, ref_codes, pol, ppol, max_new_tokens,
+                              parity_mode)
 
     def generate_voice_clone_streaming(
         self,
@@ -244,15 +327,142 @@ class FasterQwen3TTS:
     ) -> Generator[Tuple[np.ndarray, int, dict], None, None]:
         """Streaming voice clone: yields (audio_chunk, sr, timing) every
         ``chunk_size`` codec steps (``first_chunks`` ramps the first sizes)."""
-        self._unsupported(parity_mode)
-        embeds, trailing, tpe = self._prepare_clone(
-            text, ref_audio, language, xvec_only, non_streaming_mode, instruct)
+        embeds, trailing, tpe, ref_codes = self._prepare_clone(
+            text, ref_audio, ref_text, language, xvec_only, non_streaming_mode,
+            append_silence, instruct)
         pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
                                    repetition_penalty, min_new_tokens)
-        self._warmup(embeds.shape[1], trailing.shape[1], pol, ppol,
-                     chunk_sizes=tuple(dict.fromkeys(list(first_chunks) + [chunk_size])))
-        for _codes, audio, timing in loops.fast_generate_streaming_audio(
-                self.engine, self.vocoder, embeds, trailing, tpe, generator=self._gen,
-                max_new_tokens=max_new_tokens, policy=pol, pred_policy=ppol,
-                chunk_size=chunk_size, first_chunks=first_chunks):
-            yield audio, self.sample_rate, timing
+        yield from self._stream_audio(embeds, trailing, tpe, ref_codes, pol, ppol,
+                                      max_new_tokens, chunk_size, parity_mode, first_chunks)
+
+    def _stream_audio(self, embeds, trailing, tpe, ref_codes, pol, ppol,
+                      max_new_tokens, chunk_size, parity_mode=False, first_chunks=()):
+        if not parity_mode:
+            self._warmup(embeds.shape[1], trailing.shape[1], pol, ppol,
+                         chunk_sizes=tuple(dict.fromkeys(list(first_chunks) + [chunk_size])))
+            for _codes, audio, timing in loops.fast_generate_streaming_audio(
+                    self.engine, self.vocoder, embeds, trailing, tpe, generator=self._gen,
+                    max_new_tokens=max_new_tokens, policy=pol, pred_policy=ppol,
+                    chunk_size=chunk_size, first_chunks=first_chunks, ref_codes=ref_codes):
+                yield audio, self.sample_rate, timing
+            return
+        sd = StatefulStreamDecoder(self.vocoder)
+        if ref_codes is not None and len(ref_codes):
+            sd.feed(np.asarray(ref_codes))  # prime the codec's context, audio discarded
+        for codec_chunk, timing in self._parity_stream(embeds, trailing, tpe, pol, ppol,
+                                                       max_new_tokens, chunk_size):
+            yield sd.feed(codec_chunk), self.sample_rate, timing
+
+    def _parity_stream(self, embeds, trailing, tpe, pol, ppol, max_new_tokens, chunk_size):
+        """The per-step parity loop, its chunks yielded as they are decoded."""
+        yield from loops.parity_generate_streaming(
+            self.engine, embeds, trailing, tpe, generator=self._gen,
+            max_new_tokens=max_new_tokens, policy=pol, pred_policy=ppol,
+            chunk_size=chunk_size)
+
+    # ------------------------------------------------------------------
+    # custom voice / voice design
+    # ------------------------------------------------------------------
+
+    def _validate_languages(self, languages):
+        for lg in languages:
+            if lg and lg.lower() != "auto" and lg.lower() not in self.cfg.talker.codec_language_id:
+                raise NotImplementedError(f"Language {lg} not implemented")
+
+    def _validate_speakers(self, speakers):
+        for sp in speakers:
+            if sp and sp.lower() not in self.cfg.talker.spk_id:
+                raise NotImplementedError(f"Speaker {sp} not implemented")
+
+    def _custom_prompt(self, text, speaker, language, instruct):
+        if self.tts_model_type != "custom_voice":
+            raise ValueError("Loaded model does not support custom voice generation")
+        self._validate_languages([language])
+        self._validate_speakers([speaker])
+        if self.tts_model_size == "0.6b":  # the 0.6B custom-voice model takes no instruct
+            instruct = None
+        return self._prepare_custom(text, language, speaker, instruct)
+
+    def _design_prompt(self, text, instruct, language):
+        if self.tts_model_type != "voice_design":
+            raise ValueError("Loaded model does not support voice design generation")
+        self._validate_languages([language])
+        return self._prepare_custom(text, language, None, instruct)
+
+    def generate_custom_voice(
+        self,
+        text: str,
+        speaker: str,
+        language: str,
+        instruct: Optional[str] = None,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+    ) -> Tuple[list, int]:
+        """Speech in one of a custom-voice model's predefined speakers."""
+        prompt = self._custom_prompt(text, speaker, language, instruct)
+        pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
+                                   repetition_penalty, min_new_tokens)
+        return self._generate(*prompt, None, pol, ppol, max_new_tokens)
+
+    def generate_custom_voice_streaming(
+        self,
+        text: str,
+        speaker: str,
+        language: str,
+        instruct: Optional[str] = None,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+        chunk_size: int = 12,
+    ) -> Generator[Tuple[np.ndarray, int, dict], None, None]:
+        prompt = self._custom_prompt(text, speaker, language, instruct)
+        pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
+                                   repetition_penalty, min_new_tokens)
+        yield from self._stream_audio(*prompt, None, pol, ppol, max_new_tokens, chunk_size)
+
+    def generate_voice_design(
+        self,
+        text: str,
+        instruct: str,
+        language: str,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+    ) -> Tuple[list, int]:
+        """Speech in a voice described by ``instruct`` (voice-design model)."""
+        prompt = self._design_prompt(text, instruct, language)
+        pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
+                                   repetition_penalty, min_new_tokens)
+        return self._generate(*prompt, None, pol, ppol, max_new_tokens)
+
+    def generate_voice_design_streaming(
+        self,
+        text: str,
+        instruct: str,
+        language: str,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+        chunk_size: int = 12,
+    ) -> Generator[Tuple[np.ndarray, int, dict], None, None]:
+        prompt = self._design_prompt(text, instruct, language)
+        pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
+                                   repetition_penalty, min_new_tokens)
+        yield from self._stream_audio(*prompt, None, pol, ppol, max_new_tokens, chunk_size)

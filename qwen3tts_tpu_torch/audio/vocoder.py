@@ -1,12 +1,13 @@
-"""Codec vocoder: full decode and stateful streaming decode.
+"""Codec vocoder: full decode, stateful streaming decode, and encode.
 
 Port of ``qwen3tts_tpu/audio/vocoder.py`` (``Vocoder.decode``,
-``stream_state`` and ``stream_feed``).  Codec
-weights are stored in float32 and computed in ``compute_dtype`` (bfloat16 by
-default, as in the JAX package).  PyTorch runs every length eagerly, so no
-shape buckets are needed; the stream carries conv tails and attention
-windows (models/codec.py), which makes chunked output sample-exact against a
-full decode.
+``stream_state``, ``stream_feed``, ``encode`` and
+``StatefulStreamDecoder``).  Codec weights (decoder and encoder) are stored
+in float32 and computed in ``compute_dtype`` (bfloat16 by default, as in the
+JAX package).  PyTorch runs every length eagerly, so no shape buckets are
+needed; the stream carries conv tails and attention windows
+(models/codec.py), which makes chunked output sample-exact against a full
+decode.
 """
 from __future__ import annotations
 
@@ -55,12 +56,39 @@ class Vocoder:
         return codec_lib.stream_init(self.params, self.cfg, 1)
 
     @torch.inference_mode()
-    def stream_feed(self, state: Dict, codes) -> Tuple[np.ndarray, Dict]:
+    def stream_feed(self, state: Dict, codes, collect_audio: bool = True
+                    ) -> Tuple[Optional[np.ndarray], Dict]:
         """Feed frames [n, 16] through the streaming state.  Returns
-        (audio float32 [n*spf], state')."""
+        (audio float32 [n*spf], state').  With ``collect_audio=False`` the
+        audio stays on the device and ``None`` is returned in its place (ICL
+        priming discards it), so nothing waits for the card."""
         codes = np.asarray(codes, np.int64)
         if len(codes) == 0:
-            return np.zeros((0,), np.float32), state
+            return (np.zeros((0,), np.float32) if collect_audio else None), state
         wav, state = codec_lib.decode_stream(self.params, self.cfg, state,
                                              self._codes(codes)[None])
-        return wav[0].cpu().numpy(), state
+        return (wav[0].cpu().numpy() if collect_audio else None), state
+
+    @torch.inference_mode()
+    def encode(self, wav: np.ndarray) -> np.ndarray:
+        """waveform [N] at ``cfg.sample_rate`` -> codes [T, 16] int32,
+        T = N // spf (the trailing partial frame is dropped)."""
+        T = len(wav) // self.spf
+        if T == 0:
+            return np.zeros((0, self.cfg.num_quantizers), np.int32)
+        x = torch.from_numpy(np.ascontiguousarray(wav[: T * self.spf], np.float32))
+        codes = codec_lib.encode(self.params, self.cfg, x.to(self.device)[None])
+        return codes[0].cpu().numpy()
+
+
+class StatefulStreamDecoder:
+    """Streaming decoder over the codec's stream state: each ``feed`` decodes
+    only its own frames, and the concatenated output equals a full decode."""
+
+    def __init__(self, vocoder: Vocoder):
+        self.v = vocoder
+        self.state = vocoder.stream_state()
+
+    def feed(self, new_codes: np.ndarray) -> np.ndarray:
+        audio, self.state = self.v.stream_feed(self.state, new_codes)
+        return audio

@@ -144,7 +144,19 @@ def _codec_from_jax(codec, device) -> Dict[str, Any]:
                 "conv2": _conv(u["conv2"], device),
             } for u in blk["units"]],
         })
-    return {"decoder": out}
+    res = {"decoder": out}
+    if "encoder" in codec:
+        enc = codec["encoder"]
+        res["encoder"] = {
+            "in_conv": _conv(enc["in_conv"], device),
+            "stages": [{"alpha": _t(st["alpha"], f32, device),
+                        "beta": _t(st["beta"], f32, device),
+                        "conv": _conv(st["conv"], device)} for st in enc["stages"]],
+            "proj": _tree(enc["proj"], f32, device),
+            "transformer": _tree(enc["transformer"], f32, device),
+            "codebooks": _t(enc["codebooks"], f32, device),
+        }
+    return res
 
 
 def _speaker_from_jax(spk, device) -> Dict[str, Any]:
@@ -163,8 +175,8 @@ def bundle_from_jax_numpy(tree: Dict[str, Any], cfg: TTSModelConfig,
                           dtype: Optional[torch.dtype] = None, device=None
                           ) -> Dict[str, Any]:
     """JAX bundle (numpy leaves; any subset of talker / predictor / codec /
-    speaker) -> the port's parameters on ``device``.  The codec encoder is
-    not part of the port yet and is dropped."""
+    speaker) -> the port's parameters on ``device``.  The codec keeps its
+    encoder when the bundle has one, its convs re-laid as the decoder's."""
     device = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
     out: Dict[str, Any] = {}

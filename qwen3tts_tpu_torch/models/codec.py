@@ -1,10 +1,13 @@
-"""The 12 Hz neural codec decoder (codes -> waveform), full and streaming.
+"""The 12 Hz neural codec: decoder (codes -> waveform, full and streaming)
+and encoder (waveform -> codes).
 
-Port of ``qwen3tts_tpu/models/codec.py``: ``decode``, ``stream_init`` and
-``decode_stream``.  Summed RVQ code embeddings -> sliding-window causal
-pre-transformer -> transposed-conv + ConvNeXt upsampling -> SnakeBeta conv
-stack.  The encoder (``codec.encode``) is not part of the x-vector path and
-is not ported yet.
+Port of ``qwen3tts_tpu/models/codec.py``: ``decode``, ``stream_init``,
+``decode_stream`` and ``encode``.  Decoder: summed RVQ code embeddings ->
+sliding-window causal pre-transformer -> transposed-conv + ConvNeXt
+upsampling -> SnakeBeta conv stack.  Encoder (the ICL voice clone's
+reference codes): a causal input conv, strided SnakeBeta + causal-conv
+stages at the decoder's rates reversed, a projection, the same
+sliding-window transformer, then residual vector quantization in float32.
 
 Layout: the transformer runs ``[B, T, H]``; the conv stack runs
 channels-first ``[B, C, T]`` for ``F.conv1d``.  Conv weights are stored
@@ -93,9 +96,14 @@ def _lin_init(gen, cin, cout, dtype, device):
             "b": torch.zeros((cout,), dtype=dtype, device=device)}
 
 
+def _down_rates(cfg: CodecConfig) -> List[int]:
+    """The encoder's strides: the decoder's upsampling, reversed."""
+    return list(cfg.upsampling_ratios)[::-1] + list(cfg.upsample_rates)[::-1]
+
+
 def init_params(gen: torch.Generator, cfg: CodecConfig, dtype, device) -> Params:
-    """Random decoder parameters with the JAX initialisers' scales:
-    ``{"decoder": ...}``."""
+    """Random decoder and encoder parameters with the JAX initialisers'
+    shapes and scales: ``{"decoder": ..., "encoder": ...}``."""
     H, I = cfg.hidden_size, cfg.intermediate_size
     NH, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     kw = dict(dtype=dtype, device=device)
@@ -156,7 +164,19 @@ def init_params(gen: torch.Generator, cfg: CodecConfig, dtype, device) -> Params
     dec["out_alpha"] = full(dim, 0.0)
     dec["out_beta"] = full(dim, 0.0)
     dec["dec_out"] = _conv_init(gen, 7, dim, 1, dtype, device)
-    return {"decoder": dec}
+
+    enc: Dict = {"in_conv": _conv_init(gen, 7, 1, 32, dtype, device), "stages": []}
+    ch = 32
+    for r in _down_rates(cfg):
+        out_ch = min(ch * 2, H)
+        enc["stages"].append({"alpha": full(ch, 0.0), "beta": full(ch, 0.0),
+                              "conv": _conv_init(gen, 2 * r, ch, out_ch, dtype, device)})
+        ch = out_ch
+    enc["proj"] = _lin_init(gen, ch, H, dtype, device)
+    enc["transformer"] = [xf_layer() for _ in range(cfg.num_hidden_layers)]
+    enc["codebooks"] = randn(gen, (cfg.num_quantizers, cfg.codebook_size, H), 0.05,
+                             dtype, device)
+    return {"decoder": dec, "encoder": enc}
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +261,56 @@ def decode(params: Params, cfg: CodecConfig, codes: torch.Tensor) -> torch.Tenso
     w = snake_beta(w, dec["out_alpha"], dec["out_beta"])
     w = causal_conv(w, dec["dec_out"]["w"], dec["dec_out"]["b"])
     return torch.clamp(w[:, 0].float(), -1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# encode: waveform -> codes (RVQ)
+# ---------------------------------------------------------------------------
+
+
+def encode_hidden(params: Params, cfg: CodecConfig, wav: torch.Tensor) -> torch.Tensor:
+    """waveform [B, N] -> the encoder's pre-RVQ hidden [B, T, H] in the
+    weights' dtype, T = N // total_upsample (the trailing partial frame is
+    dropped).  The stride-``r`` convs have kernels ``2r`` wide, left-padded
+    ``2r - 1``, so each stage divides the length exactly."""
+    enc = params["encoder"]
+    T = wav.shape[1] // cfg.total_upsample
+    h = wav[:, None, : T * cfg.total_upsample].to(enc["in_conv"]["w"].dtype)
+    h = causal_conv(h, enc["in_conv"]["w"], enc["in_conv"]["b"])
+    for st, rate in zip(enc["stages"], _down_rates(cfg)):
+        h = snake_beta(h, st["alpha"], st["beta"])
+        h = causal_conv(h, st["conv"]["w"], st["conv"]["b"], stride=rate)
+    h = _lin(enc["proj"], h.transpose(1, 2))
+    return _pre_transformer(enc["transformer"], h, cfg)
+
+
+def rvq(hidden: torch.Tensor, codebooks: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Residual vector quantization in float32, one codebook [CB, H] after
+    another: distance ``|r|^2 - 2 r.c + |c|^2``, argmin, subtract the chosen
+    code.  Returns (codes [B, T, Q] int32, margins [B, T, Q]): each choice's
+    gap from the best to the second-best distance over ``|r|^2 + |c_best|^2``,
+    the size of the terms the distance cancels (where summation order can
+    flip a choice, the margin is small)."""
+    residual = hidden.float()
+    codes, margins = [], []
+    for cb in codebooks.float():
+        cb_sq = (cb * cb).sum(-1)
+        r_sq = (residual * residual).sum(-1, keepdim=True)
+        d = r_sq - 2.0 * (residual @ cb.t()) + cb_sq
+        idx = d.argmin(-1)
+        best = d.gather(-1, idx[..., None])
+        second = d.scatter(-1, idx[..., None], float("inf")).min(-1, keepdim=True).values
+        margins.append(((second - best) / (r_sq + cb_sq[idx][..., None]))[..., 0])
+        codes.append(idx)
+        residual = residual - cb[idx]
+    return torch.stack(codes, -1).to(torch.int32), torch.stack(margins, -1)
+
+
+def encode(params: Params, cfg: CodecConfig, wav: torch.Tensor) -> torch.Tensor:
+    """waveform [B, N] at ``cfg.sample_rate`` -> codes [B, T, num_quantizers]
+    int32, T = N // total_upsample."""
+    return rvq(encode_hidden(params, cfg, wav), params["encoder"]["codebooks"])[0]
 
 
 # ---------------------------------------------------------------------------

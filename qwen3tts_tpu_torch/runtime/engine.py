@@ -406,6 +406,14 @@ class Engine:
                                 ).to(torch.int16)
         return audio, voc_state
 
+    def vocode_prime(self, vocoder, voc_state: Dict, codes) -> Dict:
+        """Feed reference codec frames [n, 16] (ICL voice clone) through the
+        codec's stream state, discarding their audio.  The state stays on
+        the device (its frame counter too), so a captured chunk reads the
+        primed positions."""
+        _, voc_state = vocoder.stream_feed(voc_state, codes, collect_audio=False)
+        return voc_state
+
     @torch.inference_mode()
     def chunk_vocode(self, vocoder, state: Dict, tth, tth_len, tpe,
                      chunk_size: int, voc_state: Dict, pcm16: bool = False):

@@ -1,9 +1,15 @@
-"""Decode loops: non-streaming, streaming frames, and streaming with audio.
+"""Decode loops: non-streaming, streaming frames, streaming with audio, and
+the per-step parity loops.
 
 Port of ``qwen3tts_tpu/runtime/loops.py`` (``fast_generate``,
-``fast_generate_streaming`` and ``fast_generate_streaming_audio``) with the
-same timing-dict keys.  The trailing text is padded to a ``TTH_BUCKETS``
-length (``bucketed=True``), so that a few captured chunks serve every text.
+``fast_generate_streaming``, ``fast_generate_streaming_audio``,
+``parity_generate`` and ``parity_generate_streaming``) with the same
+timing-dict keys.  The trailing text is padded to a ``TTH_BUCKETS`` length
+(``bucketed=True``), so that a few captured chunks serve every text.  The
+parity loops leave it unpadded and run ``Engine.decode_step`` eagerly, one
+step at a time with a host read of the token after each, as the reference's
+slow parity mode does: the same steps as the fast path, so their greedy
+tokens are equal.
 
 The loops are pipelined: chunk k+1 is dispatched before chunk k is read
 (``pipeline_depth`` chunks ahead in the audio stream), and each chunk's
@@ -235,11 +241,14 @@ def fast_generate_streaming_audio(
     chunk_size: int = 8,
     bucketed: bool = True,
     first_chunks: Tuple[int, ...] = (),
+    ref_codes: Optional[np.ndarray] = None,
     pipeline_depth: Optional[int] = None,
 ) -> Generator[Tuple[Frames, np.ndarray, Dict], None, None]:
     """Streaming generation with the streaming codec: yields
     (codec_chunk [n,16], audio [n*spf] float32, timing) per chunk, each
     chunk one decode + vocode program (``Engine.chunk_vocode``).
+    ``ref_codes`` (ICL voice clone) primes the codec's stream state before
+    chunk 0, their audio discarded (``Engine.vocode_prime``).
     ``pipeline_depth`` chunks (``PIPELINE_DEPTH`` by default) are
     dispatched ahead of the one read.  The prefill is not synced: it flows
     into the first chunk, so ``prefill_ms`` is the host's dispatch time.
@@ -250,7 +259,104 @@ def fast_generate_streaming_audio(
     tth, tth_len = _pad_tth(tth, tpe, bucketed)
     state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
     t_prefill = time.time() - t0
+    voc_state = vocoder.stream_state()
+    if ref_codes is not None and len(ref_codes):
+        voc_state = engine.vocode_prime(vocoder, voc_state, ref_codes)
     yield from _timed(_chunk_iter(
         engine, state, tth, tth_len, tpe, chunk_size, max_new_tokens, first_chunks,
         depth=PIPELINE_DEPTH if pipeline_depth is None else max(1, pipeline_depth),
-        vocoder=vocoder, voc_state=vocoder.stream_state()), t_prefill, audio=True)
+        vocoder=vocoder, voc_state=voc_state), t_prefill, audio=True)
+
+
+def _parity_steps(engine: Engine, talker_input_embeds, trailing_text_hiddens,
+                  tts_pad_embed, generator, max_new_tokens: int, policy, pred_policy):
+    """The parity loops' prefill (unbucketed trailing text, synchronised)
+    and their steps: yields (prefill seconds), then per step (frame [1, 16]
+    int32, done), ``done`` once the step leaves an EOS token or a full cache
+    behind, or the budget is spent.  Releases the cache when it stops."""
+    t0 = time.time()
+    tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+    tth, tth_len = _pad_tth(tth, tpe, bucketed=False)
+    state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
+
+    def stop() -> bool:
+        return (int(state["token"][0]) == engine.eos_id
+                or state["pos_host"] >= engine.max_seq_len - 1)
+
+    try:
+        _sync(engine.device)
+        yield time.time() - t0
+        for step in range(max_new_tokens):
+            if stop():
+                return
+            state, frame = engine.decode_step(state, tth, tth_len, tpe)
+            frame = frame.cpu().numpy().astype(np.int32)
+            yield frame, step + 1 >= max_new_tokens or stop()
+    finally:
+        engine.release(state)
+
+
+def parity_generate(
+    engine: Engine,
+    talker_input_embeds,
+    trailing_text_hiddens,
+    tts_pad_embed,
+    *,
+    generator: Optional[torch.Generator],
+    max_new_tokens: int = 2048,
+    policy: GenerationPolicy = GenerationPolicy(),
+    pred_policy: SamplingPolicy = SamplingPolicy(),
+) -> Tuple[Optional[Frames], Dict]:
+    """Parity path: unbucketed prompt and trailing text, one eager
+    ``decode_step`` per frame with a host read of the token after each.
+    Returns ([steps,16] codec ids, timing) as ``fast_generate``."""
+    steps_iter = _parity_steps(engine, talker_input_embeds, trailing_text_hiddens,
+                               tts_pad_embed, generator, max_new_tokens, policy, pred_policy)
+    t_prefill = next(steps_iter)
+    t1 = time.time()
+    frames = [f for f, _ in steps_iter]
+    t_decode = time.time() - t1
+    steps = len(frames)
+    timing = {
+        "prefill_ms": t_prefill * 1000,
+        "decode_s": t_decode,
+        "steps": steps,
+        "ms_per_step": (t_decode / steps * 1000) if steps else 0.0,
+        "steps_per_s": (steps / t_decode) if t_decode > 0 else 0.0,
+    }
+    if not frames:
+        return None, timing
+    return np.concatenate(frames, axis=0), timing
+
+
+def parity_generate_streaming(
+    engine: Engine,
+    talker_input_embeds,
+    trailing_text_hiddens,
+    tts_pad_embed,
+    *,
+    generator: Optional[torch.Generator],
+    max_new_tokens: int = 2048,
+    policy: GenerationPolicy = GenerationPolicy(),
+    pred_policy: SamplingPolicy = SamplingPolicy(),
+    chunk_size: int = 8,
+) -> Generator[Tuple[Frames, Dict], None, None]:
+    """Streaming parity path: the steps of ``parity_generate``, yielded every
+    ``chunk_size`` frames as they are produced (the last chunk may be
+    shorter), with the streaming loops' timing dicts."""
+    steps_iter = _parity_steps(engine, talker_input_embeds, trailing_text_hiddens,
+                               tts_pad_embed, generator, max_new_tokens, policy, pred_policy)
+    t_prefill = next(steps_iter)
+
+    def chunks():
+        buf = []  # the last step is flagged done, so no frame is left over
+        try:
+            for frame, done in steps_iter:
+                buf.append(frame)
+                if len(buf) == chunk_size or done:
+                    yield np.concatenate(buf, axis=0), None, done
+                    buf = []
+        finally:
+            steps_iter.close()
+
+    yield from _timed(chunks(), t_prefill, audio=False)

@@ -6,10 +6,12 @@
   path, with ``use_fused_kernels=True``, and with an int8 bundle plus
   ``kv_quant=True`` plus the fused kernels.
 - FasterQwen3TTS (``random:tiny``, CPU) returns steps x samples-per-frame
-  audio, streaming and not, also with ``quantize="int8", kv_quant=True``.
+  audio, streaming and not, also with ``quantize="int8", kv_quant=True``
+  and for an ICL clone.
 - A subprocess that cannot import JAX or the JAX package imports
-  qwen3tts_tpu_torch and runs one tiny generation, a predictor frame
-  through the micro-step and the matvec probes' kernels (plain versions).
+  qwen3tts_tpu_torch and runs tiny generations (x-vector and ICL clone,
+  custom voice), imports long form, and runs a predictor frame through the
+  micro-step and the matvec probes' kernels (plain versions).
 - With no card and no device given, the entry points raise instead of
   running on the CPU.
 """
@@ -145,8 +147,11 @@ def test_api_non_streaming_audio_length(tiny_port, ref_wav_path):
     wavs, sr = tiny_port.generate_voice_clone(
         "hello there", "English", ref_wav_path, "", max_new_tokens=12, min_new_tokens=12)
     assert sr == 24_000 and wavs[0].shape == (12 * tiny_port.vocoder.spf,)
-    with pytest.raises(NotImplementedError):
-        tiny_port.generate_voice_clone("x", "English", ref_wav_path, "ref", xvec_only=False)
+    # ICL clone: the reference's frames are decoded with the output and cut off
+    wavs, _ = tiny_port.generate_voice_clone("x", "English", ref_wav_path, "ref",
+                                             xvec_only=False, max_new_tokens=12,
+                                             min_new_tokens=12)
+    assert wavs[0].shape == (12 * tiny_port.vocoder.spf,)
 
 
 def test_api_int8_and_kv_quant_audio_length(ref_wav_path):
@@ -212,6 +217,9 @@ def test_package_runs_without_jax(tmp_path):
         # than by planting None in sys.modules
         sys.meta_path.insert(0, Block())
         import numpy as np
+        import torch
+
+        torch.set_num_threads(1)  # the tier-1 run's workers share the host's cores
         from qwen3tts_tpu_torch import FasterQwen3TTS
         from qwen3tts_tpu_torch.audio.wav import write_wav
 
@@ -220,8 +228,17 @@ def test_package_runs_without_jax(tmp_path):
         wavs, sr = m.generate_voice_clone("hi", "English", sys.argv[1], "",
                                           max_new_tokens=4, min_new_tokens=4)
         assert wavs[0].shape == (4 * m.vocoder.spf,), wavs[0].shape
+        wavs, sr = m.generate_voice_clone("hi", "English", sys.argv[1], "ref words",
+                                          max_new_tokens=4, min_new_tokens=4,
+                                          xvec_only=False)
+        assert wavs[0].shape == (4 * m.vocoder.spf,), wavs[0].shape
+        c = FasterQwen3TTS.from_pretrained("random:tiny-custom", device="cpu")
+        wavs, sr = c.generate_custom_voice("hi", "aiden", "English", max_new_tokens=4,
+                                           min_new_tokens=4)
+        assert wavs[0].shape == (4 * c.vocoder.spf,), wavs[0].shape
+        from qwen3tts_tpu_torch.api import longform
+        assert longform.split_sentences("One. Two!") == ["One. Two!"]
 
-        import torch
         from qwen3tts_tpu_torch.models import predictor as P
         from qwen3tts_tpu_torch.ops import matvec as mv
 
