@@ -6,13 +6,18 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. probe  — the card's name and power limit (nvidia-smi), torch / CUDA /
-   nvcc versions.  Without a CUDA device the script stops before printing
+   nvcc versions, and whether torch has CUDAGraph.begin_capture_to_if_node
+   (the captured chunks' conditional nodes come from csrc/graph_cond.cu
+   either way).  Without a CUDA device the script stops before printing
    anything.
 2. kernel — builds every csrc/*.cu with nvcc for sm_90a (one nvcc each, all
    at once) and holds each kernel against its plain version:
    flash-decode at the 0.6B talker's shapes (L=28, B=1, S=2048, KVH=8,
    NH=16, D=128) over (layer, pos, pad, window) cases, with a float cache
-   and with an int8 cache + scales; fused_norm_matmul and fused_o_mlp at
+   and with an int8 cache + scales, then at B 4 and B 16 with a left pad
+   per row (one past pos: exact zeros; at B 4 empty splits), one captured
+   graph per B replayed after pos and the pads were rewritten;
+   fused_norm_matmul and fused_o_mlp at
    the 0.6B talker's and predictor's shapes, with bf16 and int8 weights
    (both at 1, 2 and 32 rows, two runs bit-equal, one captured graph each
    replayed after its inputs were rewritten);
@@ -58,23 +63,29 @@ Phases, in order; any failure raises and exits non-zero:
    predictor micro-steps through the fused kernels; then greedy
    predict_frame(micro_kernel=True) frames; then, on the float32 and the
    int8 model, captured chunks against eager ones: equal greedy tokens,
-   step for step (the first differing step fails the run).
+   step for step (the first differing step fails the run); then a greedy
+   B 3 batch with left pads (6, 10 and 8 tokens) and a join_row into it,
+   captured on the card against eager on the CPU: equal tokens.
 7. slice-graph — the main path: the API's captured chunks (CUDA graphs,
    runtime/graphs.py) on the 0.6B at full width, on three paths (bf16; bf16
    with use_micro_kernel=True; int8 weights + int8 KV cache +
    use_fused_kernels=True), each eager and captured: warm-up seconds
    (capture), a non-streamed (chunk 16) and a streamed (chunk 8) request
    (96 steps captured, 32 eager): ms/step, RTF, TTFA, prefill ms, graph
-   replays; a streamed request under torch.profiler: the device's busy
-   share, and on the captured paths the kernels counted by name in the
-   replays (flash-decode 28 a step; fused_norm_matmul and fused_o_mlp 98
-   each; fused_micro_step 14), which must match.  Then on bf16: greedy
+   replays; a streamed request whose launches are counted
+   (``_held_request``: on the captured paths it captures its own chunks,
+   and each replay's launches are read from its graph's kernel nodes, those
+   of the steps its ``n`` says ran) and must be flash-decode 28 a step,
+   fused_norm_matmul and fused_o_mlp 98 each, fused_micro_step 14; on the
+   captured paths the request again, replaying only, and the device's busy
+   share (CUDA events around the replays).  Then on bf16: greedy
    captured vs eager tokens (printed), three sampled requests by seed
    (a, a repeat; b differs; fails otherwise), the streamed loop's
    pipeline_depth 1-3, a request that ends in the cache's capped last
    chunk (one replay, then 28 flash-decode launches a step from the eager
-   chunk, counted by the wrapper), warmup_all's seconds, and the dead
-   steps after an EOS at chunks 16 and 8.
+   chunk, counted by the wrapper), warmup_all's seconds, and a request
+   ended by an EOS at chunks 16 and 8: the steps its chunks ran (their
+   ``n``) must equal its frames, and the card's work after the return.
 8. slice-icl — ICL voice clone (xvec_only=False) through the API on the
    bf16 0.6B: a 3 s reference and its transcript; the voice prompt's first
    and cached cost, then encode, codec priming, prompt build and prefill
@@ -87,23 +98,39 @@ Phases, in order; any failure raises and exits non-zero:
    codec encoder's codes equal but for at most one frame with a near tie,
    and the captured streamed ICL request (greedy, codec primed) gives the
    CPU's frames and audio within 1e-4.
-9. slice-voices — parity_mode=True (24 steps, streamed chunk 8) beside the
+9. slice-batch — batched generation on the 0.6B: the bf16 and the int8 +
+   kv_quant + fused paths at B 4 and B 16 (warm-up, a 96-step request over
+   rows of different prompt lengths: ms/step, frames/s, throughput RTF; a
+   16-step request: launches counted as above, flash-decode 28 a step and
+   the fused kernels 98 calls each, fused_o_mlp a launch per 4 rows, and
+   the busy share); a B 4 batch in which an
+   EOS ends one row early (the other rows' frames unchanged, the chunks
+   stop with the longest row); join_row into a running B 4 batch;
+   chunk_vocode_batched at chunk 8; generate_voice_clone_batch through the
+   API with four texts.  (The kernel phase holds flash-decode at B 4 and 16
+   with a pad per row, the parity phase a float32 B 3 batch with a join_row
+   card vs CPU.)
+10. slice-voices — parity_mode=True (24 steps, streamed chunk 8) beside the
    fast path on the 0.6B; then, each loaded after the last is freed,
    random:qwen3-tts-0.6b-custom (a named speaker) and
    random:qwen3-tts-1.7b-design (instruct): load and warm-up seconds,
    non-streamed and streamed 48-step requests (ms/step, RTF, TTFA), and a
-   traced streamed request (flash-decode 28 a step); the 1.7B again with
-   use_micro_kernel=True, a traced 48-step request (flash-decode 28 and the
+   counted streamed request (flash-decode 28 a step); the 1.7B again with
+   use_micro_kernel=True, a counted 48-step request (flash-decode 28 and the
    micro-step 14 a step).
 
-Prints the kernels' JSON line before the last line, and as the last line
+No phase runs torch.profiler: its tracing of CUDA graphs with conditional
+nodes lost kernel records, and a replay after such traces faulted on the
+H100 (``tools/graph_trace_probe.py``).  Prints each phase's seconds, the
+kernels' JSON line before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  The kernels' ``launches`` are those of
-the main path: counted in the profiler trace of the captured requests
-(a replay makes no Python call, so the wrappers' counters do not move);
-the matvecs' are the probe's.
+the main path's counted captured requests (slice-graph, the run that
+captures its chunks: the wrappers' eager launches, one step a capture,
+plus each replay's kernel nodes); the matvecs' are the probe's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -184,6 +211,10 @@ def probe():
         f" device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     nv = subprocess.run([cuda_build.nvcc(), "--version"], capture_output=True, text=True)
     log(f"nvcc: {nv.stdout.strip().splitlines()[-1]}")
+    has_if = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+    log(f"torch.cuda.CUDAGraph.begin_capture_to_if_node: {has_if}; the captured chunks' "
+        "conditional nodes are built by the repo's own helper (csrc/graph_cond.cu, "
+        "runtime/graphs.py:_IfNodes)")
     return card
 
 
@@ -419,6 +450,113 @@ def int8kv_kernel_phase(card: str):
     log("  int8kv bound: " + ", ".join(f"pos={pos} {bounds[pos][0] * 1e3:.2f} us"
                                        for pos in (300, 2000)))
     return max_err, times, bounds
+
+
+# (pos, a pad per row, window) at B 4 and 16 (the pads repeat over the rows):
+# a row whose pad is past pos gives exact zeros; at pos 40 the live ranges
+# are one or two splits of 32 slots, so the other splits of those rows are
+# empty
+BATCH_FLASH_CASES = [(40, (0, 39, 41, 5), None), (300, (0, 17, 250, 301), None),
+                     (1500, (3, 0, 1200, 1600), 300), (2047, (0, 1, 2040, 2047), None)]
+
+
+def batch_kernel_phase(card: str) -> dict:
+    """Flash-decode with several rows, each with its own left pad (grid
+    (KVH, B, splits)): B 4 and 16 at the 0.6B talker's heads and 2048 slots,
+    float and int8 caches, bf16 and float32 q, against the plain version at
+    the tolerances above; then per B one captured graph replayed after pos
+    and the pads were rewritten in device memory."""
+    from qwen3tts_tpu_torch.models.layers import _quantize_rows
+    from qwen3tts_tpu_torch.ops import cuda_build
+    from qwen3tts_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    L, S, KVH, NH, D = 2, 2048, 8, 16, 128
+    res = {}
+    for B in (4, 16):
+        g = torch.Generator(device=dev).manual_seed(B)
+        k32 = torch.randn((L, B, S, KVH, D), generator=g, device=dev)
+        v32 = torch.randn((L, B, S, KVH, D), generator=g, device=dev)
+        q32 = torch.randn((B, NH, D), generator=g, device=dev)
+        (kq, ks), (vq, vs) = _quantize_rows(k32), _quantize_rows(v32)
+        int8 = (kq, vq, ks.transpose(-1, -2).contiguous(), vs.transpose(-1, -2).contiguous())
+        caches = {"bf16": (q32.bfloat16(), k32.bfloat16(), v32.bfloat16(), (), BF16_TOL),
+                  "f32": (q32, k32, v32, (), F32_TOL),
+                  "int8kv bf16": (q32.bfloat16(), *int8[:2], int8[2:], BF16_TOL),
+                  "int8kv f32": (q32, *int8[:2], int8[2:], F32_TOL)}
+        splits = fd.num_splits(S, B, KVH, cuda_build.sm_count(dev))
+        empty = 0
+        for name, (q, k, v, scales, tol) in caches.items():
+            err = 0.0
+            for pos, pads, window in BATCH_FLASH_CASES:
+                pad = torch.tensor([pads[b % len(pads)] for b in range(B)], dtype=torch.int32,
+                                   device=dev)
+                args = (q, k, v, 1, torch.tensor([pos], dtype=torch.int32, device=dev), pad,
+                        window, *scales)
+                out = fd.flash_decode(*args)
+                err = max(err, _held(f"flash-decode B{B} {name}", out,
+                                     fd.flash_decode_plain(*args), tol,
+                                     f"pos={pos} pads={pads} window={window}"))
+                for b in range(B):
+                    lo, hi = fd.live_range(pos, int(pad[b]), window, S)
+                    if lo > hi and out[b].abs().max().item() != 0.0:
+                        raise AssertionError(f"B{B} row {b}: pad past pos must give zeros")
+                    empty += sum(fd.split_range(lo, hi, i, splits)[0] >
+                                 fd.split_range(lo, hi, i, splits)[1] for i in range(splits))
+            res[f"B{B} {name}"] = err
+        # one graph, replayed at every case after pos and pads are rewritten
+        q, k, v = caches["bf16"][:3]
+        p = torch.zeros((1,), dtype=torch.int32, device=dev)
+        pd = torch.zeros((B,), dtype=torch.int32, device=dev)
+        graph, out = _captured(lambda: fd.flash_decode(q, k, v, 1, p, pd))
+        err = 0.0
+        for pos, pads, _ in BATCH_FLASH_CASES:
+            p.fill_(pos)
+            pd.copy_(torch.tensor([pads[b % len(pads)] for b in range(B)], dtype=torch.int32))
+            graph.replay()
+            err = max(err, _held(f"flash-decode B{B} graph replay", out,
+                                 fd.flash_decode_plain(q, k, v, 1, p, pd), BF16_TOL,
+                                 f"pos={pos} pads={pads}"))
+        res[f"B{B} graph replay"] = err
+        log(f"  flash-decode B{B}: grid {KVH} x {B} x {splits} splits, {len(BATCH_FLASH_CASES)} "
+            f"cases x 4 caches, {empty} empty splits; max_abs_err "
+            f"{json.dumps({k_: v_ for k_, v_ in res.items() if k_.startswith(f'B{B} ')})}")
+        if B == 4 and not empty:
+            raise AssertionError("no split's range was empty at B 4")
+        del k32, v32, kq, vq, ks, vs, int8, caches
+        res[f"B{B} timing"] = _batch_flash_timing(card, B)
+    return res
+
+
+def _batch_flash_timing(card: str, B: int) -> dict:
+    """Flash-decode at B rows over a 28-layer bf16 cache at pos 300, one call
+    per layer as a decode step makes them (CUDA graphs, CUDA events):
+    kernel, plain version, SDPA over the live slices, and the bound."""
+    import torch.nn.functional as F
+
+    from qwen3tts_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    L, S, KVH, NH, D, pos = 28, 2048, 8, 16, 128, 300
+    g = torch.Generator(device=dev).manual_seed(7)
+    k, v = (torch.randn((L, B, S, KVH, D), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    q = torch.randn((B, NH, D), generator=g, device=dev, dtype=torch.bfloat16)
+    p = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    pad = torch.zeros((B,), dtype=torch.int32, device=dev)
+    qs, live = q[:, :, None, :], pos + 1
+    res = {"pos": pos, "rows": B,
+           "ms": graph_ms(lambda i: fd.flash_decode(q, k, v, i % L, p, pad), L),
+           "plain_ms": graph_ms(lambda i: fd.flash_decode_plain(q, k, v, i % L, p, pad), L),
+           "library_ms": graph_ms(lambda i: F.scaled_dot_product_attention(
+               qs, k[i % L, :, :live].transpose(1, 2), v[i % L, :, :live].transpose(1, 2),
+               enable_gqa=True), L)}
+    res["bound_ms"], res["bound_by"] = bound(nbytes(q, q) + 2 * B * live * KVH * D * 2,
+                                             4 * B * NH * live * D, q.dtype)
+    log(f"  flash-decode B{B} timing at pos {pos}: kernel {res['ms'] * 1e3:.2f} us/call, plain "
+        f"{res['plain_ms'] * 1e3:.2f}, SDPA {res['library_ms'] * 1e3:.2f}, bound "
+        f"{res['bound_ms'] * 1e3:.2f} ({res['bound_by']})  [{card}]")
+    return res
 
 
 def _captured(fn):
@@ -1307,11 +1445,10 @@ def parity_micro_phase(card: str):
 
 GRAPH_STEPS = 96  # the slice-graph phase's timed captured requests (8 s of audio)
 EAGER_STEPS = 32  # ... eager ones (75-180 ms a step)
-PROFILED_STEPS = {"captured": 16, "eager": 4}  # streamed chunks under the profiler
-# kernel name in a profiler trace -> per-step launches on each captured path
-# (28 talker layers; 5 predictor layers x 14 micro-steps)
-TRACE_KERNELS = {"flash_decode": "flash_decode_kernel", "fused_norm_matmul": "norm_matmul_kernel",
-                 "fused_o_mlp": "o_mlp_kernel", "fused_micro_step": "micro_step_kernel"}
+COUNTED_STEPS = {"captured": 16, "eager": 8}  # streamed requests whose kernels are counted
+# the kernels counted on each path, launches a step (28 talker layers; 5
+# predictor layers x 14 micro-steps)
+KERNELS = ("flash_decode", "fused_norm_matmul", "fused_o_mlp", "fused_micro_step")
 GRAPH_PATHS = {  # path -> (model, Engine keywords, launches a step by kernel)
     "bf16": ("bf16", {}, {"flash_decode": 28}),
     "micro": ("bf16", {"use_micro_kernel": True}, {"flash_decode": 28, "fused_micro_step": 14}),
@@ -1320,56 +1457,130 @@ GRAPH_PATHS = {  # path -> (model, Engine keywords, launches a step by kernel)
 }
 
 
-def _trace(fn):
-    """Run ``fn`` under torch.profiler (device activity only) and return
-    (launches by TRACE_KERNELS name, device ms of every kernel, memcpy and
-    memset, fn's wall ms under the profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _launch_counts() -> dict:
+    """The wrappers' launch counters, by KERNELS name (flash-decode: both caches)."""
+    from qwen3tts_tpu_torch.ops import flash_decode as fd
+    from qwen3tts_tpu_torch.ops import fused_block as fb
+    from qwen3tts_tpu_torch.ops import predictor_step as ps
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    return {"flash_decode": fd.flash_decode.launches + fd.flash_decode.launches_int8kv,
+            "fused_norm_matmul": fb.fused_norm_matmul.launches,
+            "fused_o_mlp": fb.fused_o_mlp.launches,
+            "fused_micro_step": ps.fused_micro_step.launches}
+
+
+def _zero_counts() -> None:
+    from qwen3tts_tpu_torch.ops import flash_decode as fd
+    from qwen3tts_tpu_torch.ops import fused_block as fb
+    from qwen3tts_tpu_torch.ops import predictor_step as ps
+
+    fd.flash_decode.launches = fd.flash_decode.launches_int8kv = 0
+    fb.fused_norm_matmul.launches = fb.fused_o_mlp.launches = ps.fused_micro_step.launches = 0
+
+
+def _per_step(want: dict, B: int) -> dict:
+    """Kernel launches a step at B rows, from ``want`` (calls a step):
+    fused_o_mlp launches its kernel once per 4 rows above batch 1."""
+    from qwen3tts_tpu_torch.ops.fused_block import o_mlp_launches
+
+    return {k: v * (o_mlp_launches(B) if k == "fused_o_mlp" else 1) for k, v in want.items()}
+
+
+@contextlib.contextmanager
+def _recording(engine):
+    """``engine`` with captured chunks of its own for the block
+    (``ChunkGraphs(record=True)``): its requests capture every chunk they
+    replay, and each replay is logged.  The engine's graphs come back after,
+    so no other request carries the recording."""
+    from qwen3tts_tpu_torch.runtime.graphs import ChunkGraphs
+
+    saved = engine.graphs
+    engine.graphs = ChunkGraphs(engine, record=True)
+    try:
+        yield engine.graphs
+    finally:
+        engine.graphs = saved
+
+
+def _steps_run(graphs) -> int:
+    """The steps that the replays in a recording's log ran (their ``n``)."""
+    torch.cuda.synchronize()
+    return sum(int(n) for _, n, _, _ in graphs.log)
+
+
+def _replayed(graphs) -> tuple:
+    """What the replays in a recording's log launched, read from their
+    graphs: each replay runs its graph's kernel nodes outside the steps and
+    the bodies of its first ``n`` steps' conditional nodes (a step whose
+    predicate fails runs none of its body).  Returns (launches by kernel,
+    steps run, the replays' device ms by CUDA events, the kernel nodes of
+    each captured step by kernel and "all")."""
+    from qwen3tts_tpu_torch.ops.cuda_build import KERNEL_SYMBOLS
+
+    torch.cuda.synchronize()
+    needles = [KERNEL_SYMBOLS[k] for k in KERNELS]
+    launches, steps, device_ms, walked = dict.fromkeys(KERNELS, 0), 0, 0.0, {}
+    for g, n, start, end in graphs.log:
+        if id(g) not in walked:
+            walked[id(g)] = graphs.kernel_nodes(g, needles)
+        top, bodies = walked[id(g)]
+        steps += int(n)
+        for counts in (top, *bodies[: int(n)]):
+            for k, c in zip(KERNELS, counts):
+                launches[k] += c
+        device_ms += start.elapsed_time(end)
+    per_step = [dict(zip((*KERNELS, "all"), c)) for _, bodies in walked.values() for c in bodies]
+    return launches, steps, device_ms, per_step
+
+
+def _held_request(engine, fn, want: dict, steps: int, what: str) -> dict:
+    """Run ``fn``, a request of ``steps`` frame steps on ``engine``, with the
+    launch counters set to 0 just before and read just after, and hold its
+    launches to ``want`` a step.  The wrappers count what they launch
+    eagerly (nothing while a stream captures).  On a captured engine the
+    request runs twice under ``_recording``: first capturing its chunks
+    afresh (each capture runs one eager step on copies of the state) and
+    replaying them, then replaying them only; a replay's launches are read
+    from its graph (``_replayed``), and every captured step must hold
+    ``want``.  Returns per run the steps, wall ms, launches, the kernel
+    nodes a captured step holds, and for the replaying run the replays'
+    device ms and their share of its wall (the device's busy share)."""
+    expect = (lambda k: {name: want.get(name, 0) * k for name in KERNELS})
+
+    def run():
+        torch.cuda.synchronize()
+        _zero_counts()  # the main path's run starts here
         t = time.time()
         fn()
         torch.cuda.synchronize()
-        wall = (time.time() - t) * 1e3
-    counts = dict.fromkeys(TRACE_KERNELS, 0)
-    device_us = 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        device_us += e.time_range.elapsed_us()
-        for name, kernel in TRACE_KERNELS.items():
-            if kernel in e.name:
-                counts[name] += 1
-    return counts, device_us / 1e3, wall
+        return (time.time() - t) * 1e3, _launch_counts()  # ... and ends here
 
-
-TRACE_TRIES = 3  # traces of one request before a count that differs fails
-
-
-def _held_trace(fn, want: dict, steps: int, what: str):
-    """Trace ``fn``, a captured request of ``steps`` steps, and hold every
-    traced kernel to exactly ``want`` launches a step (0 when not named).
-    A replay launches every node of its graph, but the tracer now and then
-    drops kernel records (seen on the H100: one step's 28 flash-decode
-    records of 448 in a 16-step trace; 2 of 1344 in a 48-step one, the
-    micro-step's 672 all there): a trace that counts fewer, and none more,
-    is taken again, up to TRACE_TRIES traces.  Returns (counts, device ms,
-    wall ms under the profiler, the counts of every trace taken)."""
-    expect = {name: want.get(name, 0) * steps for name in TRACE_KERNELS}
-    traces = []
-    for _ in range(TRACE_TRIES):
-        counts, device_ms, wall = _trace(fn)
-        traces.append(counts)
-        if counts == expect:
-            return counts, device_ms, wall, traces
-        if any(counts[name] > expect[name] for name in TRACE_KERNELS) or len(
-                traces) == TRACE_TRIES:
-            break
-        log(f"  {what}: a trace of {steps} steps holds {counts}, fewer records than "
-            f"{expect}: tracing the request again")
-    raise AssertionError(f"{what}: the replays of {steps} steps ran {traces}; want {want} "
-                         f"a step")
+    if engine.graphs is None:
+        wall, launches = run()
+        if launches != expect(steps):
+            raise AssertionError(f"{what}: launches {launches}; want {want} a step, "
+                                 f"{steps} steps")
+        return {"steps": steps, "wall_ms": wall, "launches": launches}
+    res = {}
+    with _recording(engine) as graphs:
+        for name in ("capturing", "replaying"):
+            graphs.log.clear()
+            captures = graphs.captures
+            wall, eager = run()
+            replayed, run_steps, device_ms, per_step = _replayed(graphs)
+            warm = graphs.captures - captures
+            bad = [c for c in per_step if {k: c[k] for k in KERNELS} != expect(1)]
+            if bad or run_steps != steps or eager != expect(warm) or replayed != expect(steps):
+                raise AssertionError(
+                    f"{what} ({name}): {run_steps} steps replayed, launches {replayed} from "
+                    f"the graphs and {eager} eagerly ({warm} captures), captured steps "
+                    f"holding {bad[:1]}; want {steps} steps, {want} a step")
+            launches = {k: eager[k] + replayed[k] for k in KERNELS}
+            res[name] = {"steps": steps, "wall_ms": wall, "captures": warm,
+                         "replays": len(graphs.log), "launches": launches,
+                         "kernel_nodes_a_step": sorted({c["all"] for c in per_step})}
+        res["replaying"].update(replay_device_ms=device_ms, busy_share=device_ms / wall)
+    return res
 
 
 class _Timings:
@@ -1393,10 +1604,10 @@ class _Timings:
 
 
 def _graph_requests(model, ref: str, want: dict, card: str, mode: str) -> dict:
-    """Warm-up (capture on the captured path), then a non-streamed (chunk 16)
-    and a streamed (chunk 8) request through the API (GRAPH_STEPS captured,
-    EAGER_STEPS eager), then a streamed request of PROFILED_STEPS without
-    and under the profiler."""
+    """Warm-up (capture on the captured path), then a non-streamed (chunk
+    16) and a streamed (chunk 8) request through the API (GRAPH_STEPS
+    captured, EAGER_STEPS eager), then a streamed request of COUNTED_STEPS
+    whose launches are held to ``want`` a step (``_held_request``)."""
     sync = torch.cuda.synchronize
     graphs = model.engine.graphs
     embeds, trailing, _, _ = model._prepare_clone(TEXT_A, ref, "", "English", True, True, True,
@@ -1440,29 +1651,12 @@ def _graph_requests(model, ref: str, want: dict, card: str, mode: str) -> dict:
     res["streamed_chunk8"] = {"ms_per_step": wall / n * 1e3, "rtf": n / 12.0 / wall,
                               "ttfa_ms": first, "prefill_ms": timings[0]["prefill_ms"]}
     res["replays"] = (graphs.replays - replays) if graphs is not None else 0
-
-    steps = PROFILED_STEPS[kind]
-
-    def profiled():
-        list(model.generate_voice_clone_streaming(
-            text=TEXT_A, max_new_tokens=steps, min_new_tokens=steps, chunk_size=8, **kw))
-
-    sync()
-    t = time.time()
-    profiled()
-    sync()
-    wall = (time.time() - t) * 1e3
-    if graphs is not None:
-        counts, device_ms, wall_prof, traces = _held_trace(profiled, want, steps, mode)
-    else:
-        (counts, device_ms, wall_prof), traces = _trace(profiled), None
+    steps = COUNTED_STEPS[kind]
     res["steps"] = n
-    res["profiled_request"] = {"steps": steps, "wall_ms": wall,
-                               "wall_ms_under_profiler": wall_prof, "device_ms": device_ms,
-                               "busy_share": device_ms / wall,
-                               "launches": counts}
-    if traces is not None:
-        res["profiled_request"]["traces"] = len(traces)
+    res["counted_request"] = _held_request(model.engine, lambda: list(
+        model.generate_voice_clone_streaming(text=TEXT_A, max_new_tokens=steps,
+                                             min_new_tokens=steps, chunk_size=8, **kw)),
+        want, steps, mode)
     log(f"  {mode}: " + json.dumps(res) + f"  [{card}]")
     return res
 
@@ -1486,11 +1680,13 @@ def _greedy_frames(engine, prompt, steps: int, chunk: int, seed=None):
 
 
 def _dead_steps(model, prompt, card: str) -> dict:
-    """What a captured chunk's fixed length costs a request that ends at
-    EOS: a greedy request, rerun with the talker's EOS id set to a token it
-    first samples at step 40 or later, so that it stops there; chunks of 16
-    and of 8, the next one dispatched before each read; against the same
-    frames ended by the token budget instead."""
+    """A captured chunk stops when every row is done: a greedy request,
+    rerun with the talker's EOS id set to a token it first samples at step
+    40 or later, so that it stops there; chunks of 16 and of 8, the next one
+    dispatched before each read; against the same frames ended by the token
+    budget instead.  The steps that ran (the chunks' ``n``) must equal the
+    frames returned (the last of them sampled the EOS), and the card must
+    be idle soon after the request returns."""
     from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
     from qwen3tts_tpu_torch.runtime import loops
     from qwen3tts_tpu_torch.runtime.engine import Engine, GenerationPolicy
@@ -1506,20 +1702,26 @@ def _dead_steps(model, prompt, card: str) -> dict:
                  max_seq_len=model.max_seq_len)
     pol = GenerationPolicy(do_sample=False, min_new_tokens=2)
     ppol = SamplingPolicy(do_sample=False)
-    eng.warmup(prompt[0].shape[1], prompt[1].shape[1], pol, ppol, chunk_sizes=(16, 8))
     res = {"eos_step": k}
-    for chunk in (16, 8):
-        for budget in (k, 96):  # the same frames without and with the EOS ending them
-            replays = eng.graphs.replays
-            torch.cuda.synchronize()
-            t = time.time()
-            out, _ = loops.fast_generate(eng, *prompt, generator=None, max_new_tokens=budget,
-                                         policy=pol, pred_policy=ppol, device_chunk=chunk)
-            ret = time.time() - t
-            torch.cuda.synchronize()
-            res[f"chunk{chunk}_{'budget' if budget == k else 'eos'}"] = {
-                "frames": len(out), "steps_run": chunk * (eng.graphs.replays - replays),
-                "return_ms": ret * 1e3, "device_tail_ms": (time.time() - t - ret) * 1e3}
+    with _recording(eng) as graphs:  # the chunks' n, from its log
+        eng.warmup(prompt[0].shape[1], prompt[1].shape[1], pol, ppol, chunk_sizes=(16, 8))
+        for chunk in (16, 8):
+            for budget in (k, 96):  # the same frames without and with the EOS ending them
+                replays = graphs.replays
+                torch.cuda.synchronize()
+                graphs.log.clear()
+                t = time.time()
+                out, _ = loops.fast_generate(eng, *prompt, generator=None, max_new_tokens=budget,
+                                             policy=pol, pred_policy=ppol, device_chunk=chunk)
+                ret = time.time() - t
+                torch.cuda.synchronize()
+                run = {"frames": len(out), "chunks": graphs.replays - replays,
+                       "return_ms": ret * 1e3, "device_tail_ms": (time.time() - t - ret) * 1e3,
+                       "steps_run": _steps_run(graphs)}
+                res[f"chunk{chunk}_{'budget' if budget == k else 'eos'}"] = run
+                if budget == 96 and run["steps_run"] != run["frames"]:
+                    raise AssertionError(f"chunk {chunk}: {run['steps_run']} steps ran for "
+                                         f"{run['frames']} frames ended by an EOS")
     log(f"  dead steps (EOS at step {k}): {json.dumps(res)}  [{card}]")
     return res
 
@@ -1528,8 +1730,9 @@ def slice_graph_phase(card: str, models: dict):
     """The captured chunks through FasterQwen3TTS on the 0.6B at full width:
     each path (bf16; bf16 with the micro-step kernel; int8 weights + int8 KV
     cache + fused kernels) eager and captured, non-streamed (chunk 16) and
-    streamed (chunk 8); the captured paths' kernels counted in a profiler
-    trace of their replays; greedy captured vs eager tokens; sampled replays
+    streamed (chunk 8); each path's kernels counted in a request
+    (``_held_request``: on the captured paths from the graphs that the
+    request captured and replayed); greedy captured vs eager tokens; sampled replays
     by seed; the pipeline depth; the cache's capped last chunk; warmup_all;
     and the cost of dead steps after an EOS."""
     from qwen3tts_tpu_torch.ops.flash_decode import flash_decode
@@ -1959,12 +2162,305 @@ def icl_parity_phase(card: str):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+# ---------------------------------------------------------------------------
+# slice-batch: batched generation
+# ---------------------------------------------------------------------------
+
+BATCH_STEPS = 96  # slice-batch's timed requests, pinned by min_new_tokens
+BATCH_TRACED = 16  # ... and its counted ones (one chunk of 16)
+BATCH_SIZES = (4, 16)
+BATCH_PATHS = {  # path -> (model, Engine keywords, launches a step by kernel)
+    "bf16": ("bf16", {}, {"flash_decode": 28}),
+    "int8_fused": ("int8", {"use_fused_kernels": True, "kv_quant": True},
+                   {"flash_decode": 28, "fused_norm_matmul": 98, "fused_o_mlp": 98}),
+}
+
+
+def _batch_texts(B: int) -> list:
+    """B texts of different lengths (4 to 23 words)."""
+    words = (TEXT_A + " " + TEXT_C).split()
+    return [" ".join(words[: 4 + (7 * b) % 20]) for b in range(B)]
+
+
+def _greedy():
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    return GenerationPolicy(do_sample=False, min_new_tokens=2), SamplingPolicy(do_sample=False)
+
+
+def _batch_run(eng, prompt, steps: int, pol, ppol, gen=None):
+    """fast_generate_batch over a stacked prompt (``_batch_prompt``)."""
+    from qwen3tts_tpu_torch.runtime import loops
+
+    embeds, trailing, tpe, pads, tth_lens, _ = prompt
+    return loops.fast_generate_batch(eng, embeds, trailing, tpe, generator=gen, pad_count=pads,
+                                     tth_lens=tth_lens, max_new_tokens=steps, policy=pol,
+                                     pred_policy=ppol, device_chunk=16)
+
+
+def _batch_throughput(card: str, model, ref: str, path: str, B: int, kw: dict,
+                      want: dict) -> dict:
+    """Warm-up (capture of chunk 16), a timed sampled request of BATCH_STEPS
+    steps over B rows of different prompt lengths, and one of BATCH_TRACED
+    steps whose launches are held to ``want`` calls a step (``_per_step``
+    kernel launches), with the device's busy share (``_held_request``)."""
+    sync = torch.cuda.synchronize
+    eng = _engine(model, batch=B, **kw)
+    prompt = model._batch_prompt(_batch_texts(B), ref, "", "English", True, True, True, None)
+    pol, ppol = model._policies(0.9, 50, 1.0, True, 1.05, 2)
+    sync()
+    t = time.time()
+    eng.warmup(prompt[0].shape[1], prompt[1].shape[1], pol, ppol, chunk_sizes=(16,))
+    sync()
+    res = {"warmup_s": time.time() - t,
+           "prompt_tokens": [int(prompt[0].shape[1] - p) for p in prompt[3]]}
+
+    def request(steps):
+        return _batch_run(eng, prompt, steps, dataclasses.replace(pol, min_new_tokens=steps),
+                          ppol, model._gen)
+
+    sync()
+    t = time.time()
+    out, timing = request(BATCH_STEPS)
+    sync()
+    wall = time.time() - t
+    if [len(o) for o in out] != [BATCH_STEPS] * B:
+        raise AssertionError(f"{path} B{B}: rows of {[len(o) for o in out]} frames")
+    res.update({"steps": BATCH_STEPS, "ms_per_step": wall / BATCH_STEPS * 1e3,
+                "frames_per_s": B * BATCH_STEPS / wall,
+                "throughput_rtf": B * BATCH_STEPS / 12.0 / wall,
+                "prefill_ms": timing["prefill_ms"]})
+    res["counted_request"] = _held_request(eng, lambda: request(BATCH_TRACED),
+                                           _per_step(want, B), BATCH_TRACED, f"{path} B{B}")
+    log(f"  {path} B{B}: {json.dumps(res)}  [{card}]")
+    return res
+
+
+def _batch_eos(card: str, model, ref: str) -> dict:
+    """A greedy B 4 batch, then again with the EOS id set to a token that row 1
+    first samples at step 8 or later: row 1 stops there, every other row
+    gives its frames of the first run (up to its own first such token), and
+    the chunks run the steps of the longest row and no more."""
+    prompt = model._batch_prompt(_batch_texts(4), ref, "", "English", True, True, True, None)
+    pol, ppol = _greedy()
+    base, _ = _batch_run(_engine(model, batch=4), prompt, 48, pol, ppol)
+    first = {}
+    for i, t in enumerate(base[1][:, 0].tolist()):
+        first.setdefault(t, i)
+    k = min(i for i in first.values() if i >= 8)
+    eos = int(base[1][k, 0])
+    eng = _engine(model, batch=4)
+    eng.eos_id = eos
+    with _recording(eng) as graphs:
+        got, _ = _batch_run(eng, prompt, 48, pol, ppol)
+        steps_run = _steps_run(graphs)
+    ends = [next((i for i, t in enumerate(b[:, 0].tolist()) if t == eos), len(b)) for b in base]
+    res = {"eos_row1_step": k, "frames": [len(g) for g in got], "want_frames": ends,
+           "steps_run": steps_run}
+    log(f"  B4 batch with row 1 ended by an EOS: {json.dumps(res)}  [{card}]")
+    if len(got[1]) != k or any(not np.array_equal(g, b[:e]) for g, b, e in zip(got, base, ends)):
+        raise AssertionError("an EOS in one row changed another row's frames")
+    if res["steps_run"] != max(ends):
+        raise AssertionError(f"the chunks ran {res['steps_run']} steps for rows of {ends}")
+    return res
+
+
+def _batch_join(card: str, model, ref: str) -> dict:
+    """join_row into a running greedy B 4 batch (row 2, once the position
+    passes the joining prompt's bucket), then 32 steps: the joined row's
+    frames beside the same prompt's batch-1 request."""
+    from qwen3tts_tpu_torch.runtime.engine import bucket_for
+
+    pol, ppol = _greedy()
+    prompt = model._batch_prompt(_batch_texts(4), ref, "", "English", True, True, True, None)
+    join = model._prepare_clone(TEXT_C, ref, "", "English", True, True, True, None)
+    eng = _engine(model, batch=4)
+    dev, dt = eng.device, eng.dtype
+    embeds, trailing, tpe, pads, tth_lens, _ = prompt
+    state = eng.prefill(embeds, None, pol, ppol, pad_count=pads)
+    up = (lambda a: torch.from_numpy(a).to(dev, dt))
+    tth, tpe_d = up(trailing), up(tpe)
+    lens_d = torch.from_numpy(tth_lens).to(dev)
+    while state["pos_host"] < bucket_for(join[0].shape[1]):
+        _, _, n, _, _ = eng.decode_chunk(state, tth, lens_d, tpe_d, 16)
+        eng.settle(state, int(n))
+    t = time.time()
+    eng.join_row(state, 2, join[0], policy=pol, pred_policy=ppol, pos_hint=state["pos_host"])
+    torch.cuda.synchronize()
+    join_ms = (time.time() - t) * 1e3
+    Tt = max(trailing.shape[1], join[1].shape[1])
+    tth2 = np.repeat(tpe, Tt, axis=1)
+    tth2[:, : trailing.shape[1]] = trailing
+    tth2[2] = tpe[2]
+    tth2[2, : join[1].shape[1]] = join[1][0]
+    tth2[2, join[1].shape[1]:] = join[2][0, 0]
+    tpe2 = tpe.copy()
+    tpe2[2] = join[2][0]
+    lens2 = tth_lens.copy()
+    lens2[2] = join[1].shape[1]
+    rows = []
+    for _ in range(2):
+        _, f, n, lens, _ = eng.decode_chunk(state, up(tth2), torch.from_numpy(lens2).to(dev),
+                                            up(tpe2), 16)
+        eng.settle(state, int(n))
+        rows.append(f[2, : int(lens[2])].cpu().numpy())
+    eng.release(state)
+    joined = np.concatenate(rows)
+    single = _greedy_frames(model.engine, join[:3], len(joined), 16)
+    equal = (joined == single[: len(joined)]).all(axis=1)
+    res = {"join_ms": join_ms, "frames": len(joined), "equal_frames_vs_batch1": int(equal.sum()),
+           "first_differing_step": None if equal.all() else int(np.argmin(equal))}
+    log(f"  join_row into a running B4 batch (bf16 0.6B): {json.dumps(res)}  [{card}]")
+    if len(joined) != 32 or not equal.all():
+        raise AssertionError(f"the joined row's {len(joined)} greedy frames differ from the "
+                             f"prompt's batch-1 request from step {res['first_differing_step']}")
+    return res
+
+
+def _batch_vocode(card: str, model, ref: str) -> dict:
+    """chunk_vocode_batched at chunk 8 on a sampled B 4 batch: three chunks
+    (the first captures), every row's audio [8 * spf] finite and in [-1, 1]."""
+    eng = _engine(model, batch=4)
+    embeds, trailing, tpe, pads, tth_lens, _ = model._batch_prompt(
+        _batch_texts(4), ref, "", "English", True, True, True, None)
+    pol, ppol = model._policies(0.9, 50, 1.0, True, 1.05, 24)
+    state = eng.prefill(embeds, model._gen, pol, ppol, pad_count=pads)
+    up = (lambda a: torch.from_numpy(a).to(eng.device, eng.dtype))
+    tth, tpe_d, lens_d = up(trailing), up(tpe), torch.from_numpy(tth_lens).to(eng.device)
+    vst = model.vocoder.stream_state_batched(4)
+    spf, ms = model.vocoder.spf, []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        _, _, n, lens, _, audio, vst = eng.chunk_vocode_batched(model.vocoder, state, tth, lens_d,
+                                                                 tpe_d, CHUNK, vst)
+        audio = audio.cpu().numpy()
+        ms.append((time.time() - t) * 1e3)
+        eng.settle(state, int(n))
+        if audio.shape != (4, CHUNK * spf) or int(n) != CHUNK or lens.tolist() != [CHUNK] * 4:
+            raise AssertionError(f"chunk_vocode_batched: audio {audio.shape}, n {int(n)}")
+        if not np.isfinite(audio).all() or np.abs(audio).max() > 1.0:
+            raise AssertionError("chunk_vocode_batched: audio not finite or outside [-1, 1]")
+    eng.release(state)
+    res = {"chunk": CHUNK, "rows": 4, "audio_per_row": CHUNK * spf, "chunk_ms": ms,
+           "captures": eng.graphs.captures}
+    log(f"  chunk_vocode_batched (B4, chunk 8, bf16 0.6B): {json.dumps(res)}  [{card}]")
+    return res
+
+
+def slice_batch_phase(card: str, models: dict) -> dict:
+    """Batched generation on the 0.6B at full width: the bf16 and the int8 +
+    kv_quant + fused paths at B 4 and B 16 (warm-up, a timed 96-step
+    request, a traced 16-step one); then on bf16 a batch with one row ended
+    by an EOS, join_row into a running batch, chunk_vocode_batched, and
+    generate_voice_clone_batch through the API with four texts."""
+    import gc
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.wav")
+        _ref_wav(ref)
+        for path, (which, kw, want) in BATCH_PATHS.items():
+            for B in BATCH_SIZES:
+                res.setdefault(path, {})[f"B{B}"] = _batch_throughput(
+                    card, models[which], ref, path, B, kw, want)
+                gc.collect()
+                torch.cuda.empty_cache()
+        model = models["bf16"]
+        res["eos"] = _batch_eos(card, model, ref)
+        res["join"] = _batch_join(card, model, ref)
+        res["vocode_batched"] = _batch_vocode(card, model, ref)
+        texts, api = _batch_texts(4), {}
+        for run in ("first (captures)", "second"):
+            torch.cuda.synchronize()
+            t = time.time()
+            wavs, _ = model.generate_voice_clone_batch(texts, "English", ref, "",
+                                                       max_new_tokens=STEPS,
+                                                       min_new_tokens=STEPS)
+            wall = time.time() - t
+            for i, w in enumerate(wavs):
+                _check_audio(w, STEPS, model.vocoder.spf, f"generate_voice_clone_batch row {i}")
+            api[run] = {"wall_s": wall, "throughput_rtf": len(wavs) * STEPS / 12.0 / wall}
+        res["api_batch4"] = api
+        log(f"  generate_voice_clone_batch (4 texts, {STEPS} steps, bf16 0.6B): "
+            f"{json.dumps(api)}  [{card}]")
+        model._batch_engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def batch_parity_phase(card: str) -> dict:
+    """A small float32 model (talker head_dim 128), TF32 off, card (captured
+    chunks, kernels) vs CPU (eager, plain versions): a greedy B 3 batch with
+    left pads (prompts of 6, 10 and 8), chunks of 8, and join_row into row 1
+    after the third chunk, give the same tokens."""
+    from qwen3tts_tpu_torch.core.loader import init_random
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.runtime.engine import Engine
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        base = get_preset("tiny")
+        cfg = dataclasses.replace(base, talker=dataclasses.replace(
+            base.talker, head_dim=128, mrope_section=(24, 20, 20)))
+        params = init_random(cfg, seed=6, dtype=torch.float32, device="cpu")
+        H = cfg.talker.hidden_size
+        rng = np.random.default_rng(9)
+        T = 10
+        batch = np.zeros((3, T, H), np.float32)
+        pads = np.asarray([T - L for L in (6, 10, 8)])
+        for b in range(3):
+            batch[b, pads[b]:] = rng.standard_normal((T - pads[b], H)) * 0.1
+        tth = rng.standard_normal((3, 16, H)).astype(np.float32) * 0.1
+        join = rng.standard_normal((1, 7, H)).astype(np.float32) * 0.1
+        pol, ppol = _greedy()
+        pol = dataclasses.replace(pol, min_new_tokens=99)
+
+        def move(t, dev):
+            if isinstance(t, dict):
+                return {k: move(v, dev) for k, v in t.items()}
+            return [move(v, dev) for v in t] if isinstance(t, list) else t.to(dev)
+
+        def run(device):
+            p = move(params, device)
+            eng = Engine(p["talker"], p["predictor"], cfg, max_seq_len=128, batch=3)
+            state = eng.prefill(batch, None, pol, ppol, pad_count=pads)
+            tth_d = torch.from_numpy(tth).to(device)
+            tpe = torch.zeros((3, 1, H), device=device)
+            frames = []
+            for i in range(5):
+                _, f, n, _, _ = eng.decode_chunk(state, tth_d, 16, tpe, 8)
+                eng.settle(state, int(n))
+                frames.append(f.cpu().clone())
+                if i == 2:
+                    eng.join_row(state, 1, join, policy=pol, pred_policy=ppol,
+                                 pos_hint=state["pos_host"])
+            replays = eng.graphs.replays if eng.graphs is not None else 0
+            return torch.cat(frames, dim=1), replays
+
+        (cuda, replays), (cpu, _) = run("cuda"), run("cpu")
+        equal = (cuda == cpu).all(dim=2)  # [3, steps]
+        res = {"rows": 3, "steps": int(cuda.shape[1]), "replays": replays,
+               "equal_frames_per_row": equal.sum(dim=1).tolist()}
+        log(f"parity batch (float32, TF32 off, B3 + join_row into row 1 after step 24), card "
+            f"vs CPU: {json.dumps(res)}  [{card}]")
+        if not bool(equal.all()) or replays != 5:
+            raise AssertionError("card and CPU disagree on the batched small model")
+        return res
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def _voice_requests(card: str, model, prompt, call, stream, what: str, want: dict,
                     traced_steps: int) -> dict:
     """Warm-up (capture), a non-streamed and a streamed (chunk 8) request of
     STEPS steps through ``call`` / ``stream`` (no arguments but the token
-    budget), then a streamed request of ``traced_steps`` under the profiler:
-    its kernels counted by name, ``want`` a step."""
+    budget), then a streamed request of ``traced_steps`` whose launches are
+    held to ``want`` a step (``_held_request``)."""
     sync = torch.cuda.synchronize
     steps, spf = STEPS, model.vocoder.spf
     pol, ppol = model._policies(0.9, 50, 1.0, True, 1.05, 2)
@@ -1979,12 +2475,9 @@ def _voice_requests(card: str, model, prompt, call, stream, what: str, want: dic
                                          f"{what} non-streamed")
     res["streamed_chunk8"] = _streamed_request(lambda: stream(chunk_size=CHUNK, **budget),
                                                steps, CHUNK, spf, f"{what} streamed")
-    counts, device_ms, wall, traces = _held_trace(lambda: list(stream(
+    res["counted_request"] = _held_request(model.engine, lambda: list(stream(
         chunk_size=CHUNK, max_new_tokens=traced_steps, min_new_tokens=traced_steps)),
         want, traced_steps, what)
-    res["profiled_request"] = {"steps": traced_steps, "launches": counts,
-                               "device_ms": device_ms, "wall_ms_under_profiler": wall,
-                               "traces": len(traces)}
     log(f"  {what}: {json.dumps(res)}  [{card}]")
     return res
 
@@ -2053,37 +2546,40 @@ def main():
     import qwen3tts_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t0 = time.time()
-    card = probe()
-    log("== kernel ==")
-    max_err, times, fd_extra = kernel_phase(card)
-    q_err, q_times, q_bounds = int8kv_kernel_phase(card)
-    f_err, f_times, f_bounds = fused_kernel_phase(card)
-    m_err, m_out = micro_kernel_phase(card)
-    m17_err, m17_out = micro_kernel_phase(card, "qwen3-tts-1.7b")
-    v_err, v_launches, v_times = matvec_phase(card)
+    phase_s = {}
+
+    def phase(name, fn, *a):
+        log(f"== {name} == ({time.time() - t0:.0f} s)")
+        t = time.time()
+        out = fn(*a)
+        phase_s[name] = phase_s.get(name, 0.0) + time.time() - t
+        return out
+
+    card = phase("probe", probe)
+    max_err, times, fd_extra = phase("kernel", kernel_phase, card)
+    q_err, q_times, q_bounds = phase("kernel", int8kv_kernel_phase, card)
+    b_err = phase("kernel", batch_kernel_phase, card)
+    f_err, f_times, f_bounds = phase("kernel", fused_kernel_phase, card)
+    m_err, m_out = phase("kernel", micro_kernel_phase, card)
+    m17_err, m17_out = phase("kernel", micro_kernel_phase, card, "qwen3-tts-1.7b")
+    v_err, v_launches, v_times = phase("kernel", matvec_phase, card)
     models = {"bf16": _load(), "int8": _load(quantize="int8", kv_quant=True)}
-    log(f"== slice == ({time.time() - t0:.0f} s)")
-    _, results = slice_phase(card, models["bf16"])
-    log(f"== slice-int8 == ({time.time() - t0:.0f} s)")
-    _, q_results = slice_int8_phase(card, models["int8"])
-    log(f"== slice-micro == ({time.time() - t0:.0f} s)")
-    _, m_frames = slice_micro_phase(card, models["bf16"])
-    log(f"== parity == ({time.time() - t0:.0f} s)")
-    parity_phase(card)
-    parity_int8_phase(card)
-    parity_micro_phase(card)
-    graph_parity_phase(card)
-    log(f"== slice-graph == ({time.time() - t0:.0f} s)")
-    g = slice_graph_phase(card, models)
-    log(f"== slice-icl == ({time.time() - t0:.0f} s)")
-    icl = slice_icl_phase(card, models)
-    icl_parity = icl_parity_phase(card)
-    log(f"== slice-voices == ({time.time() - t0:.0f} s)")
-    voices = slice_voices_phase(card, models)
-    # the main path: the captured chunks, their kernels counted in the
-    # profiler trace of their replays (the wrappers' counters count Python
-    # calls, which a replay makes none of)
-    traced = {path: g["paths"][path]["captured"]["profiled_request"]["launches"]
+    _, results = phase("slice", slice_phase, card, models["bf16"])
+    _, q_results = phase("slice-int8", slice_int8_phase, card, models["int8"])
+    _, m_frames = phase("slice-micro", slice_micro_phase, card, models["bf16"])
+    phase("parity", parity_phase, card)
+    phase("parity", parity_int8_phase, card)
+    phase("parity", parity_micro_phase, card)
+    phase("parity", graph_parity_phase, card)
+    b_parity = phase("parity", batch_parity_phase, card)
+    g = phase("slice-graph", slice_graph_phase, card, models)
+    icl = phase("slice-icl", slice_icl_phase, card, models)
+    icl_parity = phase("slice-icl", icl_parity_phase, card)
+    batch = phase("slice-batch", slice_batch_phase, card, models)
+    voices = phase("slice-voices", slice_voices_phase, card, models)
+    # the main path: the captured chunks, in the counted request that
+    # captured them; a replay's launches read from its graph's kernel nodes
+    traced = {path: g["paths"][path]["captured"]["counted_request"]["capturing"]["launches"]
               for path in GRAPH_PATHS}
     launches = traced["bf16"]["flash_decode"]
     q_launches = {"flash_decode_int8kv": traced["int8_fused"]["flash_decode"],
@@ -2105,6 +2601,8 @@ def main():
         "fused_ms": {" ".join(k): v for k, v in f_times.items()}}))
     log("slice-graph: " + json.dumps({"card": card, **g}))
     log("slice-icl: " + json.dumps({"card": card, **icl, "parity": icl_parity}))
+    log("slice-batch: " + json.dumps({"card": card, **batch, "parity": b_parity,
+                                      "flash_decode_rows_max_abs_err": b_err}))
     k17 = {name: {"ms": {w: f_times[(name, "talker_1.7b", w)][0] for w in ("int8", "bf16")},
                   "plain_ms": {w: f_times[(name, "talker_1.7b", w)][1] for w in ("int8", "bf16")},
                   "bound_ms": {w: f_bounds[(name, "talker_1.7b", w)][0]
@@ -2135,6 +2633,7 @@ def main():
     # kernels at the talker's shapes with int8 weights, as the int8 path runs
     # them; the micro-step per step of a bf16 frame; the matvecs at the
     # probe's default shape in bf16
+    log(f"phase seconds: {json.dumps(phase_s)}; total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [
         entry("flash_decode", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180", launches,
               max_err["bf16"], times["cold300"][0], times["cold300"][1],

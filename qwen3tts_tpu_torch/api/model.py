@@ -7,10 +7,13 @@ reference's codec codes and transcript (``generate_voice_clone[_streaming]``,
 ``create_voice_clone_prompt``); the predefined speakers of a custom-voice
 model (``generate_custom_voice[_streaming]``); instruction-conditioned voice
 design (``generate_voice_design[_streaming]``); and ``parity_mode=True``,
-the per-step loop of ``runtime/loops.py``.  Signatures, defaults and guards
-are the JAX class's, including ``quantize="int8" | "int8-talker" |
-"int8-predictor"`` (int8 weight-only) and ``kv_quant=True`` (int8 KV cache).
-Batching, checkpoints and the w8a8 modes are not ported yet.
+the per-step loop of ``runtime/loops.py``; and batched voice clone
+(``generate_voice_clone_batch``: several texts in one voice, one engine
+pass on an ``Engine(batch=B)`` per batch size, built when first asked for).
+Signatures, defaults and guards are the JAX class's, including
+``quantize="int8" | "int8-talker" | "int8-predictor"`` (int8 weight-only)
+and ``kv_quant=True`` (int8 KV cache).  Checkpoints and the w8a8 modes are
+not ported yet.
 
 An ICL prompt carries the reference's codec frames: the non-streamed audio
 is the decode of reference + generated frames with the reference's samples
@@ -43,7 +46,7 @@ from ..models import speaker as speaker_lib
 from ..models.predictor import SamplingPolicy
 from ..ops.quant import quantize_bundle
 from ..runtime import loops
-from ..runtime.engine import Engine, GenerationPolicy
+from ..runtime.engine import Engine, GenerationPolicy, bucket_for
 from .prompt import PromptBuilder
 from .tokenizer import TextTokenizer
 
@@ -51,8 +54,8 @@ logger = logging.getLogger(__name__)
 
 
 class FasterQwen3TTS:
-    """Qwen3-TTS voice clone on PyTorch (captured decode chunks on the card,
-    batch 1)."""
+    """Qwen3-TTS voice clone on PyTorch (captured decode chunks on the
+    card)."""
 
     def __init__(self, cfg: TTSModelConfig, params: Dict, *, max_seq_len: int = 2048,
                  seed: int = 0, tokenizer_json: Optional[str] = None,
@@ -66,6 +69,7 @@ class FasterQwen3TTS:
         self.kv_quant = kv_quant
         self.engine = Engine(params["talker"], params["predictor"], cfg,
                              max_seq_len=max_seq_len, kv_quant=kv_quant)
+        self._batch_engines: Dict[int, Engine] = {}
         self.vocoder = Vocoder(params["codec"], cfg.codec,
                                compute_dtype=vocoder_compute_dtype)
         self.prompt_builder = PromptBuilder(params["talker"], params["predictor"], cfg)
@@ -303,6 +307,93 @@ class FasterQwen3TTS:
                                    repetition_penalty, min_new_tokens)
         return self._generate(embeds, trailing, tpe, ref_codes, pol, ppol, max_new_tokens,
                               parity_mode)
+
+    def _batch_engine(self, batch: int) -> Engine:
+        """The engine of ``batch`` rows: ``self.engine`` at 1, else one per
+        batch size on the same parameters, built at first use."""
+        if batch == 1:
+            return self.engine
+        if batch not in self._batch_engines:
+            self._batch_engines[batch] = Engine(
+                self.params["talker"], self.params["predictor"], self.cfg,
+                max_seq_len=self.max_seq_len, batch=batch, kv_quant=self.kv_quant)
+        return self._batch_engines[batch]
+
+    def _batch_prompt(self, texts, ref_audio, ref_text, language, xvec_only,
+                      non_streaming_mode, append_silence, instruct):
+        """The clone prompts of ``texts`` in one voice, stacked on the host
+        at their common bucket width: (embeds [B, T, H] left-padded, trailing
+        [B, Tt, H] padded with each row's tts_pad embedding, tpe [B, 1, H],
+        pads [B], tth_lens [B], the reference's codes or None)."""
+        rows = [self._prepare_clone(t, ref_audio, ref_text, language, xvec_only,
+                                    non_streaming_mode, append_silence, instruct)
+                for t in texts]
+        B, H = len(rows), self.cfg.talker.hidden_size
+        T = bucket_for(max(r[0].shape[1] for r in rows))
+        Tt = max(max(r[1].shape[1] for r in rows), 1)
+        embeds = np.zeros((B, T, H), np.float32)
+        trailing = np.zeros((B, Tt, H), np.float32)
+        tpe = np.zeros((B, 1, H), np.float32)
+        pads = np.zeros((B,), np.int64)
+        tth_lens = np.zeros((B,), np.int64)
+        for b, (e, t, p, _) in enumerate(rows):
+            pads[b] = T - e.shape[1]
+            embeds[b, pads[b]:] = e[0]
+            trailing[b, : t.shape[1]] = t[0]
+            trailing[b, t.shape[1]:] = p[0]
+            tth_lens[b] = t.shape[1]
+            tpe[b] = p[0]
+        return embeds, trailing, tpe, pads, tth_lens, rows[0][3]
+
+    def generate_voice_clone_batch(
+        self,
+        texts: list,
+        language: str,
+        ref_audio: Union[str, Path],
+        ref_text: str,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+        xvec_only: bool = True,
+        non_streaming_mode: bool = True,
+        append_silence: bool = True,
+        instruct: Optional[str] = None,
+    ) -> Tuple[list, int]:
+        """Voice-cloned speech for ``len(texts)`` texts in one voice, in one
+        batched engine pass (each row ends at its own EOS).  Returns ([B]
+        waveforms, sample_rate).  The prompts are stacked on the host,
+        left-padded to their common bucket; each row's trailing text is
+        padded with its tts_pad embedding.  After an ICL prompt each row is
+        decoded after the reference's frames, whose samples are cut off."""
+        if not texts:
+            return [], self.sample_rate
+        embeds, trailing, tpe, pads, tth_lens, ref_codes = self._batch_prompt(
+            texts, ref_audio, ref_text, language, xvec_only, non_streaming_mode,
+            append_silence, instruct)
+        pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
+                                   repetition_penalty, min_new_tokens)
+        ids_rows, timing = loops.fast_generate_batch(
+            self._batch_engine(len(texts)), embeds, trailing, tpe, generator=self._gen,
+            pad_count=pads, tth_lens=tth_lens, max_new_tokens=max_new_tokens,
+            policy=pol, pred_policy=ppol)
+        wavs = []
+        for ids in ids_rows:
+            if ids.shape[0] == 0:
+                wavs.append(np.zeros(1, np.float32))
+            elif ref_codes is not None and len(ref_codes):
+                wav = self.vocoder.decode(np.concatenate([np.asarray(ref_codes), ids]))
+                wavs.append(wav[len(ref_codes) * self.vocoder.spf:])
+            else:
+                wavs.append(self.vocoder.decode(ids))
+        audio_s = sum(len(w) for w in wavs) / self.sample_rate
+        wall = timing["prefill_ms"] / 1000 + timing["decode_s"]
+        logger.info("Batch %d: %.2fs audio in %.2fs (throughput RTF %.2f)", len(texts), audio_s,
+                    wall, audio_s / wall if wall else 0.0)
+        return wavs, self.sample_rate
 
     def generate_voice_clone_streaming(
         self,

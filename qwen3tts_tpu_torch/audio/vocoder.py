@@ -1,10 +1,10 @@
 """Codec vocoder: full decode, stateful streaming decode, and encode.
 
 Port of ``qwen3tts_tpu/audio/vocoder.py`` (``Vocoder.decode``,
-``stream_state``, ``stream_feed``, ``encode`` and
-``StatefulStreamDecoder``).  Codec weights (decoder and encoder) are stored
-in float32 and computed in ``compute_dtype`` (bfloat16 by default, as in the
-JAX package).  PyTorch runs every length eagerly, so no shape buckets are
+``stream_state``, ``stream_state_batched``, ``scatter_stream_row``,
+``stream_feed``, ``encode`` and ``StatefulStreamDecoder``).  Codec weights
+(decoder and encoder) are stored in float32 and computed in
+``compute_dtype`` (bfloat16 by default, as in the JAX package).  PyTorch runs every length eagerly, so no shape buckets are
 needed; the stream carries conv tails and attention windows
 (models/codec.py), which makes chunked output sample-exact against a full
 decode.
@@ -54,6 +54,29 @@ class Vocoder:
     def stream_state(self) -> Dict:
         """Fresh batch-1 codec streaming state."""
         return codec_lib.stream_init(self.params, self.cfg, 1)
+
+    def stream_state_batched(self, batch: int) -> Dict:
+        """Fresh codec streaming state of ``batch`` rows: every leaf has a
+        leading batch axis, and each row its own frame counter."""
+        return codec_lib.stream_init(self.params, self.cfg, batch)
+
+    @torch.inference_mode()
+    def scatter_stream_row(self, batched_state: Dict, row_state: Dict, row: int) -> Dict:
+        """Write a batch-1 stream state into row ``row`` of a batched one, in
+        place (a captured chunk keeps reading the same tensors), and return
+        the batched state; ``row_state`` is left as it was."""
+        def scatter(dst, src):
+            if isinstance(dst, dict):
+                for k in dst:
+                    scatter(dst[k], src[k])
+            elif isinstance(dst, list):
+                for d, s in zip(dst, src, strict=True):
+                    scatter(d, s)
+            else:
+                dst[row].copy_(src[0])
+
+        scatter(batched_state, row_state)
+        return batched_state
 
     @torch.inference_mode()
     def stream_feed(self, state: Dict, codes, collect_audio: bool = True

@@ -28,7 +28,13 @@ GENCODE = "arch=compute_90a,code=sm_90a"
 SOURCES = {"flash_decode": CSRC / "flash_decode.cu",
            "fused_block": CSRC / "fused_block.cu",
            "predictor_step": CSRC / "predictor_step.cu",
-           "matvec": CSRC / "matvec.cu"}
+           "matvec": CSRC / "matvec.cu",
+           "graph_cond": CSRC / "graph_cond.cu"}
+
+# each launch wrapper's kernel, as its name appears (mangled) in a CUDA
+# graph's kernel nodes; flash_decode_kernel is the float and the int8 cache's
+KERNEL_SYMBOLS = {"flash_decode": "flash_decode_kernel", "fused_norm_matmul": "norm_matmul_kernel",
+                  "fused_o_mlp": "o_mlp_kernel", "fused_micro_step": "micro_step_kernel"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -111,6 +117,17 @@ def sm_count(device) -> int:
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def count_launches(fn, n: int = 1, counter: str = "launches") -> None:
+    """Add the ``n`` kernel launches of a wrapper's call to ``fn.<counter>``.
+    A call while the current stream captures a CUDA graph launches nothing
+    (the graph's replays do, and a walk of the graph counts those), so it is
+    not counted."""
+    import torch
+
+    if not torch.cuda.is_current_stream_capturing():
+        setattr(fn, counter, getattr(fn, counter) + n)
 
 
 def load_all() -> None:

@@ -15,7 +15,8 @@ hand-written kernel in ``qwen3tts_tpu_torch/csrc/flash_decode.cu`` or raises;
 on CPU tensors it runs ``flash_decode_plain``.  The kernel is built at first
 use (``ops/cuda_build.py``).  ``flash_decode.launches`` counts launches of
 the float-cache kernel, ``flash_decode.launches_int8kv`` those of the
-int8-cache kernel.
+int8-cache kernel (a call during CUDA-graph capture launches nothing and is
+not counted: ``cuda_build.count_launches``).
 
 The kernel splits each row's live range across ``num_splits`` CTAs per kv
 head (split-K); ``live_range`` and ``split_range`` are the range formula it
@@ -222,10 +223,8 @@ def flash_decode(
                 float(D ** -0.5), splits, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
-    if quant:
-        flash_decode.launches_int8kv += 1
-    else:
-        flash_decode.launches += 1
+    cuda_build.count_launches(flash_decode,
+                              counter="launches_int8kv" if quant else "launches")
     return out
 
 

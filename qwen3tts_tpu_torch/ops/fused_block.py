@@ -18,9 +18,11 @@ accumulated in float32; ``x2`` never rounded to x's dtype.
 On CUDA tensors the wrappers launch the kernels of
 ``qwen3tts_tpu_torch/csrc/fused_block.cu`` (built at first use,
 ``ops/cuda_build.py``) or raise; on CPU tensors they run the plain versions.
-``fused_norm_matmul.launches`` and ``fused_o_mlp.launches`` count calls that
-launched the kernel.  Both stream their weights through a ring in shared
-memory (``csrc/wstream.cuh``), one CTA per item of a geometry computed
+``fused_norm_matmul.launches`` and ``fused_o_mlp.launches`` count kernel
+launches (``o_mlp_launches(B)`` a ``fused_o_mlp`` call; a call during
+CUDA-graph capture launches nothing and is not counted).  Both stream
+their weights through a ring in shared memory (``csrc/wstream.cuh``), one
+CTA per item of a geometry computed
 here: ``fused_norm_matmul`` is one launch of column tiles as narrow as
 fills the card (``norm_matmul_geometry``), rows taken 4 at a time inside it
 above batch 1; ``fused_o_mlp`` is one cooperative launch of one CTA per SM
@@ -45,6 +47,11 @@ ROWS = 4  # rows of one fused_o_mlp launch above batch 1
 STAGE_BYTES = 32768  # one stage of fused_o_mlp's ring
 NM_STAGE_WEIGHTS = 8192  # weights in one stage of fused_norm_matmul's ring
 _workspace: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+
+def o_mlp_launches(B: int) -> int:
+    """Kernel launches of one fused_o_mlp call over B rows."""
+    return 1 if B == 1 else -(-B // ROWS)
 
 
 def _rms_norm_f32(x_f32: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -222,7 +229,7 @@ def fused_norm_matmul(x: torch.Tensor, norm_w: torch.Tensor, w: Any,
                 float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_norm_matmul kernel launch failed: cudaError {rc}")
-    fused_norm_matmul.launches += 1
+    cuda_build.count_launches(fused_norm_matmul)
     return out
 
 
@@ -314,7 +321,7 @@ def fused_o_mlp(x: torch.Tensor, attn: torch.Tensor, o_w: Any, norm_w: torch.Ten
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_o_mlp kernel launch failed: cudaError {rc}")
-    fused_o_mlp.launches += 1
+    cuda_build.count_launches(fused_o_mlp, o_mlp_launches(B))
     return out
 
 

@@ -19,7 +19,8 @@ tiles alone are too few to fill the card (``matvec_splits``); a column
 tile's splits run as one thread block cluster and sum through distributed
 shared memory.  On CUDA tensors the wrappers launch the kernels (built at first
 use, ``ops/cuda_build.py``) or raise; on CPU tensors they run the plain
-versions.  ``matvec.launches`` and ``matvec_kt.launches`` count launches.
+versions.  ``matvec.launches`` and ``matvec_kt.launches`` count launches
+(none during CUDA-graph capture: ``cuda_build.count_launches``).
 """
 from __future__ import annotations
 
@@ -115,7 +116,7 @@ def matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     splits = matvec_splits(K, N, x.dtype, cuda_build.sm_count(x.device))
     out = torch.empty((1, N), dtype=x.dtype, device=x.device)
     _launch(_kernel_fns()[0], "matvec", x, w.data_ptr(), out.data_ptr(), K, N, splits)
-    matvec.launches += 1
+    cuda_build.count_launches(matvec)
     return out
 
 
@@ -132,7 +133,7 @@ def matvec_kt(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
                          f"rows)")
     out = torch.empty((N, 1), dtype=torch.float32, device=x.device)
     _launch(_kernel_fns()[1], "matvec_kt", x, wt.data_ptr(), out.data_ptr(), K, N)
-    matvec_kt.launches += 1
+    cuda_build.count_launches(matvec_kt)
     return out
 
 

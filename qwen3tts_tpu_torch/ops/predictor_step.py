@@ -8,7 +8,8 @@ stack.  ``fused_micro_step`` runs that micro-step as one launch of the
 persistent cooperative kernel in
 ``qwen3tts_tpu_torch/csrc/predictor_step.cu`` (built at first use,
 ``ops/cuda_build.py``); on CPU tensors it runs ``fused_micro_step_plain``.
-``fused_micro_step.launches`` counts kernel launches.  The kernel is one
+``fused_micro_step.launches`` counts kernel launches (none during CUDA-graph
+capture: ``cuda_build.count_launches``).  The kernel is one
 CTA per SM that walks 1 + 4 L matrix phases (proj; per layer qkv, o with
 the attention, gate|up, down) with a grid barrier after each and streams
 its weights through a ring in shared memory that runs ahead across the
@@ -354,7 +355,7 @@ def fused_micro_step(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor, sin: to
                   torch.cuda.current_stream(x_emb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_micro_step kernel launch failed: cudaError {rc}")
-    fused_micro_step.launches += 1
+    cuda_build.count_launches(fused_micro_step)
     return out, kv_k, kv_v
 
 

@@ -1,17 +1,26 @@
-"""Batch-1 decode runtime: prefill, the fused frame step, chunks, and the
-chunk + streaming-vocode pairing.
+"""Decode runtime: the left-padded prefill, the fused frame step, chunks that
+stop when every row is done, the chunk + streaming-vocode pairing, and
+continuous batching (``join_row``), at batch 1 or ``batch`` rows.
 
 Port of ``qwen3tts_tpu/runtime/engine.py``.  Where the JAX engine compiles a
 chunk of steps into one program (``jax.jit`` of ``_chunk_impl`` and of the
 decode + vocode composite), this one captures it into one CUDA graph
 (``runtime/graphs.py``) on the card, keyed as the JAX programs are: chunk
 size, trailing-text length, the policies' structure (``StaticPolicy``), with
-or without the vocoder, and, since a graph reads fixed addresses, the KV
-cache it was captured on.  ``decode_chunk`` and ``chunk_vocode`` replay the
-graph for their key, capturing it first when there is none, as JAX compiles
-on a new static argument.  On CPU tensors (and with
-``use_cuda_graphs=False``) the same steps run eagerly.  The one eager chunk
-on the card is the cache's last, which the host caps below the chunk size.
+or without the vocoder (one row's or every row's), and, since a graph reads
+fixed addresses, the KV cache it was captured on.  ``decode_chunk``,
+``chunk_vocode`` and ``chunk_vocode_batched`` replay the graph for their
+key, capturing it first when there is none, as JAX compiles on a new static
+argument.  On CPU tensors (and with ``use_cuda_graphs=False``) the same
+steps run eagerly.  The one eager chunk on the card is the cache's last,
+which the host caps below the chunk size.
+
+A chunk stops as the JAX ``while_loop`` does: a step runs only while some
+row is live and the position is below ``max_seq_len - 1``.  The eager chunk
+reads ``done`` after each step; a captured chunk wraps each step in a CUDA
+graph conditional node whose predicate the graph computes before the step.
+A chunk returns ``n``, the steps it ran (a device scalar), and its frames
+past ``n`` are zeros.
 
 The numeric sampling knobs are one float32 device tensor made per
 generation (``make_knobs``), so a request with another temperature replays
@@ -20,39 +29,52 @@ graph keeps reading and writing the tensors it captured.  All per-step state
 (position, counters, seen mask, done flags) lives in device tensors, and the
 cache is written at the device-side position, so a chunk runs without any
 host sync; the host reads results once per chunk.  The host tracks the
-position itself (``pos_host``: prefill length plus steps) to cap a chunk at
-``max_seq_len - 1``.  The step's parts are named ranges for
-``torch.profiler``: ``predictor_frame``, ``talker_step`` and
+position itself (``pos_host``) to cap a chunk at ``max_seq_len - 1``: a
+dispatched chunk adds the steps it may run, and ``settle`` takes back the
+ones it did not, when the chunk's ``n`` is read.  The step's parts are named
+ranges for ``torch.profiler``: ``predictor_frame``, ``talker_step`` and
 ``codec_stream``.
+
+The prefill is eager, so it needs no buckets: the prompt [B, T, H] (each
+row left-padded by its own ``pad_count``) is left-padded on the host only
+as far as ``pos_floor`` asks (to ``Tb``, at most the JAX bucket
+``bucket_for(T)``), and the cache is then rolled left along its position
+axis by the pad that every row shares (at most ``Tb - pos_floor``), so that
+``pos`` starts at ``Tb - roll``: the ``pos`` and ``pad_count`` of the JAX
+prefill, which pads to the bucket and rolls that back.  The roll moves the
+slots that are read, ``[roll, Tb)``, to ``[0, Tb - roll)``; every slot past
+them is written by a step before any step reads it.  At batch 1 nothing is
+padded: pad 0 and ``pos = T``.
 
 Each request takes its own KV cache (``new_kv``) and hands it back when its
 generation ends (``release``, as the JAX engine does).  The pool keeps one
 cache, and besides it every cache that graphs were captured on, so that the
 graphs are replayed again: a live request never shares its cache, and
 requests that run one after another reuse one cache and its graphs.
+``join_row`` admits one request into a row of a running batch: its prompt is
+prefilled into a cache of its own bucket's length and spliced into the
+batch's cache so that it ends at the shared position.
 
-At batch 1 the JAX engine's bucket padding plus cache roll equals an
-unpadded prefill with pad 0 and ``pos = T``, which is what runs here; the
-prefill stays eager.  ``bucket_for`` still rejects prompts longer than the
-largest bucket.
-
-Options as in the JAX engine: ``use_flash_decode`` (default on; ``False``
-runs the plain masked attention, for debugging); ``use_fused_kernels``
-(default off) runs the talker's decode step and the predictor's 14
-micro-steps through the fused block kernels (``ops/fused_block.py``);
-``use_micro_kernel`` (default off) runs each predictor micro-step as one
-launch of ``ops/predictor_step.py:fused_micro_step`` where
-``predict_frame``'s gate lets it (int8 predictor blocks keep the other
-paths); ``kv_quant`` keeps the talker's KV cache in int8 with f32
-per-(slot, head) scales, read by the int8-KV flash-decode kernel.
+Options as in the JAX engine: ``batch`` (rows per step); ``use_flash_decode``
+(default on; ``False`` runs the plain masked attention, for debugging);
+``use_fused_kernels`` (default off) runs the talker's decode step and the
+predictor's 14 micro-steps through the fused block kernels
+(``ops/fused_block.py``); ``use_micro_kernel`` (default off, batch 1 only)
+runs each predictor micro-step as one launch of
+``ops/predictor_step.py:fused_micro_step`` where ``predict_frame``'s gate
+lets it (int8 predictor blocks keep the other paths); ``kv_quant`` keeps the
+talker's KV cache in int8 with f32 per-(slot, head) scales, read by the
+int8-KV flash-decode kernel.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
+from collections import deque
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -137,13 +159,22 @@ def upload(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return t.to(device, dtype)
 
 
+def _roll_out(kv: Dict[str, torch.Tensor], roll: int, Tb: int) -> None:
+    """Roll the cache ``roll`` slots left along its position axis (2 of k/v
+    [L, B, S, KVH, D], 3 of the int8 scales [L, B, KVH, S]), in place, as
+    far as it is read: slots [roll, Tb) move to [0, Tb - roll)."""
+    for t in kv.values():
+        axis = 2 if t.dim() == 5 else 3
+        t.narrow(axis, 0, Tb - roll).copy_(t.narrow(axis, roll, Tb - roll).clone())
+
+
 # the decode state's tensors: what a captured chunk reads and writes in place
 STATE_TENSORS = ("past_hidden", "token", "pos", "pad_count", "gen_step", "seen", "n_gen",
                  "done", "knobs")
 
 
 class Engine:
-    """Runtime for one (talker, predictor) model instance at batch 1."""
+    """Runtime for one (talker, predictor) model instance at ``batch`` rows."""
 
     def __init__(
         self,
@@ -152,6 +183,7 @@ class Engine:
         cfg: TTSModelConfig,
         *,
         max_seq_len: int = 2048,
+        batch: int = 1,
         use_flash_decode: Optional[bool] = None,
         use_fused_kernels: Optional[bool] = None,
         use_micro_kernel: bool = False,
@@ -164,7 +196,12 @@ class Engine:
         self.talker_params = talker_params
         self.predictor_params = predictor_params
         self.max_seq_len = max_seq_len
-        self.batch = 1
+        if batch < 1:
+            raise ValueError(f"batch must be at least 1, got {batch}")
+        if use_micro_kernel and batch > 1:
+            raise ValueError("use_micro_kernel=True runs fused_micro_step, which takes batch 1 "
+                             f"only (as on the TPU); got batch {batch}")
+        self.batch = batch
         emb = talker_params["codec_embedding"]
         self.device = emb.device
         self.dtype = emb.dtype
@@ -230,22 +267,40 @@ class Engine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def prefill(self, embeds, generator: Optional[torch.Generator],
-                policy: GenerationPolicy,
-                pred_policy: SamplingPolicy = SamplingPolicy()) -> Dict:
-        """Run the prompt [1, T, H] (numpy or tensor) into the cache and sample
-        the first token.  Returns the decode state.  Eager on every device."""
-        embeds = upload(embeds, self.device, self.dtype)
-        B, T, _ = embeds.shape
+                policy: GenerationPolicy, pred_policy: SamplingPolicy = SamplingPolicy(),
+                pad_count=None, pos_floor: Optional[int] = None) -> Dict:
+        """Run the prompt [B, T, H] (numpy or tensor; rows already
+        left-padded by ``pad_count`` [B]) into the cache, roll the pad that
+        every row shares out of the cache and sample the first token.
+        Returns the decode state.  ``pos_floor`` keeps ``pos`` at least
+        there, up to the prompt's bucket (a row that joins later splices its
+        bucket in below ``pos``): the prompt is left-padded to it.  ``pos``
+        and ``pad_count`` are those of the JAX engine's prefill, which pads
+        to ``bucket_for(T)`` (bounding its compiles) and rolls back what it
+        can; this one is eager and pads no further.  Eager on every device."""
+        B, T, H = embeds.shape
         if B != self.batch:
             raise ValueError(f"engine batch {self.batch} got prompt batch {B}")
-        if bucket_for(T) > self.max_seq_len:
-            raise ValueError(f"prefill bucket {bucket_for(T)} exceeds max_seq_len "
-                             f"{self.max_seq_len}")
+        bucket = bucket_for(T)
+        if bucket > self.max_seq_len:
+            raise ValueError(f"prefill bucket {bucket} exceeds max_seq_len {self.max_seq_len}")
+        Tb = max(T, min(pos_floor or 0, bucket))
+        extra = Tb - T
+        embeds = upload(embeds, self.device, self.dtype)
+        if extra:
+            embeds = torch.cat([embeds.new_zeros((B, extra, H)), embeds], dim=1)
+        pads = (np.zeros((B,), np.int64) if pad_count is None
+                else np.asarray(pad_count, np.int64).reshape(B)) + extra
+        max_roll = Tb if pos_floor is None else max(Tb - pos_floor, 0)
+        roll = min(int(pads.min()), max_roll)
         dev = self.device
-        pad = torch.zeros((B,), dtype=torch.int32, device=dev)
+        pad = upload(pads, dev, torch.int32)
         last, logits, kv = talker_lib.prefill(
             self.talker_params, self.talker_cfg, embeds, pad, self.new_kv(),
             layers=self._talker_layers)
+        if roll:
+            _roll_out(kv, roll, Tb)
+            pad = pad - roll
         knobs = make_knobs(policy, pred_policy, dev)
         st = policy.static
         token = sample_logits(
@@ -256,8 +311,9 @@ class Engine:
             "kv": kv,
             "past_hidden": last,
             "token": token,
-            "pos": torch.full((1,), T, dtype=torch.int32, device=dev),
-            "pos_host": T,
+            "pos": torch.full((1,), Tb - roll, dtype=torch.int32, device=dev),
+            "pos_host": Tb - roll,
+            "planned": deque(),
             "pad_count": pad,
             "gen_step": torch.zeros((B,), dtype=torch.int64, device=dev),
             "seen": torch.zeros((B, self.talker_cfg.vocab_size), dtype=torch.bool,
@@ -328,14 +384,14 @@ class Engine:
         state["done"] |= next_token == self.eos_id
         return frame
 
-    def _run_steps(self, state: Dict, tth, tth_len, tpe, frames: torch.Tensor,
-                   lens: torch.Tensor, steps: int) -> None:
-        """``steps`` frame steps into ``frames[:, :steps]``; ``lens`` counts
-        each row's steps that began before its EOS."""
-        for i in range(steps):
-            live = ~state["done"]
-            frames[:, i] = self._one_step(state, tth, tth_len, tpe)
-            lens += live
+    def _chunk_step(self, state: Dict, tth, tth_len, tpe, frames: torch.Tensor,
+                    lens: torch.Tensor, n: torch.Tensor, i: int) -> None:
+        """Step ``i`` of a chunk: its frame into ``frames[:, i]``; ``lens``
+        counts each row's steps that began before its EOS, ``n`` the steps."""
+        live = ~state["done"]
+        frames[:, i] = self._one_step(state, tth, tth_len, tpe)
+        lens += live
+        n += 1
 
     @staticmethod
     def _tth(tth: torch.Tensor, tpe: torch.Tensor) -> torch.Tensor:
@@ -356,12 +412,18 @@ class Engine:
             state["owned"] = True
 
     def _eager_chunk(self, state: Dict, tth, tth_len, tpe, chunk_size: int, steps: int):
+        """Up to ``steps`` steps, eagerly, stopping once every row is done
+        (a host read of ``done`` before each step)."""
         self._own(state)
-        B = self.batch
-        frames = torch.zeros((B, chunk_size, 16), dtype=torch.int64, device=self.device)
-        lens = torch.zeros((B,), dtype=torch.int64, device=self.device)
-        self._run_steps(state, tth, tth_len, tpe, frames, lens, steps)
-        return frames, lens, state["done"].clone()
+        B, dev = self.batch, self.device
+        frames = torch.zeros((B, chunk_size, 16), dtype=torch.int64, device=dev)
+        lens = torch.zeros((B,), dtype=torch.int64, device=dev)
+        n = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(steps):
+            if bool(state["done"].all()):
+                break
+            self._chunk_step(state, tth, tth_len, tpe, frames, lens, n, i)
+        return frames, n, lens, state["done"].clone()
 
     @torch.inference_mode()
     def decode_step(self, state: Dict, tth, tth_len, tpe):
@@ -372,35 +434,64 @@ class Engine:
         state["pos_host"] += 1
         return state, frame
 
-    @torch.inference_mode()
-    def decode_chunk(self, state: Dict, tth, tth_len, tpe, chunk_size: int):
-        """Run up to ``chunk_size`` steps (fewer when the cache would fill).
-        Returns (state, frames [B, chunk_size, 16], n_steps, lens [B], done [B])
-        — frames/lens/done are device tensors.  ``lens[b]`` counts row b's
-        valid frames: a row freezes at its EOS, and the frames after it are
-        dropped by the caller.  A replayed chunk returns its graph's output
-        buffers, which its next replay overwrites: copy them first (the
-        loops enqueue their copies to the host before the next chunk)."""
+    def _chunk(self, state: Dict, tth, tth_len, tpe, chunk_size: int, vocoder=None,
+               voc_state: Optional[Dict] = None, pcm16: bool = False,
+               full_batch: bool = False):
+        """The chunk, replayed from its graph or eager; with a vocoder, its
+        frames through the codec stream.  Books the steps it may run."""
         steps = self._steps(state, chunk_size)
         tth = self._tth(tth, tpe)
         if self.graphs is not None and steps == chunk_size:
-            frames, lens, done = self.graphs.run(state, tth, tth_len, tpe, chunk_size)
+            out = self.graphs.run(state, tth, tth_len, tpe, chunk_size, vocoder=vocoder,
+                                  voc_state=voc_state, pcm16=pcm16, full_batch=full_batch)
         else:
-            frames, lens, done = self._eager_chunk(state, tth, tth_len, tpe, chunk_size,
-                                                   steps)
+            out = self._eager_chunk(state, tth, tth_len, tpe, chunk_size, steps)
+            if vocoder is not None:
+                if steps == 0:
+                    shape = (self.batch, 0) if full_batch else (0,)
+                    audio = torch.zeros(shape, dtype=torch.int16 if pcm16 else torch.float32,
+                                        device=self.device)
+                else:
+                    audio, voc_state = self._vocode(vocoder, voc_state, out[0][:, :steps],
+                                                    pcm16, full_batch)
+                out = (*out, audio, voc_state)
         state["pos_host"] += steps
-        return state, frames, steps, lens, done
+        state["planned"].append(steps)
+        return (state, *out)
+
+    @torch.inference_mode()
+    def decode_chunk(self, state: Dict, tth, tth_len, tpe, chunk_size: int):
+        """Run up to ``chunk_size`` steps (fewer when the cache would fill),
+        stopping once every row is done.  Returns (state, frames [B,
+        chunk_size, 16], n, lens [B], done [B]), all device tensors: ``n``
+        the steps that ran (frames past it are zeros), ``lens[b]`` row b's
+        valid frames (a row freezes at its EOS: the caller drops its frames
+        after it), ``done`` each row's flag (JAX returns one flag: every row
+        done or the cache full).  A replayed chunk returns its graph's
+        output buffers, which its next replay overwrites: copy them first
+        (the loops enqueue their copies to the host before the next chunk),
+        and pass ``n`` to ``settle`` when it is read."""
+        return self._chunk(state, tth, tth_len, tpe, chunk_size)
+
+    def settle(self, state: Dict, n: int) -> None:
+        """Take back from ``pos_host`` the steps that the oldest unread
+        chunk booked and did not run: call with its ``n`` when it is read
+        (chunks are read in the order they were dispatched)."""
+        state["pos_host"] -= state["planned"].popleft() - n
 
     def at_limit(self, state: Dict) -> bool:
         return state["pos_host"] >= self.max_seq_len - 1
 
-    def _vocode(self, vocoder, voc_state: Dict, frames: torch.Tensor, pcm16: bool):
-        """Row 0's frames [1, n, 16] through the streaming codec: (audio
-        [n*spf], float32 or with ``pcm16`` int16 PCM, voc_state')."""
+    def _vocode(self, vocoder, voc_state: Dict, frames: torch.Tensor, pcm16: bool,
+                full_batch: bool = False):
+        """Row 0's frames [1, n, 16] (every row's with ``full_batch``)
+        through the streaming codec: (audio [n*spf] ([B, n*spf]), float32
+        or with ``pcm16`` int16 PCM, voc_state')."""
         with record_function("codec_stream"):
-            audio, voc_state = codec_lib.decode_stream(vocoder.params, vocoder.cfg,
-                                                       voc_state, frames[:1])
-        audio = audio[0]
+            audio, voc_state = codec_lib.decode_stream(
+                vocoder.params, vocoder.cfg, voc_state, frames if full_batch else frames[:1])
+        if not full_batch:
+            audio = audio[0]
         if pcm16:
             audio = torch.clamp(torch.round(audio * 32767.0), -32768.0, 32767.0
                                 ).to(torch.int16)
@@ -417,29 +508,103 @@ class Engine:
     @torch.inference_mode()
     def chunk_vocode(self, vocoder, state: Dict, tth, tth_len, tpe,
                      chunk_size: int, voc_state: Dict, pcm16: bool = False):
-        """decode_chunk, then the chunk's frames through the streaming codec.
-        Returns (state, frames, n_steps, lens, done, audio [n_steps*spf],
-        voc_state').  With ``pcm16`` the audio is int16 PCM.  Frames after an
-        EOS enter the codec stream only in the final chunk, where the stream
-        ends.  A replayed chunk returns its graph's buffers, as
-        ``decode_chunk`` does, and its stream state lives in the graph's
-        buffers too: pass the returned ``voc_state`` on."""
-        steps = self._steps(state, chunk_size)
-        tth = self._tth(tth, tpe)
-        if self.graphs is not None and steps == chunk_size:
-            frames, lens, done, audio, voc_state = self.graphs.run(
-                state, tth, tth_len, tpe, chunk_size, vocoder=vocoder, voc_state=voc_state,
-                pcm16=pcm16)
+        """decode_chunk, then row 0's chunk of frames through the streaming
+        codec (batch-1 streaming).  Returns (state, frames, n, lens, done,
+        audio [steps*spf], voc_state'), ``steps`` the chunk's length (its
+        valid samples: the first ``lens[0]*spf``).  With ``pcm16`` the audio
+        is int16 PCM.  A chunk's frames past ``n`` (zeros) enter the codec
+        stream only in the final chunk, where the stream ends.  A replayed
+        chunk returns its graph's buffers, as ``decode_chunk`` does, and its
+        stream state lives in the graph's buffers too: pass the returned
+        ``voc_state`` on."""
+        return self._chunk(state, tth, tth_len, tpe, chunk_size, vocoder, voc_state, pcm16)
+
+    @torch.inference_mode()
+    def chunk_vocode_batched(self, vocoder, state: Dict, tth, tth_len, tpe,
+                             chunk_size: int, voc_state: Dict, pcm16: bool = False):
+        """chunk_vocode for every row: the chunk's frames of all rows
+        through a batched codec stream (``Vocoder.stream_state_batched``),
+        in the same graph.  Returns (state, frames, n, lens, done, audio
+        [B, steps*spf], voc_state'); row b's valid audio is
+        ``audio[b, :lens[b]*spf]`` (the codec is causal, so the valid
+        prefix is exact whatever follows it)."""
+        return self._chunk(state, tth, tth_len, tpe, chunk_size, vocoder, voc_state, pcm16,
+                           full_batch=True)
+
+    # ------------------------------------------------------------------
+    # continuous batching: admit one request into a running batch
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def join_row(self, state: Dict, row: int, embeds, *, policy: GenerationPolicy,
+                 pred_policy: SamplingPolicy = SamplingPolicy(), pos_hint: Optional[int] = None,
+                 pad_inner: Optional[int] = None) -> Dict:
+        """Admit a request, its prompt [1, T, H] (numpy or tensor), into
+        ``row`` of a running batch.  The prompt is left-padded to its
+        bucket ``Tb`` (or, with ``pad_inner``, is already: ``T`` must then
+        be a bucket), prefilled into a cache of ``Tb`` slots and written into
+        the row's slots ``[pos - Tb, pos)``, so that it ends at the shared
+        position ``pos``: slot s then holds RoPE position ``s - pad_count``
+        with the row's ``pad_count = pos - Tb + pad_inner``, what the shared
+        step computes for it.  The row's token (sampled from the prompt),
+        hidden, counters, seen mask and done flag restart.  Everything is
+        written in place, into the tensors a captured chunk replays on.
+        ``pos_hint`` is the batch's position as the host knows it (read from
+        the device when not given): a bucket past it raises."""
+        B, T, H = embeds.shape
+        if B != 1:
+            raise ValueError("join_row admits one request at a time")
+        if pad_inner is None:
+            Tb = bucket_for(T)
+            pad_inner = Tb - T
         else:
-            frames, lens, done = self._eager_chunk(state, tth, tth_len, tpe, chunk_size,
-                                                   steps)
-            if steps == 0:
-                audio = torch.zeros((0,), dtype=torch.int16 if pcm16 else torch.float32,
-                                    device=self.device)
-            else:
-                audio, voc_state = self._vocode(vocoder, voc_state, frames[:, :steps], pcm16)
-        state["pos_host"] += steps
-        return state, frames, steps, lens, done, audio, voc_state
+            Tb = T
+            if Tb not in PREFILL_BUCKETS:
+                raise ValueError(f"pre-padded join embeds length {Tb} is not a prefill "
+                                 f"bucket {PREFILL_BUCKETS}")
+        pos = int(state["pos"]) if pos_hint is None else pos_hint
+        if Tb > pos:
+            raise ValueError(f"cannot join: prompt bucket {Tb} exceeds current batch "
+                             f"position {pos} (row would underflow the cache)")
+        embeds = upload(embeds, self.device, self.dtype)
+        if Tb > T:
+            embeds = torch.cat([embeds.new_zeros((1, Tb - T, H)), embeds], dim=1)
+        dev = self.device
+        self._own(state)
+        pad = torch.full((1,), pad_inner, dtype=torch.int32, device=dev)
+        tiny = talker_lib.new_kv_cache(self.talker_cfg, 1, Tb, self.dtype, dev,
+                                       kv_quant=self.kv_quant)
+        last, logits, tiny = talker_lib.prefill(self.talker_params, self.talker_cfg, embeds,
+                                                pad, tiny, layers=self._talker_layers)
+        # the splice ends at the device's position (its start clamped into
+        # the cache, as JAX's dynamic_update_slice clamps)
+        start = state["pos"].long() - Tb
+        slots = start.clamp(0, self.max_seq_len - Tb) + torch.arange(Tb, device=dev)
+        for name, t in tiny.items():
+            axis = 1 if t.dim() == 5 else 2  # of the row's view: position axis
+            state["kv"][name][:, row].index_copy_(axis, slots, t[:, 0])
+        knobs = make_knobs(policy, pred_policy, dev)
+        st = policy.static
+        token = sample_logits(
+            state["generator"], logits, temperature=knobs[0], top_k=st.top_k,
+            top_p=knobs[1], use_top_p=st.use_top_p, do_sample=st.do_sample,
+            suppress_mask=self._suppress, suppress_eos=knobs[3] > 0, eos_id=self.eos_id)
+        state["past_hidden"][row] = last[0].to(state["past_hidden"].dtype)
+        state["token"][row] = token[0]
+        state["pad_count"][row] = (start + pad_inner).to(torch.int32)[0]
+        for name in ("gen_step", "seen", "n_gen"):
+            state[name][row] = 0
+        state["done"][row] = token[0] == self.eos_id
+        return state
+
+    def warm_join(self, prompt_len: int) -> int:
+        """The bucket ``join_row`` prefills ``prompt_len`` tokens at.  Eager
+        PyTorch compiles nothing ahead (the JAX engine's AOT compile is not
+        ported); this validates the length.  Returns the bucket."""
+        Tb = bucket_for(prompt_len)
+        if Tb > self.max_seq_len:
+            raise ValueError(f"join bucket {Tb} exceeds max_seq_len {self.max_seq_len}")
+        return Tb
 
     # ------------------------------------------------------------------
     # warmup: capture the chunk graphs ahead of the requests that replay them
@@ -447,9 +612,10 @@ class Engine:
 
     def _warm_chunks(self, state: Dict, Tt: int, chunk_sizes, vocoder, policy,
                      pred_policy, prefill_len: int, gen) -> Dict:
-        """decode_chunk (and chunk_vocode) at each chunk size, for trailing
-        text of bucket ``Tt``; a new prefill when the cache would cap a
-        chunk.  Returns the state."""
+        """decode_chunk (and chunk_vocode, or above batch 1
+        chunk_vocode_batched) at each chunk size, for trailing text of bucket
+        ``Tt``; a new prefill when the cache would cap a chunk.  Returns the
+        state."""
         H = self.talker_cfg.hidden_size
         tth = torch.zeros((self.batch, Tt, H), dtype=self.dtype, device=self.device)
         tpe = torch.zeros((self.batch, 1, H), dtype=self.dtype, device=self.device)
@@ -460,7 +626,10 @@ class Engine:
                 if self._steps(state, cs) < cs:
                     self.release(state)
                     state = self.prefill(embeds, gen, policy, pred_policy)
-                if with_vocoder:
+                if with_vocoder and self.batch > 1:
+                    self.chunk_vocode_batched(vocoder, state, tth, 0, tpe, cs,
+                                              vocoder.stream_state_batched(self.batch))
+                elif with_vocoder:
                     self.chunk_vocode(vocoder, state, tth, 0, tpe, cs, vocoder.stream_state())
                 else:
                     self.decode_chunk(state, tth, 0, tpe, cs)
@@ -469,11 +638,10 @@ class Engine:
     def warmup(self, prefill_len: int, tth_len: int, policy: GenerationPolicy,
                pred_policy: SamplingPolicy, chunk_sizes=(8,), vocoder=None) -> float:
         """Capture the chunk graphs (and, with a ``vocoder``, the decode +
-        vocode graphs) at ``chunk_sizes`` for ``tth_len``'s trailing-text
-        bucket, and run each once.  The prefill stays eager and unpadded at
-        batch 1, so nothing of it is captured (the bucketed, left-padded
-        prefill comes with batching).  On CPU tensors the chunks run eagerly
-        and nothing is captured.  Returns seconds."""
+        vocode graphs) at the engine's batch, at ``chunk_sizes`` for
+        ``tth_len``'s trailing-text bucket, and run each once.  The prefill
+        is eager, so nothing of it is captured.  On CPU tensors the chunks
+        run eagerly and nothing is captured.  Returns seconds."""
         t0 = time.time()
         bucket_for(prefill_len)
         gen = torch.Generator(device=self.device).manual_seed(0)

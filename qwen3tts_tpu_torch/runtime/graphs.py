@@ -2,12 +2,13 @@
 
 The port's counterpart of the JAX engine's ``jax.jit(_chunk_impl)`` and
 ``_build_chunk_vocode`` (``qwen3tts_tpu/runtime/engine.py``): a chunk of
-frame steps, and optionally the streaming codec over its frames, captured
-once into a ``torch.cuda.CUDAGraph`` and replayed for every later chunk
-with the same key.  A key is (chunk size, trailing-text length, the
-policies' ``StaticPolicy``, the vocoder or none, pcm16) within one KV cache:
-a graph reads and writes fixed addresses, so each cache (a ``_Slot``) has
-its own graphs and its own static buffers:
+frame steps, and optionally the streaming codec over its frames (row 0's,
+or every row's), captured once into a ``torch.cuda.CUDAGraph`` and replayed
+for every later chunk with the same key.  A key is (chunk size,
+trailing-text length, the policies' ``StaticPolicy``, the vocoder or none,
+pcm16, one row or every row to the codec) within one KV cache: a graph reads
+and writes fixed addresses, so each cache (a ``_Slot``) has its own graphs
+and its own static buffers:
 
 - the decode state's tensors (``engine.STATE_TENSORS``), which the steps
   update in place; a request's state is copied in at its first chunk on the
@@ -15,8 +16,9 @@ its own graphs and its own static buffers:
 - the inputs: the knob tensor, the trailing text per length, the tts_pad
   embedding and the trailing-text length, copied in when the caller passes
   another tensor than the one copied last;
-- the outputs per graph: ``frames [1, chunk, 16]``, ``lens``, ``done`` and,
-  with the codec, the audio; the next replay of that graph overwrites them;
+- the outputs per graph: ``frames [B, chunk, 16]``, ``n``, ``lens``,
+  ``done`` and, with the codec, the audio; the next replay of that graph
+  overwrites them;
 - the codec's stream state per vocoder: ``decode_stream`` returns a new
   state, which the graph copies back into the static one.
 
@@ -24,18 +26,47 @@ Every graph shares one memory pool and replays on the caller's stream; the
 kernels' workspaces are one set per shape, ordered on that stream, so the
 graphs never run at once.  Before a capture one eager step runs on copies of
 the state, so that the kernels allocate their workspaces (they refuse to
-during capture) without touching the request.  A capture that fails raises.
+during capture) without touching the request.  Python's cycle collector is
+paused while a chunk is captured: a collection could free an unreachable
+engine's graphs, and a graph destroyed during a capture breaks it.  A
+capture that fails raises.
+
+The chunk stops as the JAX ``while_loop`` does: each step is the body of a
+CUDA graph conditional (IF) node, whose predicate, ``any(~done) & (pos <
+max_seq_len - 1)``, the graph computes on the device just before it.  A step
+that does not run launches nothing; the frames past the last step that ran
+stay zeros, and ``n`` counts the steps that ran.  The node is built through
+the CUDA runtime (``csrc/graph_cond.cu``, CUDA 12.4 or later; the card's
+torch has no ``CUDAGraph.begin_capture_to_if_node``): the step is captured
+on a stream of its own into the node's body graph, its allocations routed
+to a memory pool of the graphs' own (``_IfNodes``).  A capture that cannot
+build its nodes raises: no chunk is captured without them.
+
+``ChunkGraphs(engine, record=True)`` is for measurement: its graphs keep
+their ``cudaGraph_t`` and the bodies of their conditional nodes, so that
+``kernel_nodes`` can walk what a replay launches, and ``log`` takes every
+replay (its graph, a copy of its ``n``, CUDA events around it).
 
 Sampling draws from a generator the graphs are registered with; each replay
 takes the request's generator's seed and offset and hands the advanced
-offset back, so a replay draws what the same steps would draw eagerly.
+offset back, so a replay draws what the same steps would draw eagerly.  The
+offsets are fixed at capture: a step that the conditional node skips
+advances the generator's offset as if it had run, so the steps that run draw
+what eager steps draw, and a request after a chunk that stopped early draws
+from a later offset than the eager steps would have.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+import contextlib
+import ctypes
+import functools
+import gc
+import weakref
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops import cuda_build
 from .engine import STATE_TENSORS
 
 
@@ -53,14 +84,104 @@ def _copy_tree(dst, src) -> None:
         d.copy_(s)
 
 
+@functools.lru_cache(maxsize=None)
+def _cond_lib() -> ctypes.CDLL:
+    lib = cuda_build.library("graph_cond")
+    lib.qwen3tts_cond_stream.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    lib.qwen3tts_cond_begin.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.POINTER(ctypes.c_void_p)] * 2
+    lib.qwen3tts_cond_end.argtypes = [ctypes.c_void_p]
+    lib.qwen3tts_graph_kernels.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_size_t)]
+    for fn in (lib.qwen3tts_cond_stream, lib.qwen3tts_cond_begin, lib.qwen3tts_cond_end,
+               lib.qwen3tts_graph_kernels):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def graph_kernels(graph: int, needles: Sequence[str]) -> Tuple[List[int], List[int]]:
+    """The kernel nodes of the CUDA graph ``graph`` (a ``cudaGraph_t``) and
+    of its child graphs, by kernel name: one count per needle (the nodes
+    whose mangled name contains it, the first that matches), then all of
+    them; and the graph's conditional nodes, whose bodies are not walked."""
+    lib = _cond_lib()
+    names = (ctypes.c_char_p * len(needles))(*(n.encode() for n in needles))
+    counts = (ctypes.c_longlong * (len(needles) + 1))()
+    cap = 4096
+    conds = (ctypes.c_void_p * cap)()
+    n_conds = ctypes.c_size_t(cap)
+    _check(lib.qwen3tts_graph_kernels(graph, names, len(needles), counts, conds,
+                                      ctypes.byref(n_conds)), "walk a CUDA graph")
+    if n_conds.value > cap:
+        raise RuntimeError(f"a graph of {n_conds.value} conditional nodes (at most {cap})")
+    return list(counts), [conds[i] for i in range(n_conds.value)]
+
+
+class _IfNodes:
+    """Conditional nodes for one device's captures.  ``node(pred)`` is a
+    context: what it runs is captured into the body of an IF node of the
+    graph being captured on the current stream, run when the 0-d bool device
+    tensor ``pred`` holds.  The body is captured on a stream of its own,
+    with the current thread's allocations routed to a private pool that
+    stays reserved while this object lives: the allocator gives a capture's
+    temporaries its graph's pool only on streams that share the capture's
+    id, and the body's stream captures the node's body graph instead."""
+
+    def __init__(self, device: torch.device):
+        self.index = device.index if device.index is not None else torch.cuda.current_device()
+        lib = _cond_lib()
+        ptr = ctypes.c_void_p()
+        _check(lib.qwen3tts_cond_stream(ctypes.byref(ptr)), "create the body stream")
+        self.body_ptr = ptr.value
+        self.body = torch.cuda.ExternalStream(self.body_ptr, device=device)
+        self.pool = torch.cuda.graph_pool_handle()
+        # one use of the pool held until this object goes
+        torch._C._cuda_beginAllocateCurrentThreadToPool(self.index, self.pool)
+        torch._C._cuda_endAllocateToPool(self.index, self.pool)
+        weakref.finalize(self, torch._C._cuda_releasePool, self.index, self.pool)
+
+    @contextlib.contextmanager
+    def node(self, pred: torch.Tensor, bodies: Optional[list] = None):
+        """``bodies``, when given, takes (the node, its body graph)."""
+        lib = _cond_lib()
+        parent = torch.cuda.current_stream(pred.device).cuda_stream
+        node, body = ctypes.c_void_p(), ctypes.c_void_p()
+        _check(lib.qwen3tts_cond_begin(parent, pred.data_ptr(), self.body_ptr,
+                                       ctypes.byref(node), ctypes.byref(body)),
+               "begin a conditional node")
+        if bodies is not None:
+            bodies.append((node.value, body.value))
+        torch._C._cuda_beginAllocateCurrentThreadToPool(self.index, self.pool)
+        try:
+            with torch.cuda.stream(self.body):
+                yield
+        finally:
+            torch._C._cuda_endAllocateToPool(self.index, self.pool)
+            torch._C._cuda_releasePool(self.index, self.pool)
+            _check(lib.qwen3tts_cond_end(self.body_ptr), "end a conditional node")
+
+
+def _check(rc: int, what: str) -> None:
+    if rc == -1:
+        raise RuntimeError(f"cannot {what}: the stream is not capturing a graph")
+    if rc >= 10000:
+        raise RuntimeError(f"cannot {what}: CUresult {rc - 10000}")
+    if rc != 0:
+        raise RuntimeError(f"cannot {what}: cudaError {rc}")
+
+
 class _Graph(NamedTuple):
     """One captured chunk and its output buffers."""
 
     graph: torch.cuda.CUDAGraph
     frames: torch.Tensor
+    n: torch.Tensor
     lens: torch.Tensor
     done: torch.Tensor
     audio: Optional[torch.Tensor]
+    bodies: Tuple = ()  # (IF node, its body graph) a step, with record=True
 
 
 class _Slot:
@@ -71,15 +192,17 @@ class _Slot:
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self.inputs: Dict = {}  # name -> static tensor
         self.sources: Dict = {}  # name -> the caller's tensor copied in last
-        self.voc: Dict[int, tuple] = {}  # id(vocoder) -> (vocoder, static stream state)
+        self.voc: Dict[tuple, tuple] = {}  # (id(vocoder), full_batch) -> (vocoder, stream state)
         self.graphs: Dict[tuple, _Graph] = {}
 
 
 class ChunkGraphs:
     """The captured chunks of one Engine on the card."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, record: bool = False):
         self.engine = engine
+        self.record = record
+        self.log: List[tuple] = []  # with record: (_Graph, n, start, end) a replay
         dev = engine.device
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(dev)
@@ -87,6 +210,7 @@ class ChunkGraphs:
         self._default_gen = torch.cuda.default_generators[
             dev.index if dev.index is not None else torch.cuda.current_device()]
         self._slots: Dict[int, _Slot] = {}  # id(kv) -> slot (which holds kv)
+        self._if_nodes: Optional[_IfNodes] = None
         self.captures = 0
         self.replays = 0
 
@@ -133,48 +257,63 @@ class ChunkGraphs:
             n.fill_(int(tth_len))
         return tth_s, n, tpe_s
 
-    def _bind_voc(self, slot: _Slot, vocoder, voc_state: Dict) -> Dict:
-        entry = slot.voc.get(id(vocoder))
+    def _bind_voc(self, slot: _Slot, vocoder, voc_state: Dict, full_batch: bool) -> Dict:
+        key = (id(vocoder), full_batch)
+        entry = slot.voc.get(key)
         if entry is None or entry[0] is not vocoder:
-            entry = slot.voc[id(vocoder)] = (vocoder, vocoder.stream_state())
+            entry = slot.voc[key] = (vocoder, vocoder.stream_state_batched(self.engine.batch)
+                                     if full_batch else vocoder.stream_state())
         static = entry[1]
         if voc_state is not static:
             _copy_tree(static, voc_state)
         return static
 
     def run(self, state: Dict, tth, tth_len, tpe, chunk: int, vocoder=None,
-            voc_state: Optional[Dict] = None, pcm16: bool = False):
+            voc_state: Optional[Dict] = None, pcm16: bool = False, full_batch: bool = False):
         """Replay (capturing first when needed) the chunk for this key.
-        Returns (frames, lens, done) and, with a vocoder, also (audio,
+        Returns (frames, n, lens, done) and, with a vocoder, also (audio,
         voc_state): the graph's buffers."""
         slot = self._slot(state["kv"])
         tth_s, tth_len_s, tpe_s = self._bind(slot, state, tth, tth_len, tpe)
-        voc_s = self._bind_voc(slot, vocoder, voc_state) if vocoder is not None else None
+        voc_s = (self._bind_voc(slot, vocoder, voc_state, full_batch)
+                 if vocoder is not None else None)
         key = (chunk, tth.shape[1], state["policy"].static, state["pred_policy"].static,
-               id(vocoder) if vocoder is not None else None, pcm16)
+               id(vocoder) if vocoder is not None else None, pcm16, full_batch)
         g = slot.graphs.get(key)
         if g is None:
             g = slot.graphs[key] = self._capture(slot, state, tth_s, tth_len_s, tpe_s,
-                                                 chunk, vocoder, voc_s, pcm16)
+                                                 chunk, vocoder, voc_s, pcm16, full_batch)
         src = state["generator"] if state["generator"] is not None else self._default_gen
         self.generator.set_state(src.get_state())
-        g.graph.replay()
+        if self.record:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            g.graph.replay()
+            end.record()
+            self.log.append((g, g.n.clone(), start, end))
+        else:
+            g.graph.replay()
         src.set_state(self.generator.get_state())
         self.replays += 1
         if vocoder is None:
-            return g.frames, g.lens, g.done
-        return g.frames, g.lens, g.done, g.audio, voc_s
+            return g.frames, g.n, g.lens, g.done
+        return g.frames, g.n, g.lens, g.done, g.audio, voc_s
 
     def _capture(self, slot: _Slot, state: Dict, tth, tth_len, tpe, chunk: int, vocoder,
-                 voc: Optional[Dict], pcm16: bool) -> _Graph:
+                 voc: Optional[Dict], pcm16: bool, full_batch: bool) -> _Graph:
         eng = self.engine
+        if self._if_nodes is None:
+            self._if_nodes = _IfNodes(eng.device)
+        if_node = self._if_nodes.node
         B, dev = eng.batch, eng.device
         frames = torch.zeros((B, chunk, 16), dtype=torch.int64, device=dev)
+        n = torch.zeros((), dtype=torch.int64, device=dev)
         lens = torch.zeros((B,), dtype=torch.int64, device=dev)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         audio = None
         if vocoder is not None:
-            audio = torch.zeros((chunk * vocoder.spf,),
+            samples = chunk * vocoder.spf
+            audio = torch.zeros((B, samples) if full_batch else (samples,),
                                 dtype=torch.int16 if pcm16 else torch.float32, device=dev)
         # one eager step (and codec call) on copies: the kernels allocate
         # their workspaces here; the request's state, stream and generator
@@ -184,24 +323,68 @@ class ChunkGraphs:
                 "generator": self.generator}
         eng._one_step(copy, tth, tth_len, tpe)
         if vocoder is not None:
-            eng._vocode(vocoder, _clone_tree(voc), frames, pcm16)
+            eng._vocode(vocoder, _clone_tree(voc), frames, pcm16, full_batch)
         static = {**state, "generator": self.generator}
+        limit = eng.max_seq_len - 1
+        bodies = [] if self.record else None
 
         def body():
+            frames.zero_()
+            n.zero_()
             lens.zero_()
-            eng._run_steps(static, tth, tth_len, tpe, frames, lens, chunk)
+            for i in range(chunk):
+                # the JAX loop's cond, on the device: some row live, room left
+                live = (~static["done"]).any() & (static["pos"][0] < limit)
+                with if_node(live, bodies):
+                    eng._chunk_step(static, tth, tth_len, tpe, frames, lens, n, i)
             done.copy_(static["done"])
             if vocoder is not None:
-                a, new = eng._vocode(vocoder, voc, frames, pcm16)
+                a, new = eng._vocode(vocoder, voc, frames, pcm16, full_batch)
                 audio.copy_(a)
                 _copy_tree(voc, new)
 
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if self.record else torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with _no_gc(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             body()
+        if self.record:
+            graph.instantiate()
         self.captures += 1
-        return _Graph(graph, frames, lens, done, audio)
+        return _Graph(graph, frames, n, lens, done, audio, tuple(bodies or ()))
+
+    def kernel_nodes(self, g: _Graph, needles: Sequence[str]
+                     ) -> Tuple[List[int], List[List[int]]]:
+        """What a replay of ``g`` (captured with ``record=True``) launches:
+        the counts of ``graph_kernels`` for the graph outside its
+        conditional nodes, and for each step's node body in step order (a
+        replay runs the bodies of its first ``n`` steps)."""
+        if not self.record:
+            raise ValueError("kernel_nodes needs ChunkGraphs(record=True)")
+        top, conds = graph_kernels(g.graph.raw_cuda_graph(), needles)
+        if sorted(conds) != sorted(node for node, _ in g.bodies):
+            raise RuntimeError(f"the graph holds {len(conds)} conditional nodes; "
+                               f"{len(g.bodies)} were captured")
+        steps = []
+        for _node, body in g.bodies:
+            counts, inner = graph_kernels(body, needles)
+            if inner:
+                raise RuntimeError("a step's body holds a conditional node")
+            steps.append(counts)
+        return top, steps
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """Python's cycle collector paused: a collection during a capture could
+    free an unreachable engine's graphs, and destroying a graph while a
+    stream captures fails and breaks the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _clone_tree(tree):

@@ -1,23 +1,24 @@
-"""Decode loops: non-streaming, streaming frames, streaming with audio, and
-the per-step parity loops.
+"""Decode loops: non-streaming, streaming frames, streaming with audio,
+batched, and the per-step parity loops.
 
 Port of ``qwen3tts_tpu/runtime/loops.py`` (``fast_generate``,
 ``fast_generate_streaming``, ``fast_generate_streaming_audio``,
-``parity_generate`` and ``parity_generate_streaming``) with the same
-timing-dict keys.  The trailing text is padded to a ``TTH_BUCKETS`` length
-(``bucketed=True``), so that a few captured chunks serve every text.  The
-parity loops leave it unpadded and run ``Engine.decode_step`` eagerly, one
+``fast_generate_batch``, ``parity_generate`` and
+``parity_generate_streaming``) with the same timing-dict keys.  The
+trailing text is padded to a ``TTH_BUCKETS`` length (``bucketed=True``), so
+that a few captured chunks serve every text.  The parity loops leave it
+unpadded and run ``Engine.decode_step`` eagerly, one
 step at a time with a host read of the token after each, as the reference's
 slow parity mode does: the same steps as the fast path, so their greedy
 tokens are equal.
 
 The loops are pipelined: chunk k+1 is dispatched before chunk k is read
 (``pipeline_depth`` chunks ahead in the audio stream), and each chunk's
-frames, valid lengths, done flags and audio are copied to pinned host
-buffers as soon as the chunk is dispatched, before any later chunk can
+frames, steps run, valid lengths, done flags and audio are copied to pinned
+host buffers as soon as the chunk is dispatched, before any later chunk can
 overwrite its graph's buffers; the host waits on the copies' event, never
-on a device value.  After an EOS the chunks already dispatched still run on
-the card (a captured chunk runs all its steps); their frames are dropped.
+on a device value.  A chunk dispatched after the one in which every row
+ended runs no step (its steps' conditions fail on the card).
 When the stream ends the newest state's cache goes back to the engine, also
 when a streaming generator is closed early.  Timings bracket work that ends
 in a device synchronize, so they are wall times of finished work, except
@@ -85,32 +86,33 @@ class _Fetch:
         return [h.numpy() for h in self.host]
 
 
-def _chunk_iter(engine: Engine, state: Dict, tth, tth_len: int, tpe, chunk_size: int,
+def _chunk_iter(engine: Engine, state: Dict, tth, tth_len, tpe, chunk_size: int,
                 max_new_tokens: int, first_chunks: Tuple[int, ...] = (), depth: int = 1,
-                vocoder=None, voc_state=None):
-    """Yields (frames [n, 16] int32, audio float32 [n*spf] or None, done)
-    per chunk, ``n`` row 0's valid frames within the token budget.  Up to
-    ``depth`` chunks are dispatched ahead of the one read, growing by at
-    most two between reads (the first read is not held up by a burst).
-    ``first_chunks`` ramps up the first chunk sizes.  Releases the state's
-    cache when it stops, also when closed early."""
+                vocoder=None, voc_state=None, full_batch: bool = False):
+    """Yields (frames [B, c, 16] int32, lens [B], audio or None, finished)
+    per chunk: ``c`` the chunk's steps within the token budget, ``lens[b]``
+    row b's valid frames among them (a row freezes at its EOS), ``audio`` as
+    the chunk returned it (row 0's or, with ``full_batch``, every row's).
+    Up to ``depth`` chunks are dispatched ahead of the one read, growing by
+    at most two between reads (the first read is not held up by a burst).
+    ``first_chunks`` ramps up the first chunk sizes.  Each chunk read hands
+    its steps to ``Engine.settle``.  Releases the state's cache when it
+    stops, also when closed early."""
     sizes = list(first_chunks) + [chunk_size]
-    spf = vocoder.spf if vocoder is not None else 0
     q: deque = deque()
     planned = 0
 
     def dispatch():
         nonlocal planned, voc_state
         size = sizes[min(len(q) + n_read, len(sizes) - 1)]
+        before = state["pos_host"]
         if vocoder is None:
-            _, frames, n, lens, done = engine.decode_chunk(state, tth, tth_len, tpe, size)
-            outs = [frames, lens, done]
+            _, *outs = engine.decode_chunk(state, tth, tth_len, tpe, size)
         else:
-            _, frames, n, lens, done, audio, voc_state = engine.chunk_vocode(
-                vocoder, state, tth, tth_len, tpe, size, voc_state)
-            outs = [frames, lens, done, audio]
-        q.append((n, _Fetch(outs)))
-        planned += n
+            chunk = engine.chunk_vocode_batched if full_batch else engine.chunk_vocode
+            _, *outs, voc_state = chunk(vocoder, state, tth, tth_len, tpe, size, voc_state)
+        q.append(_Fetch(outs))
+        planned += state["pos_host"] - before
 
     n_read = emitted = 0
     try:
@@ -121,19 +123,32 @@ def _chunk_iter(engine: Engine, state: Dict, tth, tth_len: int, tpe, chunk_size:
                    and not engine.at_limit(state)):
                 dispatch()
                 grown += 1
-            n, fetch = q.popleft()
+            frames, n, lens, done, *audio = q.popleft().get()
             n_read += 1
-            frames, lens, done, *audio = fetch.get()
-            n_val = min(int(lens[0]), max_new_tokens - emitted)
-            emitted += n_val
-            finished = (bool(done.all()) or emitted >= max_new_tokens or n == 0
+            engine.settle(state, int(n))
+            c = min(int(n), max_new_tokens - emitted)
+            emitted += c
+            finished = (bool(done.all()) or emitted >= max_new_tokens or c == 0
                         or (not q and engine.at_limit(state)))
-            yield (frames[0, :n_val].astype(np.int32),
-                   audio[0][: n_val * spf].astype(np.float32) if audio else None, finished)
+            yield (frames[:, :c].astype(np.int32), np.minimum(lens, c),
+                   audio[0] if audio else None, finished)
             if finished:
                 return
     finally:
         engine.release(state)
+
+
+def _row0(chunks, spf: int):
+    """The first row of ``_chunk_iter``'s chunks: (frames [n, 16], audio
+    float32 [n*spf] or None, finished), ``n`` its valid frames.  Closes
+    ``chunks`` when it stops."""
+    try:
+        for frames, lens, audio, finished in chunks:
+            n = int(lens[0])
+            yield (frames[0, :n], audio[: n * spf].astype(np.float32) if audio is not None
+                   else None, finished)
+    finally:
+        chunks.close()
 
 
 def fast_generate(
@@ -158,8 +173,8 @@ def fast_generate(
     t_prefill = time.time() - t0
 
     t1 = time.time()
-    chunks = [f for f, _, _ in _chunk_iter(engine, state, tth, tth_len, tpe, device_chunk,
-                                           max_new_tokens) if len(f)]
+    chunks = [f for f, _, _ in _row0(_chunk_iter(engine, state, tth, tth_len, tpe,
+                                                 device_chunk, max_new_tokens), 0) if len(f)]
     t_decode = time.time() - t1
     steps = sum(c.shape[0] for c in chunks)
     timing = {
@@ -197,8 +212,9 @@ def fast_generate_streaming(
     state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
     _sync(engine.device)
     t_prefill = time.time() - t0
-    yield from _timed(_chunk_iter(engine, state, tth, tth_len, tpe, chunk_size,
-                                  max_new_tokens, first_chunks), t_prefill, audio=False)
+    yield from _timed(_row0(_chunk_iter(engine, state, tth, tth_len, tpe, chunk_size,
+                                        max_new_tokens, first_chunks), 0),
+                      t_prefill, audio=False)
 
 
 def _timed(chunks, t_prefill: float, audio: bool):
@@ -262,10 +278,63 @@ def fast_generate_streaming_audio(
     voc_state = vocoder.stream_state()
     if ref_codes is not None and len(ref_codes):
         voc_state = engine.vocode_prime(vocoder, voc_state, ref_codes)
-    yield from _timed(_chunk_iter(
+    yield from _timed(_row0(_chunk_iter(
         engine, state, tth, tth_len, tpe, chunk_size, max_new_tokens, first_chunks,
         depth=PIPELINE_DEPTH if pipeline_depth is None else max(1, pipeline_depth),
-        vocoder=vocoder, voc_state=voc_state), t_prefill, audio=True)
+        vocoder=vocoder, voc_state=voc_state), vocoder.spf), t_prefill, audio=True)
+
+
+def fast_generate_batch(
+    engine: Engine,
+    talker_input_embeds,  # [B, T, H], each row left-padded by pad_count[b]
+    trailing_text_hiddens,  # [B, Ttth, H], each row padded with its tts_pad embedding
+    tts_pad_embed,  # [B, 1, H]
+    *,
+    generator: Optional[torch.Generator],
+    pad_count=None,  # [B] each row's left pad
+    tth_lens=None,  # [B] each row's trailing-text length
+    max_new_tokens: int = 2048,
+    policy: GenerationPolicy = GenerationPolicy(),
+    pred_policy: SamplingPolicy = SamplingPolicy(),
+    device_chunk: int = 16,
+) -> Tuple[list, Dict]:
+    """Batched generation: B prompts decode together on ``Engine(batch=B)``,
+    each row ending at its own EOS (its frames after it are dropped) and
+    the batch when every row has ended or the budget is spent.  Returns
+    ([B] list of [steps_b, 16] int32 arrays, timing); the timing's
+    ``steps`` counts every row's frames, ``batch`` the rows."""
+    B = talker_input_embeds.shape[0]
+    if engine.batch != B:
+        raise ValueError(f"Engine(batch={engine.batch}) got {B} rows")
+    t0 = time.time()
+    tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+    tth, tth_len = _pad_tth(tth, tpe, bucketed=True)
+    if tth_lens is not None:
+        tth_len = upload(np.asarray(tth_lens), engine.device, torch.int64)
+    state = engine.prefill(talker_input_embeds, generator, policy, pred_policy,
+                           pad_count=pad_count)
+    _sync(engine.device)
+    t_prefill = time.time() - t0
+
+    t1 = time.time()
+    rows = [[] for _ in range(B)]
+    for frames, lens, _, _ in _chunk_iter(engine, state, tth, tth_len, tpe, device_chunk,
+                                          max_new_tokens):
+        for b in range(B):
+            if lens[b]:
+                rows[b].append(frames[b, : lens[b]])
+    t_decode = time.time() - t1
+    out = [np.concatenate(r, axis=0) if r else np.zeros((0, 16), np.int32) for r in rows]
+    steps = sum(o.shape[0] for o in out)
+    timing = {
+        "prefill_ms": t_prefill * 1000,
+        "decode_s": t_decode,
+        "steps": steps,
+        "ms_per_step": (t_decode / steps * 1000) if steps else 0.0,
+        "steps_per_s": (steps / t_decode) if t_decode > 0 else 0.0,
+        "batch": B,
+    }
+    return out, timing
 
 
 def _parity_steps(engine: Engine, talker_input_embeds, trailing_text_hiddens,
