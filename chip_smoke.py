@@ -110,7 +110,27 @@ Phases, in order; any failure raises and exits non-zero:
    API with four texts.  (The kernel phase holds flash-decode at B 4 and 16
    with a pad per row, the parity phase a float32 B 3 batch with a join_row
    card vs CPU.)
-10. slice-voices — parity_mode=True (24 steps, streamed chunk 8) beside the
+10. slice-serve — the OpenAI-compatible server (apps/openai_server.py) in
+   the process on the bf16 0.6B, a 4-row continuous batcher at chunk 8
+   (ramp 2, 4), a voice from the phase's reference wav: the batcher's
+   warm-up (seconds, captures); the voice's first request, three
+   light-load requests one after another and 8 concurrent streamed wav requests (urllib) of mixed texts
+   and budgets, sampled as served: each 200 with whole codec frames of
+   finite audio, TTFA (ms to the first audio byte); served = sent, at least
+   one mid-batch join; an mp3 request (or its 501; the probe prints whether
+   libmp3lame / libmpg123 load); a client that disconnects while a fifth
+   request queues: the row is cancelled and the fifth takes it before the
+   long requests end; no capture after the warm-up.  Then a greedy batcher
+   (EOS suppressed) serving 8 requests of 96 steps, once untimed, then at
+   pipeline depths 1, 3, 3, 1: served frames/s, throughput RTF, TTFA, the launches each
+   replay's graph holds over the steps its ``n`` says ran (flash-decode 28
+   a step, read by the graph walk), the busy share, no capture after its
+   warm-up; raw fast_generate_batch at B 4 (chunk 8 and 16) beside it; one
+   request through a server on the int8 + kv_quant model (int8
+   flash-decode).  Then a small float32 model, TF32 off: a greedy 2-row
+   batcher on the card with a mid-batch join against the batch-1 streamed
+   requests on the CPU, audio within 1e-4.
+11. slice-voices — parity_mode=True (24 steps, streamed chunk 8) beside the
    fast path on the 0.6B; then, each loaded after the last is freed,
    random:qwen3-tts-0.6b-custom (a named speaker) and
    random:qwen3-tts-1.7b-design (instruct): load and warm-up seconds,
@@ -215,6 +235,9 @@ def probe():
     log(f"torch.cuda.CUDAGraph.begin_capture_to_if_node: {has_if}; the captured chunks' "
         "conditional nodes are built by the repo's own helper (csrc/graph_cond.cu, "
         "runtime/graphs.py:_IfNodes)")
+    from qwen3tts_tpu_torch.audio import mp3
+
+    log(f"libmp3lame loads: {mp3.is_available()}; libmpg123 loads: {mp3.decode_available()}")
     return card
 
 
@@ -2455,6 +2478,436 @@ def batch_parity_phase(card: str) -> dict:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+# ---------------------------------------------------------------------------
+# slice-serve: the OpenAI-compatible server on the continuous batcher
+# ---------------------------------------------------------------------------
+
+SERVE_B = 4
+SERVE_CHUNK = 8
+SERVE_STEPS = 96  # the fixed-length batcher run's budgets
+SERVE_REQUESTS = 8
+SERVE_BUCKETS = (32, 64, 128, 256)  # the prompts' prefill buckets (30-153 tokens)
+SERVE_MAX_TTH = 64  # trailing-text widths warmed: 16 and 64
+SERVE_DEPTHS = (1, 3, 3, 1)  # QWEN3TTS_BATCH_PIPELINE, in turns
+SERVE_AUDIO_ATOL = 1e-4  # small float32 model, card vs CPU audio (codec float32, TF32 off)
+
+
+def _http_speech(url: str, body: dict, timeout: float = 300) -> dict:
+    """POST /v1/audio/speech: status, content type, ms to the first audio
+    byte (past wav's 44-byte header), wall ms, and the body."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/audio/speech", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t = time.time()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        skip = 44 if body.get("response_format", "wav") == "wav" else 0
+        first = r.read(skip + 1)
+        ttfa = (time.time() - t) * 1e3
+        data = first + r.read()
+        return {"status": r.status, "type": r.headers["Content-Type"], "ttfa_ms": ttfa,
+                "wall_ms": (time.time() - t) * 1e3, "data": data}
+
+
+def _wav_frames(res: dict, what: str) -> int:
+    """A 200 wav response's whole codec frames of finite audio."""
+    if res["status"] != 200 or res["type"] != "audio/wav" or res["data"][:4] != b"RIFF":
+        raise AssertionError(f"{what}: {res['status']} {res['type']}")
+    pcm = np.frombuffer(res["data"][44:], "<i2").astype(np.float32) / 32767.0
+    if len(pcm) == 0 or len(pcm) % 2000 or not np.isfinite(pcm).all():
+        raise AssertionError(f"{what}: {len(pcm)} samples, not whole frames of finite audio")
+    return len(pcm) // 2000
+
+
+def _concurrently(fn, args: list) -> list:
+    """``fn(*a)`` for each ``a`` on threads of their own; their results in
+    order (an exception in any fails the run)."""
+    import threading
+
+    out, errors = [None] * len(args), []
+
+    def run(i, a):
+        try:
+            out[i] = fn(*a)
+        except Exception as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(args)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError("a request never ended")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _disconnect_and_reuse(url: str, port: int, batcher) -> dict:
+    """Three long requests and one that its client abandons fill the four
+    rows; a fifth queues.  When the abandoned stream's row is cancelled the
+    fifth takes it: its first audio comes before the long ones end."""
+    import socket
+    import threading
+
+    before = dict(batcher.stats)
+    long_body = {"input": TEXT_C, "max_new_tokens": 240}
+    longs, started = [], threading.Event()
+
+    def run_long():
+        longs.append(_http_speech(url, long_body))
+
+    threads = [threading.Thread(target=run_long) for _ in range(3)]
+    for t in threads:
+        t.start()
+    body = json.dumps({"input": TEXT_A, "response_format": "pcm",
+                       "max_new_tokens": 2000}).encode()
+    s = socket.create_connection(("127.0.0.1", port), timeout=60)
+    s.sendall(b"POST /v1/audio/speech HTTP/1.1\r\nHost: t\r\n"
+              b"Content-Type: application/json\r\n"
+              + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    got = b""
+    while len(got) < 4096:  # headers, then audio
+        data = s.recv(65536)
+        if not data:
+            raise AssertionError(f"the server closed the stream after {len(got)} bytes")
+        got += data
+    deadline = time.time() + 30
+    while batcher.stats["active_rows"] < SERVE_B and time.time() < deadline:
+        time.sleep(0.01)
+    queued = {}
+
+    def run_queued():
+        queued.update(_http_speech(url, {"input": "The queued request.", "max_new_tokens": 48}))
+        started.set()
+
+    q = threading.Thread(target=run_queued)
+    t_submit = time.time()
+    q.start()
+    time.sleep(0.3)  # it waits: every row is busy
+    waiting = batcher.stats["queue_depth"]
+    t_close = time.time()
+    s.close()  # abandon the stream
+    q.join(timeout=120)
+    for t in threads:
+        t.join(timeout=120)
+    first_long_end = min(r["wall_ms"] for r in longs)
+    res = {"queue_depth_while_full": waiting,
+           "cancelled": batcher.stats["cancelled"] - before["cancelled"],
+           "queued_ttfa_ms": queued["ttfa_ms"],
+           "queued_first_audio_after_close_ms": queued["ttfa_ms"] - (t_close - t_submit) * 1e3,
+           "long_requests_wall_ms": [r["wall_ms"] for r in longs]}
+    _wav_frames(queued, "the queued request")
+    for r in longs:
+        _wav_frames(r, "a long request")
+    if res["cancelled"] != 1 or waiting != 1:
+        raise AssertionError(f"the abandoned stream's row: {res}")
+    if queued["ttfa_ms"] >= first_long_end:
+        raise AssertionError(f"the queued request waited for a long one to end: {res}")
+    return res
+
+
+def _fixed_length_runs(card: str, model, ref: str) -> dict:
+    """A greedy batcher (EOS suppressed) on the served engine's keys, its
+    graphs recorded (``_recording``): warm-up, then SERVE_REQUESTS requests
+    of SERVE_STEPS steps at each QWEN3TTS_BATCH_PIPELINE depth of
+    SERVE_DEPTHS, submitted at once: served frames/s, throughput RTF, the
+    launches each replay's graph holds over the steps its ``n`` says ran
+    (flash-decode 28 a step), no capture after the warm-up, the busy share."""
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+    from qwen3tts_tpu_torch.runtime.scheduler import ContinuousBatcher
+
+    texts = _batch_texts(SERVE_REQUESTS)
+    spf, res = model.vocoder.spf, {"runs": []}
+    b = ContinuousBatcher(model, max_batch=SERVE_B, chunk_size=SERVE_CHUNK,
+                          max_new_tokens=SERVE_STEPS,
+                          policy=GenerationPolicy(do_sample=False, min_new_tokens=10_000),
+                          pred_policy=SamplingPolicy(do_sample=False), first_chunks=(2, 4))
+    try:
+        with _recording(b.engine) as graphs:
+            torch.cuda.synchronize()
+            res["warmup_s"] = b.warmup(prefill_buckets=SERVE_BUCKETS, max_tth=SERVE_MAX_TTH)
+            res["warmup_captures"] = graphs.captures
+            with b.arriving():  # one untimed flood first: the host's first-use costs
+                handles = [b.submit(x, "English", ref, "") for x in texts]
+            _concurrently(lambda h: list(h.chunks()), [(h,) for h in handles])
+            for depth in SERVE_DEPTHS:
+                os.environ["QWEN3TTS_BATCH_PIPELINE"] = str(depth)
+                graphs.log.clear()
+                before = dict(b.stats)
+                _zero_counts()
+                torch.cuda.synchronize()
+                t = time.time()
+                with b.arriving():  # a flood: the batch starts full
+                    handles = [b.submit(x, "English", ref, "") for x in texts]
+                streams = _concurrently(lambda h: list(h.chunks()), [(h,) for h in handles])
+                torch.cuda.synchronize()
+                wall = time.time() - t
+                eager = _launch_counts()
+                replayed, steps, device_ms, per_step = _replayed(graphs)
+                for i, chunks in enumerate(streams):
+                    _check_audio(np.concatenate([a for a, _, _ in chunks]), SERVE_STEPS, spf,
+                                 f"fixed-length request {i}")
+                run = {"depth": depth, "wall_s": wall,
+                       "frames_per_s": SERVE_REQUESTS * SERVE_STEPS / wall,
+                       "throughput_rtf": SERVE_REQUESTS * SERVE_STEPS / 12.0 / wall,
+                       "ttfa_ms": [chunks[0][2]["ttfa_ms"] for chunks in streams],
+                       "served": b.stats["served"] - before["served"],
+                       "joined_mid_batch": b.stats["joined_mid_batch"] - before["joined_mid_batch"],
+                       "batches": b.stats["batches"] - before["batches"],
+                       "replays": len(graphs.log), "steps_run": steps,
+                       "launches_replayed": replayed, "launches_eager": eager,
+                       "kernel_nodes_a_step": sorted({c["all"] for c in per_step}),
+                       "replay_device_ms": device_ms, "busy_share": device_ms / (wall * 1e3),
+                       "captures_after_warmup": graphs.captures - res["warmup_captures"]}
+                bad = [c for c in per_step if c["flash_decode"] != 28
+                       or any(c[k] for k in KERNELS if k != "flash_decode")]
+                log(f"  fixed-length run: {json.dumps(run)}  [{card}]")
+                if (run["served"] != SERVE_REQUESTS or run["joined_mid_batch"] < 1 or bad
+                        or run["captures_after_warmup"] or eager["flash_decode"]
+                        or replayed["flash_decode"] != 28 * steps):
+                    raise AssertionError(f"the fixed-length run: {run}; steps holding {bad[:1]}")
+                res["runs"].append(run)
+    finally:
+        os.environ.pop("QWEN3TTS_BATCH_PIPELINE", None)
+        b.close()
+    for depth in sorted(set(SERVE_DEPTHS)):
+        fps = [r["frames_per_s"] for r in res["runs"] if r["depth"] == depth]
+        res[f"depth{depth}_frames_per_s"] = fps
+    return res
+
+
+def _raw_batch(card: str, model, ref: str) -> dict:
+    """Raw fast_generate_batch at B 4, SERVE_STEPS greedy steps over four of
+    the served texts, at chunk 8 and 16 (warm-up first): frames/s."""
+    from qwen3tts_tpu_torch.runtime import loops
+
+    eng = _engine(model, batch=SERVE_B)
+    prompt = model._batch_prompt(_batch_texts(SERVE_B), ref, "", "English", True, True, True,
+                                 None)
+    pol, ppol = _greedy()
+    pol = dataclasses.replace(pol, min_new_tokens=SERVE_STEPS)
+    embeds, trailing, tpe, pads, tth_lens, _ = prompt
+    res = {}
+    for chunk in (SERVE_CHUNK, 16):
+        eng.warmup(embeds.shape[1], trailing.shape[1], pol, ppol, chunk_sizes=(chunk,))
+        torch.cuda.synchronize()
+        t = time.time()
+        out, _ = loops.fast_generate_batch(eng, embeds, trailing, tpe, generator=None,
+                                           pad_count=pads, tth_lens=tth_lens,
+                                           max_new_tokens=SERVE_STEPS, policy=pol,
+                                           pred_policy=ppol, device_chunk=chunk)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        if [len(o) for o in out] != [SERVE_STEPS] * SERVE_B:
+            raise AssertionError(f"raw B{SERVE_B}: rows of {[len(o) for o in out]} frames")
+        res[f"chunk{chunk}"] = {"frames_per_s": SERVE_B * SERVE_STEPS / wall,
+                                "throughput_rtf": SERVE_B * SERVE_STEPS / 12.0 / wall,
+                                "ms_per_step": wall / SERVE_STEPS * 1e3}
+    log(f"  raw fast_generate_batch B{SERVE_B}, {SERVE_STEPS} steps: {json.dumps(res)}  [{card}]")
+    return res
+
+
+def _server(model, registry, warm: dict):
+    """``openai_server.serve`` in-process on a free port (B 4, chunk 8), its
+    batcher warmed first, serving on a thread: (httpd, url, warm-up s,
+    captures after the warm-up)."""
+    import threading
+
+    from qwen3tts_tpu_torch.apps import openai_server
+
+    httpd = openai_server.serve(model, registry, host="127.0.0.1", port=0,
+                                chunk_size=SERVE_CHUNK, max_batch=SERVE_B)
+    batcher = httpd.tts_state.batcher
+    torch.cuda.synchronize()
+    warm_s = batcher.warmup(**warm)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}", warm_s, _captures(batcher)
+
+
+def _captures(batcher) -> int:
+    """The chunk captures of the batcher's engine so far."""
+    return batcher.engine.graphs.captures
+
+
+def slice_serve_phase(card: str, models: dict) -> dict:
+    """The OpenAI-compatible server (``apps/openai_server.py``) in-process
+    on the bf16 0.6B with a 4-row continuous batcher (chunk 8, ramp 2, 4):
+    warm-up; three light-load requests one after another and SERVE_REQUESTS
+    concurrent streamed wav requests of mixed texts and budgets (sampled, as
+    served), each 200 with whole frames, TTFA per request; served = sent,
+    joins mid-batch; an mp3 request (or its 501); a client that disconnects
+    while a fifth request queues; no capture after the warm-up.  Then the
+    fixed-length greedy batcher runs (saturated frames/s by pipeline depth,
+    launches, busy share; one untimed flood first), raw fast_generate_batch
+    at B 4 beside them, and
+    one request through a server on the int8 + kv_quant model (int8
+    flash-decode)."""
+    from qwen3tts_tpu_torch.apps.openai_server import VoiceRegistry
+    from qwen3tts_tpu_torch.audio import mp3
+
+    model, res = models["bf16"], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.wav")
+        _ref_wav(ref)
+        registry = VoiceRegistry.from_args(None, ref, "")
+        httpd, url, warm_s, captures = _server(
+            model, registry, dict(prefill_buckets=SERVE_BUCKETS, max_tth=SERVE_MAX_TTH))
+        batcher = httpd.tts_state.batcher
+        try:
+            res["warmup_s"], res["warmup_captures"] = warm_s, captures
+            log(f"  server warm-up: {warm_s:.2f} s, {captures} captures  [{card}]")
+            # the voice's first request runs the speaker encoder; the
+            # light-load ones after it find the voice prompt cached
+            light = [_http_speech(url, {"input": TEXT_C, "max_new_tokens": 24})
+                     for _ in range(4)]
+            for r in light:
+                _wav_frames(r, "a light-load request")
+            res["first_request_ttfa_ms"] = light[0]["ttfa_ms"]
+            res["light_ttfa_ms"] = [r["ttfa_ms"] for r in light[1:]]
+            before = dict(batcher.stats)
+            texts = _batch_texts(SERVE_REQUESTS)
+            budgets = [48 + 8 * (i % 7) for i in range(SERVE_REQUESTS)]
+            t = time.time()
+            out = _concurrently(_http_speech, [(url, {"input": x, "max_new_tokens": n})
+                                               for x, n in zip(texts, budgets)])
+            wall = time.time() - t
+            frames = [_wav_frames(r, f"concurrent request {i}") for i, r in enumerate(out)]
+            stats = batcher.stats
+            res["concurrent"] = {
+                "requests": SERVE_REQUESTS, "budgets": budgets, "frames": frames,
+                "ttfa_ms": [r["ttfa_ms"] for r in out], "wall_ms": [r["wall_ms"] for r in out],
+                "frames_per_s": sum(frames) / wall,
+                "served": stats["served"] - before["served"],
+                "joined_mid_batch": stats["joined_mid_batch"] - before["joined_mid_batch"]}
+            log(f"  {SERVE_REQUESTS} concurrent wav requests: {json.dumps(res['concurrent'])}"
+                f"  [{card}]")
+            if res["concurrent"]["served"] != SERVE_REQUESTS or \
+                    res["concurrent"]["joined_mid_batch"] < 1:
+                raise AssertionError(f"served {res['concurrent']}")
+            res["mp3"] = {"libmp3lame": mp3.is_available(), "libmpg123": mp3.decode_available()}
+            if mp3.is_available():
+                r = _http_speech(url, {"input": TEXT_C, "response_format": "mp3",
+                                       "max_new_tokens": 24})
+                if r["status"] != 200 or r["type"] != "audio/mpeg" or len(r["data"]) < 200:
+                    raise AssertionError(f"mp3: {r['status']} {r['type']} {len(r['data'])}")
+                res["mp3"]["bytes"] = len(r["data"])
+            else:
+                import urllib.error
+
+                try:
+                    _http_speech(url, {"input": TEXT_C, "response_format": "mp3"})
+                    raise AssertionError("mp3 without libmp3lame answered 200")
+                except urllib.error.HTTPError as e:
+                    if e.code != 501:
+                        raise
+                    res["mp3"]["status"] = 501
+            res["disconnect"] = _disconnect_and_reuse(url, httpd.server_address[1], batcher)
+            log(f"  disconnect and reuse: {json.dumps(res['disconnect'])}  [{card}]")
+            res["captures_after_warmup"] = _captures(batcher) - captures
+            if res["captures_after_warmup"]:
+                raise AssertionError(f"{res['captures_after_warmup']} captures while serving")
+        finally:
+            httpd.shutdown()
+            batcher.close()
+        res["fixed_length"] = _fixed_length_runs(card, model, ref)
+        res["raw_batch"] = _raw_batch(card, model, ref)
+        httpd, url, warm_s, captures = _server(
+            models["int8"], registry, dict(prefill_buckets=(128,), max_tth=16))
+        try:
+            r = _http_speech(url, {"input": TEXT_A, "max_new_tokens": 48})
+            res["kv_quant"] = {"frames": _wav_frames(r, "the kv_quant request"),
+                               "ttfa_ms": r["ttfa_ms"], "warmup_s": warm_s,
+                               "kv_cache": str(httpd.tts_state.batcher.engine.new_kv()["k"].dtype),
+                               "captures_after_warmup":
+                                   _captures(httpd.tts_state.batcher) - captures}
+            if res["kv_quant"]["captures_after_warmup"] or res["kv_quant"]["kv_cache"] != \
+                    "torch.int8":
+                raise AssertionError(f"kv_quant server: {res['kv_quant']}")
+        finally:
+            httpd.shutdown()
+            httpd.tts_state.batcher.close()
+        log(f"  kv_quant request (int8 weights and KV cache): {json.dumps(res['kv_quant'])}"
+            f"  [{card}]")
+    for m in (models["bf16"], models["int8"]):
+        m._batch_engines.clear()
+    return res
+
+
+def serve_parity_phase(card: str) -> dict:
+    """A small float32 model (talker head_dim 128), TF32 off, on the CPU and
+    its ``replicate_to("cuda")``: three requests through a greedy 2-row
+    batcher on the card (EOS suppressed, budgets 16, 40 and 24: the third
+    joins when a row frees), each against the port's batch-1 streamed
+    request on the CPU (``fast_generate_streaming_audio``, greedy, the same
+    prompt); float32 codec on both, PCM16 off."""
+    import threading
+
+    from qwen3tts_tpu_torch import FasterQwen3TTS
+    from qwen3tts_tpu_torch.core.loader import init_random
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+    from qwen3tts_tpu_torch.runtime.scheduler import ContinuousBatcher
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            os.environ.get("QWEN3TTS_SERVE_PCM16"))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["QWEN3TTS_SERVE_PCM16"] = "0"
+    try:
+        base = get_preset("tiny")
+        cfg = dataclasses.replace(base, talker=dataclasses.replace(
+            base.talker, head_dim=128, mrope_section=(24, 20, 20)))
+        params = init_random(cfg, seed=6, dtype=torch.float32, device="cpu")
+        cpu = FasterQwen3TTS(cfg, params, max_seq_len=256, vocoder_compute_dtype=None)
+        gpu = cpu.replicate_to("cuda")
+        pol = GenerationPolicy(do_sample=False, min_new_tokens=10_000)
+        ppol = SamplingPolicy(do_sample=False)
+        budgets = {"First utterance.": 16, "A different second text.": 40,
+                   "Late third arrival.": 24}
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = os.path.join(tmp, "ref.wav")
+            _ref_wav(ref)
+            cpu._voice_prompt(ref, "", True, True)
+            gpu._voice_prompt_cache.update(cpu._voice_prompt_cache)  # one prompt for both
+            b = ContinuousBatcher(gpu, max_batch=2, chunk_size=8, max_new_tokens=40,
+                                  policy=pol, pred_policy=ppol)
+            try:
+                b.warmup(prefill_buckets=(32,), max_tth=16)
+                handles = [b.submit(x, "English", ref, "", max_new_tokens=n)
+                           for x, n in budgets.items()]
+                got = _concurrently(lambda h: np.concatenate([a for a, _, _ in h.chunks()]),
+                                    [(h,) for h in handles])
+                joined = b.stats["joined_mid_batch"]
+            finally:
+                b.close()
+            errs = []
+            for (text, n), a in zip(budgets.items(), got):
+                prompt = cpu._prepare_clone(text, ref, "", "English", True, True, True, None)
+                want = np.concatenate([w for _, w, _ in loops.fast_generate_streaming_audio(
+                    cpu.engine, cpu.vocoder, *prompt[:3], generator=None, max_new_tokens=n,
+                    policy=pol, pred_policy=ppol, chunk_size=8)])
+                if a.shape != want.shape:
+                    raise AssertionError(f"{text}: card {a.shape}, CPU {want.shape}")
+                errs.append(float(np.abs(a - want).max()))
+        res = {"budgets": list(budgets.values()), "joined_mid_batch": joined,
+               "audio_max_abs_err": errs, "tolerance": SERVE_AUDIO_ATOL}
+        log(f"parity serve (float32, TF32 off, B2 batcher on the card vs batch-1 streams on "
+            f"the CPU): {json.dumps(res)}  [{card}]")
+        if joined < 1 or max(errs) > SERVE_AUDIO_ATOL:
+            raise AssertionError("the card's served audio differs from the CPU's")
+        return res
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev[:2]
+        if prev[2] is None:
+            os.environ.pop("QWEN3TTS_SERVE_PCM16", None)
+        else:
+            os.environ["QWEN3TTS_SERVE_PCM16"] = prev[2]
+
+
 def _voice_requests(card: str, model, prompt, call, stream, what: str, want: dict,
                     traced_steps: int) -> dict:
     """Warm-up (capture), a non-streamed and a streamed (chunk 8) request of
@@ -2576,6 +3029,8 @@ def main():
     icl = phase("slice-icl", slice_icl_phase, card, models)
     icl_parity = phase("slice-icl", icl_parity_phase, card)
     batch = phase("slice-batch", slice_batch_phase, card, models)
+    serve = phase("slice-serve", slice_serve_phase, card, models)
+    serve_parity = phase("slice-serve", serve_parity_phase, card)
     voices = phase("slice-voices", slice_voices_phase, card, models)
     # the main path: the captured chunks, in the counted request that
     # captured them; a replay's launches read from its graph's kernel nodes
@@ -2603,6 +3058,7 @@ def main():
     log("slice-icl: " + json.dumps({"card": card, **icl, "parity": icl_parity}))
     log("slice-batch: " + json.dumps({"card": card, **batch, "parity": b_parity,
                                       "flash_decode_rows_max_abs_err": b_err}))
+    log("slice-serve: " + json.dumps({"card": card, **serve, "parity": serve_parity}))
     k17 = {name: {"ms": {w: f_times[(name, "talker_1.7b", w)][0] for w in ("int8", "bf16")},
                   "plain_ms": {w: f_times[(name, "talker_1.7b", w)][1] for w in ("int8", "bf16")},
                   "bound_ms": {w: f_bounds[(name, "talker_1.7b", w)][0]

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import hashlib
 import logging
+import os
 from pathlib import Path
 from typing import Dict, Generator, Optional, Tuple, Union
 
@@ -47,6 +48,7 @@ from ..models.predictor import SamplingPolicy
 from ..ops.quant import quantize_bundle
 from ..runtime import loops
 from ..runtime.engine import Engine, GenerationPolicy, bucket_for
+from ..utils.timing import device_trace
 from .prompt import PromptBuilder
 from .tokenizer import TextTokenizer
 
@@ -274,8 +276,12 @@ class FasterQwen3TTS:
         if not parity_mode:
             self._warmup(embeds.shape[1], trailing.shape[1], pol, ppol)
         gen = loops.parity_generate if parity_mode else loops.fast_generate
-        codec_ids, timing = gen(self.engine, embeds, trailing, tpe, generator=self._gen,
-                                max_new_tokens=max_new_tokens, policy=pol, pred_policy=ppol)
+        # QWEN3TTS_PROFILE_DIR: a torch.profiler trace of the generation
+        # (eager engines only: see device_trace)
+        with device_trace(os.environ.get("QWEN3TTS_PROFILE_DIR")):
+            codec_ids, timing = gen(self.engine, embeds, trailing, tpe, generator=self._gen,
+                                    max_new_tokens=max_new_tokens, policy=pol,
+                                    pred_policy=ppol)
         return self._finish_audio(codec_ids, ref_codes, timing)
 
     def generate_voice_clone(
@@ -452,6 +458,36 @@ class FasterQwen3TTS:
             chunk_size=chunk_size)
 
     # ------------------------------------------------------------------
+    # replication: one model per card behind a ReplicaPool
+    # ------------------------------------------------------------------
+
+    def replicate_to(self, device, seed: Optional[int] = None) -> "FasterQwen3TTS":
+        """A full replica of the model on ``device`` (``runtime/replicas.py``).
+
+        The parameters are copied there (a tensor already on ``device`` is
+        shared: weights are read-only); the engine, the vocoder, the batch
+        engines, the generator (seeded with ``seed``, else from the device's
+        name) and the voice-prompt cache are the replica's own, so replicas
+        share no mutable device state.  The config, tokenizer and prompt
+        builder (host numpy) are shared."""
+        device = torch.device(device)
+        clone = object.__new__(type(self))
+        clone.__dict__.update(self.__dict__)
+        clone.device = device
+        clone.params = _tree_to(self.params, device)
+        clone.engine = Engine(clone.params["talker"], clone.params["predictor"], self.cfg,
+                              max_seq_len=self.max_seq_len, kv_quant=self.kv_quant)
+        clone._batch_engines = {}
+        # the vocoder's weights are already cast to its compute dtype
+        clone.vocoder = Vocoder(_tree_to(self.vocoder.params, device), self.cfg.codec,
+                                compute_dtype=None)
+        clone._voice_prompt_cache = {}
+        clone._gen = torch.Generator(device=device).manual_seed(
+            seed if seed is not None else int(hashlib.sha1(str(device).encode()).hexdigest(),
+                                              16) % 2**31)
+        return clone
+
+    # ------------------------------------------------------------------
     # custom voice / voice design
     # ------------------------------------------------------------------
 
@@ -557,3 +593,12 @@ class FasterQwen3TTS:
         pol, ppol = self._policies(temperature, top_k, top_p, do_sample,
                                    repetition_penalty, min_new_tokens)
         yield from self._stream_audio(*prompt, None, pol, ppol, max_new_tokens, chunk_size)
+
+
+def _tree_to(tree, device: torch.device):
+    """A nested dict / list of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

@@ -15,7 +15,8 @@ and its own static buffers:
   slot, and its dict then points at the slot's tensors;
 - the inputs: the knob tensor, the trailing text per length, the tts_pad
   embedding and the trailing-text length, copied in when the caller passes
-  another tensor than the one copied last;
+  another tensor than the one copied last or wrote that one in place since
+  (its version counter), the length at every replay;
 - the outputs per graph: ``frames [B, chunk, 16]``, ``n``, ``lens``,
   ``done`` and, with the codec, the audio; the next replay of that graph
   overwrites them;
@@ -29,7 +30,9 @@ the state, so that the kernels allocate their workspaces (they refuse to
 during capture) without touching the request.  Python's cycle collector is
 paused while a chunk is captured: a collection could free an unreachable
 engine's graphs, and a graph destroyed during a capture breaks it.  A
-capture that fails raises.
+capture is thread-local (``capture_error_mode="thread_local"``), so a
+server's other threads may run CUDA work meanwhile.  A capture that fails
+raises.
 
 The chunk stops as the JAX ``while_loop`` does: each step is the body of a
 CUDA graph conditional (IF) node, whose predicate, ``any(~done) & (pos <
@@ -191,7 +194,7 @@ class _Slot:
         self.kv = kv
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self.inputs: Dict = {}  # name -> static tensor
-        self.sources: Dict = {}  # name -> the caller's tensor copied in last
+        self.sources: Dict = {}  # name -> (the caller's tensor copied in last, its version)
         self.voc: Dict[tuple, tuple] = {}  # (id(vocoder), full_batch) -> (vocoder, stream state)
         self.graphs: Dict[tuple, _Graph] = {}
 
@@ -226,13 +229,18 @@ class ChunkGraphs:
 
     def _input(self, slot: _Slot, name, src: torch.Tensor) -> torch.Tensor:
         """The slot's static copy of ``src``, refreshed when ``src`` is
-        another tensor than the one copied in last."""
+        another tensor than the one copied in last or was written since (its
+        version counter moved: a batch writes a joining row's trailing text
+        and tts_pad embedding in place).  An inference tensor keeps no
+        version counter, so it is copied every time."""
         buf = slot.inputs.get(name)
         if buf is None:
             buf = slot.inputs[name] = torch.empty_like(src)
-        if slot.sources.get(name) is not src:
+        version = None if src.is_inference() else src._version
+        last = slot.sources.get(name)
+        if last is None or last[0] is not src or version is None or last[1] != version:
             buf.copy_(src)
-            slot.sources[name] = src
+            slot.sources[name] = (src, version)
         return buf
 
     def _bind(self, slot: _Slot, state: Dict, tth, tth_len, tpe):
@@ -345,7 +353,10 @@ class ChunkGraphs:
 
         graph = torch.cuda.CUDAGraph(keep_graph=True) if self.record else torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with _no_gc(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        # thread-local capture: another thread's CUDA calls (a server's
+        # speaker encoder) neither break nor are refused by this capture
+        with _no_gc(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                        capture_error_mode="thread_local"):
             body()
         if self.record:
             graph.instantiate()

@@ -66,7 +66,7 @@ def _pad_tth(tth: torch.Tensor, tpe: torch.Tensor, bucketed: bool
     return tth, T
 
 
-class _Fetch:
+class HostCopy:
     """A chunk's device outputs on their way to the host: copied into
     host buffers (pinned, asynchronously, on the card) when the chunk is
     dispatched; ``get`` waits for the copies alone."""
@@ -111,7 +111,7 @@ def _chunk_iter(engine: Engine, state: Dict, tth, tth_len, tpe, chunk_size: int,
         else:
             chunk = engine.chunk_vocode_batched if full_batch else engine.chunk_vocode
             _, *outs, voc_state = chunk(vocoder, state, tth, tth_len, tpe, size, voc_state)
-        q.append(_Fetch(outs))
+        q.append(HostCopy(outs))
         planned += state["pos_host"] - before
 
     n_read = emitted = 0

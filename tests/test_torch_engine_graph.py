@@ -14,8 +14,11 @@ package (tiny float32, weights through ``bundle_from_jax_numpy``, greedy):
   tensor knobs give the same bits as number knobs;
 - the newest state's cache goes back to the pool, also when a stream is
   closed early; ``use_flash_decode=False`` runs the plain masked attention;
-  ``warmup`` / ``warmup_all`` run eager chunks and capture nothing.
+  ``warmup`` / ``warmup_all`` run eager chunks and capture nothing;
+- a captured chunk's static input (``ChunkGraphs._input``) follows its
+  source when the source is written in place between two chunks.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -281,3 +284,27 @@ def test_warmup_on_cpu_runs_eager_chunks_and_captures_nothing(setup, monkeypatch
     eng.warmup_all(pol, ppol, chunk_sizes=(4,), max_tth=64)
     assert chunks == [(16, 4, 4), (64, 4, 4)]
     assert len(eng._kv_pool) == 1 and eng.graphs is None
+
+
+@pytest.mark.parametrize("inference", [False, True])
+def test_static_input_follows_an_in_place_write(inference):
+    """The captured chunks' copy of the trailing text (``ChunkGraphs._input``,
+    its bookkeeping alone: no card) is copied in again when the caller writes
+    a row of the same tensor in place between two chunks, as a batch does for
+    a joining row; an inference tensor, which keeps no version counter, is
+    copied at every chunk."""
+    from qwen3tts_tpu_torch.runtime.graphs import ChunkGraphs, _Slot
+
+    graphs = ChunkGraphs.__new__(ChunkGraphs)
+    slot = _Slot({})
+    with torch.inference_mode() if inference else contextlib.nullcontext():
+        tth = torch.zeros((2, 16, 8))
+    with torch.inference_mode():  # the engine's chunks run in inference mode
+        buf = graphs._input(slot, ("tth", 16), tth)
+        assert torch.equal(buf, tth)
+        tth[1, :5] = 1.0  # a joining row, written in place
+        assert graphs._input(slot, ("tth", 16), tth) is buf
+        assert torch.equal(buf, tth), "the next chunk would read the old row"
+        other = torch.full((2, 16, 8), 2.0)  # another tensor
+        assert graphs._input(slot, ("tth", 16), other) is buf
+        assert torch.equal(buf, other)

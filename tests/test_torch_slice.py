@@ -10,8 +10,10 @@
   and for an ICL clone.
 - A subprocess that cannot import JAX or the JAX package imports
   qwen3tts_tpu_torch and runs tiny generations (x-vector and ICL clone,
-  custom voice), imports long form, and runs a predictor frame through the
-  micro-step and the matvec probes' kernels (plain versions).
+  custom voice), imports long form and serving (the scheduler, the replica
+  pool, the OpenAI-compatible server, timing, mp3), and runs a predictor
+  frame through the micro-step and the matvec probes' kernels (plain
+  versions).
 - With no card and no device given, the entry points raise instead of
   running on the CPU.
 """
@@ -238,6 +240,13 @@ def test_package_runs_without_jax(tmp_path):
         assert wavs[0].shape == (4 * c.vocoder.spf,), wavs[0].shape
         from qwen3tts_tpu_torch.api import longform
         assert longform.split_sentences("One. Two!") == ["One. Two!"]
+        from qwen3tts_tpu_torch.apps import openai_server
+        from qwen3tts_tpu_torch.audio import mp3
+        from qwen3tts_tpu_torch.runtime import replicas, scheduler
+        from qwen3tts_tpu_torch.utils import timing
+        assert callable(m.replicate_to) and callable(openai_server.serve)
+        assert scheduler.ContinuousBatcher and replicas.ReplicaPool and timing.Stopwatch
+        assert isinstance(mp3.is_available(), bool)
 
         from qwen3tts_tpu_torch.models import predictor as P
         from qwen3tts_tpu_torch.ops import matvec as mv
