@@ -138,10 +138,26 @@ Phases, in order; any failure raises and exits non-zero:
    counted streamed request (flash-decode 28 a step); the 1.7B again with
    use_micro_kernel=True, a counted 48-step request (flash-decode 28 and the
    micro-step 14 a step).
+12. slice-checkpoint — checkpoints and the command line on the bf16 0.6B
+   (random:qwen3-tts-0.6b, seed 0, loaded anew), in a temporary directory:
+   save_pretrained, then from_pretrained of the directory with no device
+   (the card): every leaf equal, seconds and bytes of each; the upstream
+   torch layout in three shards (export_torch_checkpoint), the CLI's
+   check-checkpoint (exit 0) and from_pretrained of it (leaves equal); the
+   CLI's ``clone --model <dir>`` non-streamed and streamed at chunk 8 (48
+   steps, seed 0): whole codec frames, the same samples as the source
+   model's API call with the same seed and arguments, the CLI's printed RTF
+   and TTFA; the loaded model's counted request (flash-decode 28 a step);
+   the CLI's export-fixture (24 steps) and check-fixture (exit 0; exit 1 on
+   a copy with one token changed); and a request traced with
+   QWEN3TTS_PROFILE_DIR on the captured engine (it runs eagerly: no replay
+   while the profiler is active) followed by untraced captured requests,
+   whose greedy tokens equal the eager engine's.
 
-No phase runs torch.profiler: its tracing of CUDA graphs with conditional
-nodes lost kernel records, and a replay after such traces faulted on the
-H100 (``tools/graph_trace_probe.py``).  Prints each phase's seconds, the
+No phase runs torch.profiler around a captured replay: its tracing of CUDA
+graphs with conditional nodes lost kernel records, and a replay after such
+traces faulted on the H100 (``tools/graph_trace_probe.py``); the one traced
+request (slice-checkpoint) runs its chunks eagerly.  Prints each phase's seconds, the
 kernels' JSON line before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  The kernels' ``launches`` are those of
 the main path's counted captured requests (slice-graph, the run that
@@ -153,6 +169,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -238,6 +255,12 @@ def probe():
     from qwen3tts_tpu_torch.audio import mp3
 
     log(f"libmp3lame loads: {mp3.is_available()}; libmpg123 loads: {mp3.decode_available()}")
+    for name in ("safetensors", "tokenizers", "ml_dtypes"):  # for the record: the port needs none
+        try:
+            __import__(name)
+            log(f"{name} imports: True")
+        except ImportError:
+            log(f"{name} imports: False")
     return card
 
 
@@ -2993,6 +3016,246 @@ def slice_voices_phase(card: str, models: dict) -> dict:
     return res
 
 
+CKPT_STEPS = 48  # the CLI's clone requests
+FIXTURE_STEPS = 24
+TRACED_STEPS = 8  # the profiled request (eager: every launch traced)
+
+
+def _leaves_equal(got: dict, want: dict, what: str) -> int:
+    """Every leaf of ``got`` on the card and ``torch.equal`` to ``want``'s."""
+    from qwen3tts_tpu_torch.core.loader import flatten
+
+    fa, fb = flatten(got), flatten(want)
+    bad = sorted(set(fa) ^ set(fb)) or [
+        k for k in fa if fa[k].device.type != "cuda" or fa[k].dtype != fb[k].dtype
+        or not torch.equal(fa[k], fb[k])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} leaves differ, e.g. {bad[:3]}")
+    return len(fa)
+
+
+def _cli(*argv) -> tuple:
+    """``qwen3tts_tpu_torch.apps.cli.main(argv)`` in this process: (exit
+    code, stdout, stderr, seconds).  Frees the model it loaded."""
+    import gc
+    import io
+
+    from qwen3tts_tpu_torch.apps import cli
+
+    out, err, code = io.StringIO(), io.StringIO(), 0
+    t = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            cli.main(list(argv))
+        except SystemExit as e:
+            code = e.code
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  cli {argv[0]}: exit {code} in {dt:.1f}s; {out.getvalue().strip()[-300:]}")
+    return code, out.getvalue(), err.getvalue(), dt
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _wav_of(audio: np.ndarray, path: str) -> np.ndarray:
+    """``audio`` as the CLI's wav holds it (16-bit PCM, read back)."""
+    from qwen3tts_tpu_torch.audio.wav import read_wav, write_wav
+
+    write_wav(path, audio, 24_000)
+    return read_wav(path)[0]
+
+
+def _greedy_ids(model, prompt, steps: int) -> np.ndarray:
+    """The codec ids of one greedy ``_generate`` (talker and predictor
+    greedy, ``steps`` pinned), read from the loop's return."""
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+
+    real, got = loops.fast_generate, []
+
+    def recorded(*a, **kw):
+        ids, timing = real(*a, **kw)
+        got.append(ids)
+        return ids, timing
+
+    loops.fast_generate = recorded
+    try:
+        model._generate(*prompt, GenerationPolicy(do_sample=False, min_new_tokens=steps),
+                        SamplingPolicy(do_sample=False), steps)
+    finally:
+        loops.fast_generate = real
+    if got[0].shape != (steps, 16):
+        raise AssertionError(f"greedy request: ids {got[0].shape}, want ({steps}, 16)")
+    return got[0]
+
+
+def _traced_then_captured(card: str, model, ref: str, tmp: str) -> dict:
+    """QWEN3TTS_PROFILE_DIR on the captured engine: the traced request runs
+    eagerly (no ChunkGraphs.run while the profiler is active) and writes its
+    trace; two untraced requests after it capture and replay; every one's
+    greedy tokens equal the eager engine's."""
+    graphs = model.engine.graphs
+    runs, real_run = [0], graphs.run
+
+    def counted(*a, **kw):
+        runs[0] += 1
+        return real_run(*a, **kw)
+
+    graphs.run = counted
+    prompt = model._prepare_clone(TEXT_A, ref, "", "English", True, True, True, None)
+    prof = os.path.join(tmp, "prof")
+    try:
+        os.environ["QWEN3TTS_PROFILE_DIR"] = prof
+        t = time.time()
+        traced = _greedy_ids(model, prompt, TRACED_STEPS)
+        traced_s = time.time() - t
+        del os.environ["QWEN3TTS_PROFILE_DIR"]
+        replays_traced = runs[0]
+        captured = [_greedy_ids(model, prompt, TRACED_STEPS) for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("QWEN3TTS_PROFILE_DIR", None)
+        del graphs.run
+    saved = model.engine
+    model.engine = _engine(model)  # use_cuda_graphs=False
+    try:
+        eager = _greedy_ids(model, prompt, TRACED_STEPS)
+    finally:
+        model.engine = saved
+    traces = os.listdir(prof) if os.path.isdir(prof) else []
+    if replays_traced or len(traces) != 1:
+        raise AssertionError(f"traced request: {replays_traced} graph replays, traces {traces}")
+    if runs[0] == 0:
+        raise AssertionError("the untraced requests replayed no graph")
+    for name, ids in (("traced", traced), ("captured", captured[0]),
+                      ("captured again", captured[1])):
+        if not np.array_equal(ids, eager):
+            raise AssertionError(f"{name} greedy tokens differ from the eager engine's")
+    return {"traced_s": traced_s, "trace_bytes": os.path.getsize(os.path.join(prof, traces[0])),
+            "replays_while_traced": replays_traced, "replays_after": runs[0],
+            "greedy_steps": TRACED_STEPS, "tokens_equal_eager": True}
+
+
+def slice_checkpoint_phase(card: str) -> dict:
+    """Checkpoints and the CLI on the bf16 0.6B (see the module docstring,
+    phase 12).  Frees every model it loads."""
+    import gc
+    import re
+
+    from qwen3tts_tpu_torch import FasterQwen3TTS
+    from qwen3tts_tpu_torch.core import loader
+
+    if not logging.root.handlers:  # the CLI's basicConfig must not bind a captured stream
+        logging.basicConfig(level=logging.WARNING)
+    sync = torch.cuda.synchronize
+    res = {"card": card}
+    model = _load()
+    spf = model.vocoder.spf
+    with tempfile.TemporaryDirectory() as tmp:
+        canon, tdir = os.path.join(tmp, "canon"), os.path.join(tmp, "torch")
+        ref = os.path.join(tmp, "ref.wav")
+        _ref_wav(ref)
+        t = time.time()
+        model.save_pretrained(canon)
+        res["save"] = {"s": time.time() - t, "bytes": _dir_bytes(canon)}
+        sync()
+        t = time.time()
+        loaded = FasterQwen3TTS.from_pretrained(canon)  # no device: the card
+        sync()
+        res["load"] = {"s": time.time() - t, "bytes": res["save"]["bytes"],
+                       "leaves": _leaves_equal(loaded.params, model.params, "canonical load")}
+        t = time.time()
+        loader.export_torch_checkpoint(tdir, model.cfg, loader.bundle_to_jax_layout(model.params),
+                                       num_shards=3)
+        res["export_torch"] = {"s": time.time() - t, "bytes": _dir_bytes(tdir),
+                               "files": sorted(os.listdir(tdir))}
+        code, out, _, dt = _cli("check-checkpoint", tdir)
+        if code != 0 or "OK" not in out:
+            raise AssertionError(f"check-checkpoint: exit {code}\n{out}")
+        res["check_checkpoint"] = {"exit": code, "s": dt, "report": out.splitlines()[0]}
+        sync()
+        t = time.time()
+        from_torch = FasterQwen3TTS.from_pretrained(tdir)
+        sync()
+        res["load_torch"] = {"s": time.time() - t, "leaves": _leaves_equal(
+            from_torch.params, model.params, "torch-layout load")}
+        del from_torch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        api = dict(text=TEXT_A, language="English", ref_audio=ref, ref_text="",
+                   max_new_tokens=CKPT_STEPS)
+        for mode, extra in (("non_streamed", ()), ("streamed_chunk8",
+                                                   ("--streaming", "--chunk-size", "8"))):
+            wav = os.path.join(tmp, f"{mode}.wav")
+            code, out, err, dt = _cli("clone", "--model", canon, "--ref-audio", ref,
+                                      "--text", TEXT_A, "--max-new-tokens", str(CKPT_STEPS),
+                                      "--seed", "0", "-o", wav, *extra)
+            if code != 0:
+                raise AssertionError(f"clone {mode}: exit {code}\n{err[-2000:]}")
+            from qwen3tts_tpu_torch.audio.wav import read_wav
+
+            got, sr = read_wav(wav)
+            model._gen.manual_seed(0)
+            if extra:
+                want = np.concatenate([a for a, _, _ in model.generate_voice_clone_streaming(
+                    chunk_size=8, **api)])
+            else:
+                want = model.generate_voice_clone(**api)[0][0]
+            want = _wav_of(want, os.path.join(tmp, "want.wav"))
+            if sr != 24_000 or len(got) % spf or len(got) == 0:
+                raise AssertionError(f"clone {mode}: {len(got)} samples at {sr} Hz")
+            if got.shape != want.shape or np.abs(got - want).max() > 1e-6:
+                raise AssertionError(f"clone {mode}: the CLI's audio {got.shape} differs from "
+                                     f"the API's {want.shape}")
+            rtf = re.search(r"RTF ([0-9.]+)", out)
+            ttfa = re.search(r"TTFA: ([0-9]+)ms", err)
+            res[f"cli_clone_{mode}"] = {
+                "s": dt, "frames": len(got) // spf, "rtf_printed": float(rtf.group(1)),
+                "ttfa_ms_printed": float(ttfa.group(1)) if ttfa else None,
+                "audio_equals_api": True}
+
+        # the loaded model's captured path: warm it, then count a request's launches
+        list(loaded.generate_voice_clone_streaming(chunk_size=CHUNK, max_new_tokens=16,
+                                                   min_new_tokens=16, **{
+                                                       k: v for k, v in api.items()
+                                                       if k != "max_new_tokens"}))
+        res["counted_request"] = _held_request(loaded.engine, lambda: list(
+            loaded.generate_voice_clone_streaming(
+                text=TEXT_A, language="English", ref_audio=ref, ref_text="", chunk_size=CHUNK,
+                max_new_tokens=16, min_new_tokens=16)), {"flash_decode": 28}, 16,
+            "from_pretrained(<dir>) bf16")
+
+        fx, bad = os.path.join(tmp, "fx.npz"), os.path.join(tmp, "bad.npz")
+        code, _, err, dt = _cli("export-fixture", "--model", canon, "--text", TEXT_A,
+                                "--max-new-tokens", str(FIXTURE_STEPS), "-o", fx)
+        if code != 0:
+            raise AssertionError(f"export-fixture: exit {code}\n{err[-2000:]}")
+        with np.load(fx) as z:
+            tokens, meta = z["tokens"].copy(), z["meta"]
+        tokens[FIXTURE_STEPS // 2, 3] = (tokens[FIXTURE_STEPS // 2, 3] + 1) % 2048
+        np.savez(bad, tokens=tokens, meta=meta)
+        res["fixture"] = {"export_s": dt, "steps": int(tokens.shape[0])}
+        for name, path, want_code in (("check_pass", fx, 0), ("check_changed_token", bad, 1)):
+            code, out, _, dt = _cli("check-fixture", "--model", canon, path)
+            if code != want_code:
+                raise AssertionError(f"check-fixture {name}: exit {code}, want {want_code}\n"
+                                     f"{out}")
+            res["fixture"][name] = {"exit": code, "s": dt, "line": out.strip().splitlines()[-1]}
+
+        res["profiler"] = _traced_then_captured(card, loaded, ref, tmp)
+    del model, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  slice-checkpoint: {json.dumps(res)}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
@@ -3032,6 +3295,7 @@ def main():
     serve = phase("slice-serve", slice_serve_phase, card, models)
     serve_parity = phase("slice-serve", serve_parity_phase, card)
     voices = phase("slice-voices", slice_voices_phase, card, models)
+    ckpt = phase("slice-checkpoint", slice_checkpoint_phase, card)
     # the main path: the captured chunks, in the counted request that
     # captured them; a replay's launches read from its graph's kernel nodes
     traced = {path: g["paths"][path]["captured"]["counted_request"]["capturing"]["launches"]
@@ -3068,6 +3332,7 @@ def main():
                                "plain_ms": m17_out["times"]["plain"],
                                "bound_ms": m17_out["bound_ms"], "max_abs_err": m17_err}
     log("slice-voices: " + json.dumps({"card": card, **voices, "kernels_1.7b": k17}))
+    log("slice-checkpoint: " + json.dumps(ckpt))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],

@@ -1,7 +1,9 @@
 """FasterQwen3TTS — the public API class of the PyTorch port.
 
-Port of ``qwen3tts_tpu/api/model.py`` for single requests:
-``from_pretrained("random:<preset>", device=..., dtype=...)``; voice clone
+Port of ``qwen3tts_tpu/api/model.py``:
+``from_pretrained("random:<preset>" or a checkpoint dir, device=...,
+dtype=...)`` and ``save_pretrained(dir)`` (the canonical checkpoint layout
+both packages read, ``core/loader.py``); voice clone
 from an x-vector or, with ``xvec_only=False``, in-context from the
 reference's codec codes and transcript (``generate_voice_clone[_streaming]``,
 ``create_voice_clone_prompt``); the predefined speakers of a custom-voice
@@ -12,8 +14,7 @@ the per-step loop of ``runtime/loops.py``; and batched voice clone
 pass on an ``Engine(batch=B)`` per batch size, built when first asked for).
 Signatures, defaults and guards are the JAX class's, including
 ``quantize="int8" | "int8-talker" | "int8-predictor"`` (int8 weight-only)
-and ``kv_quant=True`` (int8 KV cache).  Checkpoints and the w8a8 modes are
-not ported yet.
+and ``kv_quant=True`` (int8 KV cache).  The w8a8 modes are not ported yet.
 
 An ICL prompt carries the reference's codec frames: the non-streamed audio
 is the decode of reference + generated frames with the reference's samples
@@ -26,10 +27,14 @@ As the JAX class compiles its decode programs before its first generation
 at chunk sizes 8 and 16, or the streaming request's own, for the request's
 trailing-text bucket; a later request with another bucket or chunk size
 captures its graph when it first needs it.  ``warmup_all`` captures every
-bucket up front.  On the CPU nothing is captured.
+bucket up front.  On the CPU nothing is captured.  With
+``QWEN3TTS_PROFILE_DIR`` set, a generation is traced by ``torch.profiler``
+and runs its chunks eagerly (``Engine.eager``): the profiler is never
+active around a graph replay.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import logging
 import os
@@ -42,7 +47,8 @@ import torch
 from ..audio.vocoder import StatefulStreamDecoder, Vocoder
 from ..audio.wav import read_wav, resample
 from ..core.config import DTYPES, TTSModelConfig
-from ..core.loader import load_pretrained, resolve_device
+from ..core.loader import (bundle_to_jax_layout, load_pretrained, resolve_device,
+                           save_checkpoint)
 from ..models import speaker as speaker_lib
 from ..models.predictor import SamplingPolicy
 from ..ops.quant import quantize_bundle
@@ -53,6 +59,18 @@ from .prompt import PromptBuilder
 from .tokenizer import TextTokenizer
 
 logger = logging.getLogger(__name__)
+
+
+def _infer_sample_rate(codec_cfg, model_cfg) -> int:
+    """Sample-rate inference chain: speech-tokenizer rate -> model-level
+    rate -> 24000 default (with a warning)."""
+    sr = getattr(codec_cfg, "sample_rate", None)
+    if sr is None:
+        sr = getattr(model_cfg, "sample_rate", None)
+    if sr is None:
+        logger.warning("Could not infer sample rate; defaulting to 24000 Hz.")
+        return 24_000
+    return int(sr)
 
 
 class FasterQwen3TTS:
@@ -77,7 +95,7 @@ class FasterQwen3TTS:
         self.prompt_builder = PromptBuilder(params["talker"], params["predictor"], cfg)
         self.tokenizer = TextTokenizer(tokenizer_json=tokenizer_json,
                                        vocab_size=cfg.talker.text_vocab_size)
-        self.sample_rate = int(getattr(cfg.codec, "sample_rate", None) or cfg.sample_rate)
+        self.sample_rate = _infer_sample_rate(cfg.codec, cfg)
         self._voice_prompt_cache: Dict = {}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.tts_model_type = cfg.model_type
@@ -89,10 +107,15 @@ class FasterQwen3TTS:
                         max_seq_len: int = 2048, seed: int = 0,
                         quantize: Optional[str] = None,
                         kv_quant: bool = False) -> "FasterQwen3TTS":
-        """Build a model from 'random:<preset>' on ``device`` (default: the
-        card; with no card, pass ``device="cpu"`` or it raises).  ``dtype`` names the talker/predictor dtype
-        ("bfloat16", "float32", ...); the codec and speaker encoder stay
-        float32, and the codec computes in bfloat16.
+        """Build a model from 'random:<preset>' or a checkpoint dir (either
+        layout, ``core/loader.py:load_checkpoint``) on ``device`` (default:
+        the card; with no card, pass ``device="cpu"`` or it raises).
+        ``dtype`` names the talker/predictor dtype ("bfloat16", "float32",
+        ...; a checkpoint's own by default); the codec and speaker encoder
+        stay float32, and the codec computes in bfloat16.  A checkpoint
+        dir's ``tokenizer.json`` feeds the text tokenizer (the
+        ``tokenizers`` package is imported only then); without one the
+        byte-level fallback is used, with a warning.
 
         ``quantize`` stores the talker/predictor projection matrices (and
         the predictor's lm_heads) as int8 with per-channel scales: "int8"
@@ -103,11 +126,30 @@ class FasterQwen3TTS:
         if isinstance(dtype, str):
             dtype = DTYPES[dtype]
         cfg, params = load_pretrained(model_name, dtype=dtype, seed=seed, device=device)
+        tokenizer_json = None
+        ckpt_dir = Path(model_name)
+        if ckpt_dir.is_dir():
+            tok = ckpt_dir / "tokenizer.json"
+            if tok.exists():
+                tokenizer_json = str(tok)
+            else:
+                logger.warning(
+                    "Checkpoint %s has no tokenizer.json — falling back to the "
+                    "byte-level tokenizer, whose token ids will NOT match the "
+                    "Qwen text vocab. Place the upstream tokenizer.json in the "
+                    "checkpoint dir for correct text conditioning.", model_name)
         if quantize:
             params = quantize_bundle(params, quantize)
         logger.info("Loaded %s (%s, %s%s) on %s", model_name, cfg.model_type, cfg.dtype,
                     f", {quantize}" if quantize else "", device)
-        return cls(cfg, params, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant)
+        return cls(cfg, params, max_seq_len=max_seq_len, seed=seed,
+                   tokenizer_json=tokenizer_json, kv_quant=kv_quant)
+
+    def save_pretrained(self, path: Union[str, Path]) -> None:
+        """Write the model as a canonical checkpoint dir (config.json +
+        model.safetensors in the JAX pytree's layout), which this package's
+        and the JAX package's ``from_pretrained`` both load."""
+        save_checkpoint(path, self.cfg, bundle_to_jax_layout(self.params))
 
     # ------------------------------------------------------------------
     # voice-clone prompt
@@ -276,9 +318,12 @@ class FasterQwen3TTS:
         if not parity_mode:
             self._warmup(embeds.shape[1], trailing.shape[1], pol, ppol)
         gen = loops.parity_generate if parity_mode else loops.fast_generate
-        # QWEN3TTS_PROFILE_DIR: a torch.profiler trace of the generation
-        # (eager engines only: see device_trace)
-        with device_trace(os.environ.get("QWEN3TTS_PROFILE_DIR")):
+        # QWEN3TTS_PROFILE_DIR: a torch.profiler trace of the generation,
+        # whose chunks then run eagerly (no replay under the profiler: see
+        # device_trace)
+        profile_dir = os.environ.get("QWEN3TTS_PROFILE_DIR")
+        with (self.engine.eager() if profile_dir else contextlib.nullcontext()), \
+                device_trace(profile_dir):
             codec_ids, timing = gen(self.engine, embeds, trailing, tpe, generator=self._gen,
                                     max_new_tokens=max_new_tokens, policy=pol,
                                     pred_policy=ppol)

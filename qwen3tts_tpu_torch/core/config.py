@@ -1,8 +1,10 @@
 """Configuration dataclasses for the PyTorch port of Qwen3-TTS.
 
-The same dataclasses as ``qwen3tts_tpu/core/config.py``; the dtype mapping
-differs (torch dtypes instead of jnp), and the HF ``config.json`` readers
-and writers wait for checkpoint loading.
+The same dataclasses as ``qwen3tts_tpu/core/config.py``, with its
+``config.json`` readers and writers (``from_json`` / ``from_dict`` parse the
+upstream HF key layout, ``to_hf_dict`` writes it, ``to_dict`` is the
+canonical nested layout); the dtype mapping differs (torch dtypes instead
+of jnp).
 
 Every sub-model has an explicit config dataclass; ``presets.py`` provides
 self-consistent architectures for the 0.6B / 1.7B model families.  The codec
@@ -12,6 +14,8 @@ defaults to 2048 slots.
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -271,3 +275,56 @@ class TTSModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _dtype_of(self.dtype)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def from_json(path) -> "TTSModelConfig":
+        """Load a HF-style checkpoint config.json (upstream key layout)."""
+        return TTSModelConfig.from_dict(json.loads(Path(path).read_text()))
+
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "TTSModelConfig":
+        tk = dict(raw.get("talker_config", {}))
+        pred = dict(tk.pop("code_predictor_config", raw.get("code_predictor_config", {})))
+        codec = dict(raw.get("speech_tokenizer_config", raw.get("code2wav_config", {})))
+        spk = dict(raw.get("speaker_encoder_config", {}))
+
+        def filt(cls, d):
+            names = {f.name for f in dataclasses.fields(cls)}
+            return cls(**{k: (tuple(v) if isinstance(v, list) else v)
+                          for k, v in d.items() if k in names})
+
+        return TTSModelConfig(
+            model_type=raw.get("tts_model_type", raw.get("model_type", "base")),
+            model_size=str(raw.get("tts_model_size", "0.6b")),
+            talker=filt(TalkerConfig, tk),
+            predictor=filt(PredictorConfig, pred),
+            codec=filt(CodecConfig, codec) if codec else CodecConfig(),
+            speaker_encoder=filt(SpeakerEncoderConfig, spk) if spk else SpeakerEncoderConfig(),
+            tts_bos_token_id=raw.get("tts_bos_token_id", 151_672),
+            tts_eos_token_id=raw.get("tts_eos_token_id", 151_673),
+            tts_pad_token_id=raw.get("tts_pad_token_id", 151_671),
+            dtype=raw.get("torch_dtype", "bfloat16"),
+            sample_rate=raw.get("sample_rate", 24_000),
+        )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_hf_dict(self) -> Dict[str, Any]:
+        """Serialize in the upstream HF key layout that ``from_dict`` parses
+        (the config format of a torch-layout checkpoint dir)."""
+        tk = dataclasses.asdict(self.talker)
+        tk["code_predictor_config"] = dataclasses.asdict(self.predictor)
+        return {
+            "tts_model_type": self.model_type,
+            "tts_model_size": self.model_size,
+            "talker_config": tk,
+            "speech_tokenizer_config": dataclasses.asdict(self.codec),
+            "speaker_encoder_config": dataclasses.asdict(self.speaker_encoder),
+            "tts_bos_token_id": self.tts_bos_token_id,
+            "tts_eos_token_id": self.tts_eos_token_id,
+            "tts_pad_token_id": self.tts_pad_token_id,
+            "torch_dtype": self.dtype,
+            "sample_rate": self.sample_rate,
+        }

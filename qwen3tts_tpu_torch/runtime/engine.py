@@ -12,8 +12,10 @@ fixed addresses, the KV cache it was captured on.  ``decode_chunk``,
 ``chunk_vocode`` and ``chunk_vocode_batched`` replay the graph for their
 key, capturing it first when there is none, as JAX compiles on a new static
 argument.  On CPU tensors (and with ``use_cuda_graphs=False``) the same
-steps run eagerly.  The one eager chunk on the card is the cache's last,
-which the host caps below the chunk size.
+steps run eagerly.  The eager chunks on the card are the cache's last,
+which the host caps below the chunk size, and every chunk run inside
+``Engine.eager()`` (a traced generation: the profiler is never active
+around a graph replay).
 
 A chunk stops as the JAX ``while_loop`` does: a step runs only while some
 row is live and the position is below ``max_seq_len - 1``.  The eager chunk
@@ -68,6 +70,7 @@ int8-KV flash-decode kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -235,6 +238,20 @@ class Engine:
         self._kv_pool = []
         self._kv_lock = threading.Lock()
         self.warmed_up = False
+        self._eager_depth = 0  # > 0 inside eager(): no chunk is replayed
+
+    @contextlib.contextmanager
+    def eager(self):
+        """Run every chunk of this engine eagerly inside the block, never
+        through ``ChunkGraphs.run``: the profiler's tracing lost kernel
+        records of replayed graphs and a later replay faulted on the H100
+        (``utils/timing.py:device_trace``), so a traced generation runs
+        here.  Graphs captured before the block stay for later requests."""
+        self._eager_depth += 1
+        try:
+            yield self
+        finally:
+            self._eager_depth -= 1
 
     def _has_graphs(self, kv) -> bool:
         return self.graphs is not None and self.graphs.has_graphs(kv)
@@ -441,7 +458,7 @@ class Engine:
         frames through the codec stream.  Books the steps it may run."""
         steps = self._steps(state, chunk_size)
         tth = self._tth(tth, tpe)
-        if self.graphs is not None and steps == chunk_size:
+        if self.graphs is not None and not self._eager_depth and steps == chunk_size:
             out = self.graphs.run(state, tth, tth_len, tpe, chunk_size, vocoder=vocoder,
                                   voc_state=voc_state, pcm16=pcm16, full_batch=full_batch)
         else:

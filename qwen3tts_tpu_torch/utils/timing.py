@@ -49,8 +49,10 @@ def device_trace(log_dir: Optional[str] = None):
     replayed CUDA graphs whose steps sit in conditional nodes (the captured
     chunks, ``runtime/graphs.py``), and a replay after such traces faulted
     with an illegal address (``python -m
-    qwen3tts_tpu_torch.tools.graph_trace_probe --profile``); build the
-    engine with ``use_cuda_graphs=False`` before tracing."""
+    qwen3tts_tpu_torch.tools.graph_trace_probe --profile``).  So run the
+    traced work inside ``Engine.eager()``, as ``FasterQwen3TTS`` does for
+    ``QWEN3TTS_PROFILE_DIR``, or on an engine built with
+    ``use_cuda_graphs=False``."""
     if not log_dir:
         yield
         return

@@ -8,10 +8,12 @@
 - FasterQwen3TTS (``random:tiny``, CPU) returns steps x samples-per-frame
   audio, streaming and not, also with ``quantize="int8", kv_quant=True``
   and for an ICL clone.
-- A subprocess that cannot import JAX or the JAX package imports
-  qwen3tts_tpu_torch and runs tiny generations (x-vector and ICL clone,
-  custom voice), imports long form and serving (the scheduler, the replica
-  pool, the OpenAI-compatible server, timing, mp3), and runs a predictor
+- A subprocess that cannot import JAX, the JAX package, ``safetensors``,
+  ``ml_dtypes`` or ``tokenizers`` imports qwen3tts_tpu_torch and runs tiny
+  generations (x-vector and ICL clone, custom voice), imports long form and
+  serving (the scheduler, the replica pool, the OpenAI-compatible server,
+  timing, mp3), saves and loads a checkpoint, imports the CLI and the
+  fixtures, and runs a predictor
   frame through the micro-step and the matvec probes' kernels (plain
   versions).
 - With no card and no device given, the entry points raise instead of
@@ -212,7 +214,8 @@ def test_package_runs_without_jax(tmp_path):
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "qwen3tts_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "qwen3tts_tpu", "safetensors",
+                                          "ml_dtypes", "tokenizers"):
                     raise ImportError("blocked: " + name)
 
         # scipy probes sys.modules for jax, so block at import time rather
@@ -247,6 +250,13 @@ def test_package_runs_without_jax(tmp_path):
         assert callable(m.replicate_to) and callable(openai_server.serve)
         assert scheduler.ContinuousBatcher and replicas.ReplicaPool and timing.Stopwatch
         assert isinstance(mp3.is_available(), bool)
+        m.save_pretrained(sys.argv[1] + ".ckpt")  # the port's own safetensors code
+        again = FasterQwen3TTS.from_pretrained(sys.argv[1] + ".ckpt", device="cpu")
+        assert torch.equal(again.params["talker"]["codec_embedding"],
+                           m.params["talker"]["codec_embedding"])
+        from qwen3tts_tpu_torch.apps import cli
+        from qwen3tts_tpu_torch.core import fixtures
+        assert callable(cli.main) and fixtures.FIXTURE_VERSION == 1
 
         from qwen3tts_tpu_torch.models import predictor as P
         from qwen3tts_tpu_torch.ops import matvec as mv
