@@ -28,7 +28,14 @@ Phases, in order; any failure raises and exits non-zero:
    cache slot by slot, two runs bit-equal, one captured graph replayed
    after x, pos, the rope rows and the cache were rewritten;
    matvec and matvec_kt at the probe's default (K 1024, N 65536) and the
-   talker's qkv shape (1024 x 4096), then the probe's 20-call run.
+   talker's qkv shape (1024 x 4096), then the probe's 20-call run;
+   quantize_act and w8a8_gemv (csrc/w8a8.cu) at the 0.6B talker's four
+   product shapes, the predictor's qkv and o and the 1.7B talker's qkv, 1,
+   2, 4 and 16 rows, bf16 and float32, bit-equal to their plain versions
+   (tolerance 0), two runs equal, the route above 16 rows (torch._int_mm)
+   at 17 and 64 rows also exact, one captured graph per shape replayed
+   after its input was rewritten; timed beside their bounds, the bf16
+   torch.matmul of the same shape and torch._int_mm at 17 rows.
    bf16 (the main path's dtype) is held to 2e-3 + 1.6e-2*|ref|, float32 to
    1e-5 (where a slot or a row counted wrong shows above the tolerance).
    The split-K kernels (flash-decode, matvec) give the same bits in two
@@ -65,7 +72,11 @@ Phases, in order; any failure raises and exits non-zero:
    int8 model, captured chunks against eager ones: equal greedy tokens,
    step for step (the first differing step fails the run); then a greedy
    B 3 batch with left pads (6, 10 and 8 tokens) and a join_row into it,
-   captured on the card against eager on the CPU: equal tokens.
+   captured on the card against eager on the CPU: equal tokens; then the
+   float32 model with a w8a8 bundle, captured on the card (the w8a8
+   kernels) against eager on the CPU: equal greedy frames through every
+   step before the first activation whose int8 rounding differs (found by
+   recording every quantize_act on both), that rounding off by one.
 7. slice-graph — the main path: the API's captured chunks (CUDA graphs,
    runtime/graphs.py) on the 0.6B at full width, on three paths (bf16; bf16
    with use_micro_kernel=True; int8 weights + int8 KV cache +
@@ -153,6 +164,16 @@ Phases, in order; any failure raises and exits non-zero:
    QWEN3TTS_PROFILE_DIR on the captured engine (it runs eagerly: no replay
    while the profiler is active) followed by untraced captured requests,
    whose greedy tokens equal the eager engine's.
+13. slice-w8a8 — random:qwen3-tts-0.6b (bf16) with quantize="w8a8" through
+   the API with captured chunks: warm-up, a non-streamed and a streamed
+   (chunk 8) request of 48 steps (ms/step, RTF, TTFA) and a counted
+   streamed request (flash-decode 28, quantize_act 412, w8a8_gemv 412
+   kernel nodes a step, and the eager prefill's); a B 4 fast_generate_batch
+   of 48 steps (the same counts a step); one request each with
+   "w8a8-talker" and "w8a8-predictor"; then utils/quality.py's
+   quant_quality(bf16, w8a8) and quant_quality(bf16, int8) at 24 steps
+   (teacher-forced logit MSE and argmax-flip rates, talker and predictor
+   apart; the vocoder's SNR on identical codes must be 99.0).
 
 No phase runs torch.profiler around a captured replay: its tracing of CUDA
 graphs with conditional nodes lost kernel records, and a replay after such
@@ -1494,7 +1515,8 @@ EAGER_STEPS = 32  # ... eager ones (75-180 ms a step)
 COUNTED_STEPS = {"captured": 16, "eager": 8}  # streamed requests whose kernels are counted
 # the kernels counted on each path, launches a step (28 talker layers; 5
 # predictor layers x 14 micro-steps)
-KERNELS = ("flash_decode", "fused_norm_matmul", "fused_o_mlp", "fused_micro_step")
+KERNELS = ("flash_decode", "fused_norm_matmul", "fused_o_mlp", "fused_micro_step",
+           "quantize_act", "w8a8_gemv")
 GRAPH_PATHS = {  # path -> (model, Engine keywords, launches a step by kernel)
     "bf16": ("bf16", {}, {"flash_decode": 28}),
     "micro": ("bf16", {"use_micro_kernel": True}, {"flash_decode": 28, "fused_micro_step": 14}),
@@ -1508,20 +1530,24 @@ def _launch_counts() -> dict:
     from qwen3tts_tpu_torch.ops import flash_decode as fd
     from qwen3tts_tpu_torch.ops import fused_block as fb
     from qwen3tts_tpu_torch.ops import predictor_step as ps
+    from qwen3tts_tpu_torch.ops import w8a8
 
     return {"flash_decode": fd.flash_decode.launches + fd.flash_decode.launches_int8kv,
             "fused_norm_matmul": fb.fused_norm_matmul.launches,
             "fused_o_mlp": fb.fused_o_mlp.launches,
-            "fused_micro_step": ps.fused_micro_step.launches}
+            "fused_micro_step": ps.fused_micro_step.launches,
+            "quantize_act": w8a8.quantize_act.launches, "w8a8_gemv": w8a8.w8a8_gemv.launches}
 
 
 def _zero_counts() -> None:
     from qwen3tts_tpu_torch.ops import flash_decode as fd
     from qwen3tts_tpu_torch.ops import fused_block as fb
     from qwen3tts_tpu_torch.ops import predictor_step as ps
+    from qwen3tts_tpu_torch.ops import w8a8
 
     fd.flash_decode.launches = fd.flash_decode.launches_int8kv = 0
     fb.fused_norm_matmul.launches = fb.fused_o_mlp.launches = ps.fused_micro_step.launches = 0
+    w8a8.quantize_act.launches = w8a8.w8a8_gemv.launches = 0
 
 
 def _per_step(want: dict, B: int) -> dict:
@@ -1579,10 +1605,12 @@ def _replayed(graphs) -> tuple:
     return launches, steps, device_ms, per_step
 
 
-def _held_request(engine, fn, want: dict, steps: int, what: str) -> dict:
+def _held_request(engine, fn, want: dict, steps: int, what: str,
+                  per_request: dict = None) -> dict:
     """Run ``fn``, a request of ``steps`` frame steps on ``engine``, with the
     launch counters set to 0 just before and read just after, and hold its
-    launches to ``want`` a step.  The wrappers count what they launch
+    launches to ``want`` a step, plus ``per_request`` launches outside the
+    steps (the w8a8 talker prefill's quantize_act, eager).  The wrappers count what they launch
     eagerly (nothing while a stream captures).  On a captured engine the
     request runs twice under ``_recording``: first capturing its chunks
     afresh (each capture runs one eager step on copies of the state) and
@@ -1591,7 +1619,10 @@ def _held_request(engine, fn, want: dict, steps: int, what: str) -> dict:
     ``want``.  Returns per run the steps, wall ms, launches, the kernel
     nodes a captured step holds, and for the replaying run the replays'
     device ms and their share of its wall (the device's busy share)."""
+    extra = per_request or {}
     expect = (lambda k: {name: want.get(name, 0) * k for name in KERNELS})
+    expect_eager = (lambda k: {name: want.get(name, 0) * k + extra.get(name, 0)
+                               for name in KERNELS})
 
     def run():
         torch.cuda.synchronize()
@@ -1603,7 +1634,7 @@ def _held_request(engine, fn, want: dict, steps: int, what: str) -> dict:
 
     if engine.graphs is None:
         wall, launches = run()
-        if launches != expect(steps):
+        if launches != expect_eager(steps):
             raise AssertionError(f"{what}: launches {launches}; want {want} a step, "
                                  f"{steps} steps")
         return {"steps": steps, "wall_ms": wall, "launches": launches}
@@ -1616,7 +1647,8 @@ def _held_request(engine, fn, want: dict, steps: int, what: str) -> dict:
             replayed, run_steps, device_ms, per_step = _replayed(graphs)
             warm = graphs.captures - captures
             bad = [c for c in per_step if {k: c[k] for k in KERNELS} != expect(1)]
-            if bad or run_steps != steps or eager != expect(warm) or replayed != expect(steps):
+            if (bad or run_steps != steps or eager != expect_eager(warm)
+                    or replayed != expect(steps)):
                 raise AssertionError(
                     f"{what} ({name}): {run_steps} steps replayed, launches {replayed} from "
                     f"the graphs and {eager} eagerly ({warm} captures), captured steps "
@@ -1649,11 +1681,13 @@ class _Timings:
         self.loops.fast_generate = self.real
 
 
-def _graph_requests(model, ref: str, want: dict, card: str, mode: str) -> dict:
+def _graph_requests(model, ref: str, want: dict, card: str, mode: str, steps: int = None,
+                    per_request: dict = None) -> dict:
     """Warm-up (capture on the captured path), then a non-streamed (chunk
-    16) and a streamed (chunk 8) request through the API (GRAPH_STEPS
-    captured, EAGER_STEPS eager), then a streamed request of COUNTED_STEPS
-    whose launches are held to ``want`` a step (``_held_request``)."""
+    16) and a streamed (chunk 8) request through the API (``steps``, by
+    default GRAPH_STEPS captured, EAGER_STEPS eager), then a streamed request
+    of COUNTED_STEPS whose launches are held to ``want`` a step and
+    ``per_request`` outside the steps (``_held_request``)."""
     sync = torch.cuda.synchronize
     graphs = model.engine.graphs
     embeds, trailing, _, _ = model._prepare_clone(TEXT_A, ref, "", "English", True, True, True,
@@ -1667,7 +1701,8 @@ def _graph_requests(model, ref: str, want: dict, card: str, mode: str) -> dict:
            "captures": graphs.captures if graphs is not None else 0}
     kw = dict(language="English", ref_audio=ref, ref_text="reference transcript")
     kind = "captured" if graphs is not None else "eager"
-    n, spf = GRAPH_STEPS if graphs is not None else EAGER_STEPS, model.vocoder.spf
+    n = steps or (GRAPH_STEPS if graphs is not None else EAGER_STEPS)
+    spf = model.vocoder.spf
     model.generate_voice_clone(text=TEXT_A, max_new_tokens=16, min_new_tokens=16, **kw)
     replays = graphs.replays if graphs is not None else 0
     rec = _Timings()
@@ -1702,7 +1737,7 @@ def _graph_requests(model, ref: str, want: dict, card: str, mode: str) -> dict:
     res["counted_request"] = _held_request(model.engine, lambda: list(
         model.generate_voice_clone_streaming(text=TEXT_A, max_new_tokens=steps,
                                              min_new_tokens=steps, chunk_size=8, **kw)),
-        want, steps, mode)
+        want, steps, mode, per_request)
     log(f"  {mode}: " + json.dumps(res) + f"  [{card}]")
     return res
 
@@ -2246,11 +2281,12 @@ def _batch_run(eng, prompt, steps: int, pol, ppol, gen=None):
 
 
 def _batch_throughput(card: str, model, ref: str, path: str, B: int, kw: dict,
-                      want: dict) -> dict:
-    """Warm-up (capture of chunk 16), a timed sampled request of BATCH_STEPS
+                      want: dict, steps: int = BATCH_STEPS, per_request: dict = None) -> dict:
+    """Warm-up (capture of chunk 16), a timed sampled request of ``steps``
     steps over B rows of different prompt lengths, and one of BATCH_TRACED
     steps whose launches are held to ``want`` calls a step (``_per_step``
-    kernel launches), with the device's busy share (``_held_request``)."""
+    kernel launches) and ``per_request`` outside the steps, with the
+    device's busy share (``_held_request``)."""
     sync = torch.cuda.synchronize
     eng = _engine(model, batch=B, **kw)
     prompt = model._batch_prompt(_batch_texts(B), ref, "", "English", True, True, True, None)
@@ -2268,17 +2304,18 @@ def _batch_throughput(card: str, model, ref: str, path: str, B: int, kw: dict,
 
     sync()
     t = time.time()
-    out, timing = request(BATCH_STEPS)
+    out, timing = request(steps)
     sync()
     wall = time.time() - t
-    if [len(o) for o in out] != [BATCH_STEPS] * B:
+    if [len(o) for o in out] != [steps] * B:
         raise AssertionError(f"{path} B{B}: rows of {[len(o) for o in out]} frames")
-    res.update({"steps": BATCH_STEPS, "ms_per_step": wall / BATCH_STEPS * 1e3,
-                "frames_per_s": B * BATCH_STEPS / wall,
-                "throughput_rtf": B * BATCH_STEPS / 12.0 / wall,
+    res.update({"steps": steps, "ms_per_step": wall / steps * 1e3,
+                "frames_per_s": B * steps / wall,
+                "throughput_rtf": B * steps / 12.0 / wall,
                 "prefill_ms": timing["prefill_ms"]})
     res["counted_request"] = _held_request(eng, lambda: request(BATCH_TRACED),
-                                           _per_step(want, B), BATCH_TRACED, f"{path} B{B}")
+                                           _per_step(want, B), BATCH_TRACED, f"{path} B{B}",
+                                           per_request)
     log(f"  {path} B{B}: {json.dumps(res)}  [{card}]")
     return res
 
@@ -3256,6 +3293,387 @@ def slice_checkpoint_phase(card: str) -> dict:
     return res
 
 
+
+# ---------------------------------------------------------------------------
+# slice-w8a8: the w8a8 modes (ops/w8a8.py, csrc/w8a8.cu) and the quality gate
+# ---------------------------------------------------------------------------
+
+W8A8_SHAPES = {  # where -> (K, N, distinct weights in the timing graph, calls a graph)
+    "talker_qkv": (1024, 4096, 28, 28), "talker_o": (2048, 1024, 28, 28),
+    "talker_gateup": (1024, 6144, 28, 28), "talker_down": (3072, 1024, 28, 28),
+    "pred_qkv": (1024, 2048, 5, 70), "pred_o": (1024, 1024, 5, 70),
+    "talker_1.7b_qkv": (2048, 4096, 28, 28)}
+W8A8_ROWS = (1, 2, 4, 16)  # the GEMV kernel's rows
+W8A8_LIBRARY_ROWS = (17, 64)  # quantize_act's kernel, then torch._int_mm
+W8A8_TIMED_ROWS = {"talker_qkv": (1, 4, 16)}  # the others at 1 row
+# a captured 0.6B step at B 1 and B 4: 28 talker layers x 4 products, and
+# the predictor's 5 layers x 4 products over its 2-token prefill and 14
+# micro-steps; each product a quantize_act and a GEMV
+W8A8_WANT = {"flash_decode": 28, "quantize_act": 412, "w8a8_gemv": 412}
+W8A8_STEPS = 48
+QUALITY_STEPS = 24
+
+
+def _exact(name: str, out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """Tolerance 0: ``out`` must equal ``ref`` bit for bit."""
+    torch.cuda.synchronize()
+    if out.dtype != ref.dtype or out.shape != ref.shape or not torch.equal(out, ref):
+        diff = (out.float() - ref.float()).abs().max().item() if out.shape == ref.shape else None
+        raise AssertionError(f"{name} differs from its plain version at {what}: "
+                             f"{out.dtype} {tuple(out.shape)} vs {ref.dtype} {tuple(ref.shape)}, "
+                             f"max_abs_err {diff}")
+    return 0.0
+
+
+def w8a8_kernel_phase(card: str):
+    """quantize_act and w8a8_gemv against their plain versions, tolerance 0:
+    the 0.6B talker's four product shapes, the predictor's qkv and o, the
+    1.7B talker's qkv; 1, 2, 4 and 16 rows; bf16 and float32 activations;
+    two runs bit-equal.  The route above 16 rows (quantize_act's kernel,
+    torch._int_mm, the epilogue) at 17 and 64 rows, also exact.  One
+    captured graph of w8a8_matmul per shape, replayed after its input was
+    rewritten.  Timing (bf16 activations, one call per layer in a CUDA
+    graph, each layer with its own weights as a step has them: 28 talker
+    layers; the predictor's 5 layers, 70 calls): the GEMV, quantize_act,
+    their plain versions, the bf16 torch.matmul of the same unquantized
+    shape (what the mode replaces, not the same function) and
+    torch._int_mm at 17 rows (its smallest legal M): no PyTorch call
+    computes the product at 16 rows or fewer."""
+    from qwen3tts_tpu_torch.ops import cuda_build
+    from qwen3tts_tpu_torch.ops import w8a8 as W
+    from qwen3tts_tpu_torch.ops.quant import quantize_tensor
+
+    dev = torch.device("cuda")
+    sms = cuda_build.sm_count(dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    checked, times, bounds = 0, {}, {}
+    if not hasattr(torch, "_int_mm"):
+        raise AssertionError("this torch has no torch._int_mm: the route above 16 rows needs it")
+    for where, (K, N, layers, calls) in W8A8_SHAPES.items():
+        w32 = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+        qw = quantize_tensor(w32, "w8a8")
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for M in W8A8_ROWS + W8A8_LIBRARY_ROWS:
+                what = f"{where} K={K} N={N} M={M} x={dname}"
+                x = (torch.randn((M, K), generator=g, device=dev) * 2).to(dt)
+                pq, ps = W.quantize_act_plain(x)
+                ref = W.w8a8_matmul_plain(pq, ps, qw["q8"], qw["scale"], dt)
+                before = (W.quantize_act.launches, W.w8a8_gemv.launches)
+                y = W.w8a8_matmul(x, qw)
+                routed = (W.quantize_act.launches - before[0], W.w8a8_gemv.launches - before[1])
+                if routed != (1, int(M <= W.MAX_ROWS)):
+                    raise AssertionError(f"w8a8_matmul at {what} launched {routed}")
+                _exact("w8a8_matmul", y, ref, what)
+                if M <= W.MAX_ROWS:
+                    runs = []
+                    for _ in range(2):
+                        xq, xs = W.quantize_act(x)
+                        runs.append((xq, xs, W.w8a8_gemv(xq, xs, qw["q8"], qw["scale"], dt)))
+                    for (xq, xs, out) in runs:
+                        _exact("quantize_act", xq, pq, what)
+                        _exact("quantize_act scale", xs, ps, what)
+                        _exact("w8a8_gemv", out, ref, what)
+                checked += 1
+        # one captured graph, replayed after its input was rewritten
+        for M in (1, 4):
+            xg = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            graph, og = _captured(lambda: W.w8a8_matmul(xg, qw))
+            for _ in range(2):
+                xg.copy_(torch.randn((M, K), generator=g, device=dev) * 3)
+                graph.replay()
+                pq, ps = W.quantize_act_plain(xg)
+                _exact("w8a8_matmul graph replay", og,
+                       W.w8a8_matmul_plain(pq, ps, qw["q8"], qw["scale"], torch.bfloat16),
+                       f"{where} M={M}")
+            del graph
+        del qw
+
+        ws = [quantize_tensor(torch.randn((K, N), generator=g, device=dev) * K ** -0.5, "w8a8")
+              for _ in range(layers)]
+        wb = [torch.randn((K, N), generator=g, device=dev).bfloat16() for _ in range(layers)]
+        for M in W8A8_TIMED_ROWS.get(where, (1,)):
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            xq, xs = W.quantize_act(x)
+            pq, ps = W.quantize_act_plain(x)
+            x17 = torch.randint(-127, 128, (17, K), generator=g, device=dev, dtype=torch.int8)
+            t = {"w8a8_gemv": graph_ms(lambda i: W.w8a8_gemv(
+                     xq, xs, ws[i % layers]["q8"], ws[i % layers]["scale"], torch.bfloat16),
+                     calls),
+                 "w8a8_gemv_plain": graph_ms(lambda i: W.w8a8_matmul_plain(
+                     pq, ps, ws[i % layers]["q8"], ws[i % layers]["scale"], torch.bfloat16),
+                     calls),
+                 "quantize_act": graph_ms(lambda i: W.quantize_act(x), calls),
+                 "quantize_act_plain": graph_ms(lambda i: W.quantize_act_plain(x), calls),
+                 "bf16_matmul": graph_ms(lambda i: torch.matmul(x, wb[i % layers]), calls),
+                 "int_mm_17": graph_ms(lambda i: torch._int_mm(x17, ws[i % layers]["q8"]),
+                                       calls)}
+            times[(where, M)] = t
+            bounds[(where, M)] = {
+                "w8a8_gemv": bound(K * N + M * K + 4 * M + 4 * N + 2 * M * N, 2 * M * K * N,
+                                   torch.int8),
+                "quantize_act": bound(2 * M * K + M * K + 4 * M, 2 * M * K, torch.float32),
+                "bf16_matmul": bound(2 * K * N + 2 * M * K + 2 * M * N, 2 * M * K * N,
+                                     torch.bfloat16)}
+            log(f"  timing w8a8 {where} K={K} N={N} M={M} (mt, vec, splits "
+                f"{W.gemv_geometry(M, K, N, sms)}): "
+                + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in t.items())
+                + f"; bound gemv {bounds[(where, M)]['w8a8_gemv'][0] * 1e3:.2f} us, "
+                f"quantize_act {bounds[(where, M)]['quantize_act'][0] * 1e3:.3f} us, bf16 "
+                f"matmul {bounds[(where, M)]['bf16_matmul'][0] * 1e3:.2f} us  [{card}]")
+        del ws, wb
+    log(f"  w8a8: {checked} (shape, rows, dtype) cases bit-equal to the plain versions "
+        f"(tolerance 0), two runs equal, {len(W8A8_SHAPES) * 2} captured graphs replayed  "
+        f"[{card}]")
+    return {"quantize_act": 0.0, "w8a8_gemv": 0.0}, times, bounds
+
+
+@contextlib.contextmanager
+def _recorded_activations(engine, log_: list):
+    """Every quantize_act's (step, xq, xs) on the host, in call order, while
+    ``engine`` runs eagerly (step 0 is the prefill; ``_one_step`` counts the
+    rest): the card's kernel wrapper and the CPU's plain version."""
+    from qwen3tts_tpu_torch.ops import w8a8
+
+    real = {name: getattr(w8a8, name) for name in ("quantize_act", "quantize_act_plain")}
+    step = [0]
+    one_step = engine._one_step
+
+    def counted(*a, **kw):
+        step[0] += 1
+        return one_step(*a, **kw)
+
+    def recorder(fn):
+        def rec(x):
+            xq, xs = fn(x)
+            log_.append((step[0], xq.reshape(-1, xq.shape[-1]).cpu(), xs.reshape(-1).cpu()))
+            return xq, xs
+        rec.launches = 0  # the wrapper counts its launches on the module's name: this one
+        return rec
+
+    engine._one_step = counted
+    for name, fn in real.items():
+        setattr(w8a8, name, recorder(fn))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(w8a8, name, fn)
+        del engine._one_step
+
+
+def parity_w8a8_phase(card: str):
+    """The parity phase's small float32 model with a w8a8 bundle (quantized
+    on the CPU, talker hidden 128), TF32 off, greedy, a 20-token prompt (the
+    prefill takes the torch._int_mm route), 33 frames: the captured engine
+    on the card (the w8a8 kernels) against the eager engine on the CPU (the
+    plain versions).  Each product quantizes its activation row to int8, so
+    a last-bit difference in a float32 sum elsewhere (flash-decode, cuBLAS)
+    can flip one rounding, and from there the greedy chain may move: the
+    card's frames are held equal to the CPU's through every step before the
+    first activation whose int8 rounding differs, and that first difference
+    to one step of one in the int8 values.  The activations come from the
+    card's engine run eagerly with every quantize_act recorded (its frames
+    must equal the captured run's) and from the CPU's run."""
+    from qwen3tts_tpu_torch.core.loader import init_random
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.ops import w8a8
+    from qwen3tts_tpu_torch.ops.quant import quantize_bundle
+    from qwen3tts_tpu_torch.runtime.engine import Engine, GenerationPolicy
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        base = get_preset("tiny")
+        # the parity phase's talker at hidden 128: every K of its products is
+        # at least 128, which torch._int_mm needs for the 20-row prefill
+        talker = dataclasses.replace(base.talker, head_dim=128, mrope_section=(24, 20, 20),
+                                     hidden_size=128, text_hidden_size=128,
+                                     speaker_embed_dim=128)
+        cfg = dataclasses.replace(base, talker=talker)
+        params = quantize_bundle(init_random(cfg, seed=6, dtype=torch.float32, device="cpu"),
+                                 "w8a8")
+        H = cfg.talker.hidden_size
+        rng = np.random.default_rng(7)
+        embeds = rng.standard_normal((1, 20, H)).astype(np.float32) * 0.1
+        tth = torch.from_numpy(rng.standard_normal((1, 16, H)).astype(np.float32) * 0.1)
+        tpe = torch.from_numpy(rng.standard_normal((1, 1, H)).astype(np.float32) * 0.1)
+
+        def move(t, dev):
+            return ({k: move(v, dev) for k, v in t.items()} if isinstance(t, dict)
+                    else [move(v, dev) for v in t] if isinstance(t, list) else t.to(dev))
+
+        def frames_of(device, graphs, acts=None):
+            p = move(params, device)
+            eng = Engine(p["talker"], p["predictor"], cfg, max_seq_len=128,
+                         use_cuda_graphs=graphs)
+            with (_recorded_activations(eng, acts) if acts is not None
+                  else contextlib.nullcontext()):
+                state = eng.prefill(embeds, None, GenerationPolicy(do_sample=False,
+                                                                   min_new_tokens=99),
+                                    SamplingPolicy(do_sample=False))
+                out = [state["token"][:, None].expand(1, 16).cpu()]
+                for _ in range(4):
+                    _, f, n, lens, _ = eng.decode_chunk(state, tth.to(device), 7,
+                                                        tpe.to(device), 8)
+                    out.append(f[0, : int(lens[0])].cpu())
+            return torch.cat(out)
+
+        before = (w8a8.quantize_act.launches, w8a8.w8a8_gemv.launches)
+        captured = frames_of("cuda", True)
+        launched = (w8a8.quantize_act.launches - before[0], w8a8.w8a8_gemv.launches - before[1])
+        card_acts, cpu_acts = [], []
+        eager = frames_of("cuda", False, card_acts)
+        cpu = frames_of("cpu", False, cpu_acts)
+        if not torch.equal(eager, captured):
+            raise AssertionError("w8a8: captured and eager frames differ on the card")
+        if len(card_acts) != len(cpu_acts):
+            raise AssertionError(f"w8a8: {len(card_acts)} quantized activations on the card, "
+                                 f"{len(cpu_acts)} on the CPU")
+        # the first product whose int8 rounding differs (a scale xs that
+        # differs in its last bits while every xq is equal is a float32
+        # difference like any other: the chain stays continuous through it)
+        first = next(((i, s) for i, ((s, q, _), (_, q2, _)) in enumerate(
+            zip(card_acts, cpu_acts)) if not torch.equal(q, q2)), None)
+        upto = len(cpu_acts) if first is None else first[0]
+        xs_rel = max([((x - x2).abs() / x2).max().item()
+                      for (_, _, x), (_, _, x2) in zip(card_acts[:upto], cpu_acts[:upto])],
+                     default=0.0)
+        equal = (captured == cpu).all(dim=1)
+        first_frame = None if bool(equal.all()) else int(torch.argmin(equal.int()))
+        # per step up to the first differing frame: products whose rounding
+        # differs, entries that differ, by how much at most
+        per_step = {}
+        for (st, q, _), (_, q2, _) in zip(card_acts, cpu_acts):
+            d = (q.int() - q2.int()).abs()
+            if d.any() and st <= (first_frame if first_frame is not None else st):
+                e = per_step.setdefault(st, [0, 0, 0])
+                e[0], e[1], e[2] = e[0] + 1, e[1] + int((d > 0).sum()), max(e[2], int(d.max()))
+        held = len(cpu) if first is None else first[1]  # frames before the step of the first
+        flip = {}
+        if first is not None:
+            _, q, x = card_acts[first[0]]
+            _, q2, x2 = cpu_acts[first[0]]
+            d = (q.int() - q2.int()).abs()
+            flip = {"product": first[0], "step": first[1], "entries": int((d > 0).sum()),
+                    "most": int(d.max()), "scale_rel_diff": ((x - x2).abs() / x2).max().item()}
+        log(f"parity w8a8 (float32, TF32 off): captured card vs eager CPU, {int(equal.sum())} "
+            f"of {len(equal)} greedy frames equal, first differing frame {first_frame}; "
+            f"{len(cpu_acts)} quantized activation rows, the first whose int8 rounding "
+            f"differs: {json.dumps(flip) if flip else None} (frames held equal before its step: "
+            f"{held}; the scales before it differ by at most {xs_rel:.2e} relative); steps with "
+            f"a differing rounding up to that frame (products, entries, most): "
+            f"{json.dumps(per_step)}; "
+            f"eager launches on the card (prefill, the captures' steps) quantize_act "
+            f"{launched[0]}, w8a8_gemv {launched[1]}  [{card}]")
+        if not torch.equal(captured[:held], cpu[:held]):
+            raise AssertionError(f"w8a8: card and CPU frames differ at frame {first_frame}, "
+                                 f"before the first differing activation rounding (step {held})")
+        if xs_rel > 1e-4:
+            raise AssertionError(f"w8a8: activation scales differ by {xs_rel:.2e} relative "
+                                 "before any int8 rounding did (float32 order: want <= 1e-4)")
+        if flip and flip["most"] > 1:
+            raise AssertionError(f"w8a8: the first differing activation rounding moved by "
+                                 f"{flip['most']}, want one step")
+        if launched[0] <= launched[1] or launched[1] == 0:
+            raise AssertionError(f"w8a8 parity did not run both routes: launches {launched}")
+        return {"frames_equal": int(equal.sum()), "frames": len(equal), "held": held,
+                "first_flip": flip, "scale_rel_diff_before": xs_rel, "flips_by_step": per_step}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _w8a8_prefill(model, rows: int) -> dict:
+    """The eager talker prefill's w8a8 launches: 4 products a layer, each a
+    quantize_act and then the GEMV kernel (16 rows or fewer) or
+    torch._int_mm (not counted: a library call)."""
+    n = 4 * model.cfg.talker.num_hidden_layers
+    return {"quantize_act": n, "w8a8_gemv": n if rows <= 16 else 0}
+
+
+def _timed_clone(model, ref: str, steps: int, what: str) -> dict:
+    """A non-streamed request of ``steps`` steps after the model's warm-up."""
+    kw = dict(language="English", ref_audio=ref, ref_text="", max_new_tokens=steps,
+              min_new_tokens=steps)
+    torch.cuda.synchronize()
+    t = time.time()
+    model.generate_voice_clone(text=TEXT_C, **kw)  # captures
+    torch.cuda.synchronize()
+    first = time.time() - t
+    t = time.time()
+    wavs, _ = model.generate_voice_clone(text=TEXT_A, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    _check_audio(wavs[0], steps, model.vocoder.spf, what)
+    return {"first_request_s": first, "ms_per_step": wall / steps * 1e3,
+            "rtf": steps / 12.0 / wall}
+
+
+def slice_w8a8_phase(card: str, models: dict) -> dict:
+    """The w8a8 modes on random:qwen3-tts-0.6b (bf16) through the API with
+    captured chunks: quantize="w8a8" (warm-up, a non-streamed and a streamed
+    48-step request, a counted streamed request: flash-decode 28,
+    quantize_act 412 and w8a8_gemv 412 kernel nodes a step, read from the
+    graphs); one request each with "w8a8-talker" and "w8a8-predictor"; a
+    B 4 fast_generate_batch of 48 steps (4 rows a product; the prefill's
+    rows above 16 take torch._int_mm); then the quality gate at 24 steps,
+    quant_quality(bf16, w8a8) and quant_quality(bf16, int8): teacher-forced
+    logit MSE and argmax-flip rates, the vocoder's SNR on identical codes
+    (99.0: the codec is never quantized), and the free-running divergence."""
+    import gc
+
+    from qwen3tts_tpu_torch.utils.quality import quant_quality
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.wav")
+        _ref_wav(ref)
+        model = _load(quantize="w8a8")
+        rows = model._prepare_clone(TEXT_A, ref, "", "English", True, True, True,
+                                    None)[0].shape[1]
+        res["w8a8"] = _graph_requests(model, ref, W8A8_WANT, card, "w8a8 captured",
+                                      steps=W8A8_STEPS, per_request=_w8a8_prefill(model, rows))
+        res["w8a8"]["load_s"] = model.load_s
+        B = 4
+        prompt = model._batch_prompt(_batch_texts(B), ref, "", "English", True, True, True,
+                                     None)
+        res["w8a8_B4"] = _batch_throughput(
+            card, model, ref, "w8a8", B, {}, W8A8_WANT, steps=W8A8_STEPS,
+            per_request=_w8a8_prefill(model, B * prompt[0].shape[1]))
+        model._batch_engines.clear()
+        for mode in ("w8a8-talker", "w8a8-predictor"):
+            one = _load(quantize=mode)
+            res[mode] = _timed_clone(one, ref, W8A8_STEPS, mode)
+            log(f"  {mode}: {json.dumps(res[mode])}  [{card}]")
+            del one
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # slice-voices frees the phases' models before it loads its own
+        bf16 = models.get("bf16") or _load()
+        bf16.engine = _engine(bf16)
+        quality = {}
+        for name, q in (("w8a8", model), ("int8", None)):
+            q = q or _load(quantize="int8")
+            t = time.time()
+            quality[name] = quant_quality(bf16, q, text=TEXT_A, ref_audio=ref, ref_text="",
+                                          steps=QUALITY_STEPS)
+            quality[name]["seconds"] = time.time() - t
+            log(f"  quant_quality(bf16, {name}), {QUALITY_STEPS} steps: "
+                f"{json.dumps(quality[name])}  [{card}]")
+            if quality[name]["teacher_forced"]["vocoder_snr_db"] != 99.0:
+                raise AssertionError(f"{name}: the vocoder's SNR on identical codes is "
+                                     f"{quality[name]['teacher_forced']['vocoder_snr_db']}, "
+                                     "want 99.0")
+            del q
+        res["quality"] = quality
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
@@ -3279,6 +3697,7 @@ def main():
     m_err, m_out = phase("kernel", micro_kernel_phase, card)
     m17_err, m17_out = phase("kernel", micro_kernel_phase, card, "qwen3-tts-1.7b")
     v_err, v_launches, v_times = phase("kernel", matvec_phase, card)
+    w_err, w_times, w_bounds = phase("kernel", w8a8_kernel_phase, card)
     models = {"bf16": _load(), "int8": _load(quantize="int8", kv_quant=True)}
     _, results = phase("slice", slice_phase, card, models["bf16"])
     _, q_results = phase("slice-int8", slice_int8_phase, card, models["int8"])
@@ -3288,6 +3707,7 @@ def main():
     phase("parity", parity_micro_phase, card)
     phase("parity", graph_parity_phase, card)
     b_parity = phase("parity", batch_parity_phase, card)
+    w_parity = phase("parity", parity_w8a8_phase, card)
     g = phase("slice-graph", slice_graph_phase, card, models)
     icl = phase("slice-icl", slice_icl_phase, card, models)
     icl_parity = phase("slice-icl", icl_parity_phase, card)
@@ -3296,6 +3716,7 @@ def main():
     serve_parity = phase("slice-serve", serve_parity_phase, card)
     voices = phase("slice-voices", slice_voices_phase, card, models)
     ckpt = phase("slice-checkpoint", slice_checkpoint_phase, card)
+    w8 = phase("slice-w8a8", slice_w8a8_phase, card, models)
     # the main path: the captured chunks, in the counted request that
     # captured them; a replay's launches read from its graph's kernel nodes
     traced = {path: g["paths"][path]["captured"]["counted_request"]["capturing"]["launches"]
@@ -3333,6 +3754,12 @@ def main():
                                "bound_ms": m17_out["bound_ms"], "max_abs_err": m17_err}
     log("slice-voices: " + json.dumps({"card": card, **voices, "kernels_1.7b": k17}))
     log("slice-checkpoint: " + json.dumps(ckpt))
+    log("slice-w8a8: " + json.dumps({
+        "card": card, **w8, "parity": w_parity, "kernel_max_abs_err": w_err,
+        "kernel_us": {f"{where} M={M}": {k: v * 1e3 for k, v in t.items()}
+                      for (where, M), t in w_times.items()},
+        "bound_us": {f"{where} M={M}": {k: v[0] * 1e3 for k, v in b.items()}
+                     for (where, M), b in w_bounds.items()}}))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],
@@ -3343,6 +3770,9 @@ def main():
                       "qwen3tts_tpu_torch/csrc/fused_block.cu")
     mv_src = "qwen3tts_tpu_torch/csrc/matvec.cu"
     probe_t = v_times["probe"]["times"]
+    w_src = "qwen3tts_tpu_torch/csrc/w8a8.cu"
+    w_launches = w8["w8a8"]["counted_request"]["capturing"]["launches"]
+    w_t, w_b = w_times[("talker_qkv", 1)], w_bounds[("talker_qkv", 1)]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms_by, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3353,7 +3783,10 @@ def main():
     # flash-decode at pos 300 with a cold L2 (two cache stacks); the fused
     # kernels at the talker's shapes with int8 weights, as the int8 path runs
     # them; the micro-step per step of a bf16 frame; the matvecs at the
-    # probe's default shape in bf16
+    # probe's default shape in bf16; the w8a8 kernels at the 0.6B talker's
+    # qkv shape, one row of bf16 activations (their launches: slice-w8a8's
+    # counted captured request; no Pallas original: they replace the JAX
+    # package's XLA int8 dot and its activation quantizer)
     log(f"phase seconds: {json.dumps(phase_s)}; total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [
         entry("flash_decode", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180", launches,
@@ -3379,6 +3812,12 @@ def main():
               v_err["matvec_kt"], probe_t["matvec_kt"], probe_t["matvec_kt_plain"],
               (v_times["probe"]["bound_kt_ms"], v_times["probe"]["bound_by"]),
               probe_t["torch_pre_t"]),
+        entry("quantize_act", w_src, "qwen3tts_tpu/ops/quant.py:68", w_launches["quantize_act"],
+              w_err["quantize_act"], w_t["quantize_act"], w_t["quantize_act_plain"],
+              w_b["quantize_act"], None),
+        entry("w8a8_gemv", w_src, "qwen3tts_tpu/ops/quant.py:76", w_launches["w8a8_gemv"],
+              w_err["w8a8_gemv"], w_t["w8a8_gemv"], w_t["w8a8_gemv_plain"], w_b["w8a8_gemv"],
+              None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,10 @@ the per-step loop of ``runtime/loops.py``; and batched voice clone
 (``generate_voice_clone_batch``: several texts in one voice, one engine
 pass on an ``Engine(batch=B)`` per batch size, built when first asked for).
 Signatures, defaults and guards are the JAX class's, including
-``quantize="int8" | "int8-talker" | "int8-predictor"`` (int8 weight-only)
-and ``kv_quant=True`` (int8 KV cache).  The w8a8 modes are not ported yet.
+``quantize="int8" | "int8-talker" | "int8-predictor"`` (int8 weight-only),
+``"w8a8" | "w8a8-talker" | "w8a8-predictor"`` (int8 activations and
+weights: ``ops/w8a8.py``, hand-written kernels on the card) and
+``kv_quant=True`` (int8 KV cache).
 
 An ICL prompt carries the reference's codec frames: the non-streamed audio
 is the decode of reference + generated frames with the reference's samples
@@ -44,7 +46,7 @@ from typing import Dict, Generator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..audio.vocoder import StatefulStreamDecoder, Vocoder
+from ..audio.vocoder import Vocoder
 from ..audio.wav import read_wav, resample
 from ..core.config import DTYPES, TTSModelConfig
 from ..core.loader import (bundle_to_jax_layout, load_pretrained, resolve_device,
@@ -119,9 +121,11 @@ class FasterQwen3TTS:
 
         ``quantize`` stores the talker/predictor projection matrices (and
         the predictor's lm_heads) as int8 with per-channel scales: "int8"
-        both, "int8-talker" or "int8-predictor" one; the w8a8 modes raise
-        NotImplementedError, unknown modes ValueError.  ``kv_quant=True``
-        keeps the talker's KV cache in int8."""
+        (weight-only) or "w8a8" (activations quantized per row too, the
+        int8 products summed exactly; the lm_heads stay weight-only) for
+        both, "<mode>-talker" or "<mode>-predictor" for one; unknown modes
+        raise ValueError.  ``kv_quant=True`` keeps the talker's KV cache in
+        int8."""
         device = resolve_device(device)
         if isinstance(dtype, str):
             dtype = DTYPES[dtype]
@@ -488,7 +492,7 @@ class FasterQwen3TTS:
                     chunk_size=chunk_size, first_chunks=first_chunks, ref_codes=ref_codes):
                 yield audio, self.sample_rate, timing
             return
-        sd = StatefulStreamDecoder(self.vocoder)
+        sd = self.vocoder.stateful_stream_decoder()
         if ref_codes is not None and len(ref_codes):
             sd.feed(np.asarray(ref_codes))  # prime the codec's context, audio discarded
         for codec_chunk, timing in self._parity_stream(embeds, trailing, tpe, pol, ppol,

@@ -246,9 +246,9 @@ def build_parser() -> argparse.ArgumentParser:
                                                             "bfloat16", "float16", "float32"])
         sp.add_argument("--max-seq-len", type=int, default=2048)
         sp.add_argument("--quantize", default=None, choices=sorted(QUANT_MODES),
-                        help="int8 weight-only decode weights "
-                        "(-predictor/-talker suffixes quantize one component; "
-                        "the w8a8 modes are not ported)")
+                        help="int8 decode weights: int8 (weight-only) or w8a8 "
+                        "(int8 activations too); -predictor/-talker suffixes "
+                        "quantize one component")
         sp.add_argument("--kv-quant", action="store_true",
                         help="int8 KV cache (halves KV memory)")
         sp.add_argument("--seed", type=int, default=0)

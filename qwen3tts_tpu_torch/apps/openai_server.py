@@ -284,7 +284,8 @@ def main(argv=None):
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--quantize", default=None, choices=sorted(QUANT_MODES),
-                   help="int8 decode modes (see README)")
+                   help="int8 decode modes: int8 (weight-only) or w8a8 (int8 "
+                   "activations too), -talker / -predictor for one component")
     p.add_argument("--kv-quant", action="store_true",
                    help="int8 KV cache (serving-batch memory headroom)")
     p.add_argument("--voices", default=None, help="voices.json registry")

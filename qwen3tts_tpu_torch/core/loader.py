@@ -27,9 +27,10 @@ convolutions change layout: a JAX conv weight ``[K, Cin, Cout]`` becomes
 ``[Cout, Cin, K]``, and a JAX transposed-conv weight becomes
 ``w[::-1].permute(1, 2, 0)`` = ``[Cin, Cout, K]`` flipped along K, which is
 what makes ``F.conv_transpose1d`` equal ``jax.lax.conv_transpose``.
-Talker and predictor are cast to the model dtype, except the int8
-weight-only leaves ``{"q", "scale"}`` of a quantized bundle
-(``ops/quant.py``), which keep int8 ``q`` and float32 ``scale`` bit for bit;
+Talker and predictor are cast to the model dtype, except the quantized
+leaves of a quantized bundle (``ops/quant.py``: int8 weight-only
+``{"q", "scale"}``, w8a8 ``{"q8", "scale"}``), which keep int8 ``q`` /
+``q8`` and float32 ``scale`` bit for bit;
 codec and speaker encoder stay float32, as in the JAX package.
 
 Each entry point builds on the card unless the caller names a device; with
@@ -125,8 +126,9 @@ def _q(a, device) -> torch.Tensor:
 
 
 def _tree(tree, dtype, device):
-    if isinstance(tree, dict) and set(tree) == {"q", "scale"}:  # int8 weight-only leaf
-        return {"q": _q(tree["q"], device), "scale": _t(tree["scale"], torch.float32, device)}
+    if isinstance(tree, dict) and set(tree) in ({"q", "scale"}, {"q8", "scale"}):
+        key = "q" if "q" in tree else "q8"  # int8 weight-only or w8a8 leaf
+        return {key: _q(tree[key], device), "scale": _t(tree["scale"], torch.float32, device)}
     if isinstance(tree, dict):
         return {k: _tree(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -214,7 +216,8 @@ def bundle_from_jax_numpy(tree: Dict[str, Any], cfg: TTSModelConfig,
     predictor / codec / speaker) -> the port's parameters on ``device``.
     The codec keeps its encoder when the bundle has one, its convs re-laid
     as the decoder's.  Torch leaves are cast once (bfloat16 stays exact);
-    int8 ``{"q", "scale"}`` leaves keep int8 / float32."""
+    quantized ``{"q", "scale"}`` / ``{"q8", "scale"}`` leaves keep int8 /
+    float32."""
     device = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
     out: Dict[str, Any] = {}
@@ -309,7 +312,8 @@ def _speaker_to_jax(spk, device) -> Dict[str, Any]:
 def bundle_to_jax_layout(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """The port's parameters -> the JAX pytree (tensors on ``device``, as
     views where the layout allows), the inverse of ``bundle_from_jax_numpy``.
-    Talker and predictor leaves pass through (int8 ``{"q", "scale"}`` too);
+    Talker and predictor leaves pass through (quantized ``{"q", "scale"}``
+    and ``{"q8", "scale"}`` leaves too, int8 / float32);
     conv weights ``[Cout, Cin, K]`` become ``[K, Cin, Cout]``, transposed
     convs ``w.permute(2, 0, 1).flip(0)``; the codec keeps its encoder when
     it has one.  This is what ``save_checkpoint`` writes."""
@@ -369,7 +373,9 @@ def unflatten(flat: Dict[str, Any]) -> Any:
 
 def save_checkpoint(path, cfg: TTSModelConfig, bundle: Dict[str, Any]) -> None:
     """Write a canonical checkpoint dir.  ``bundle``: the JAX pytree
-    {"talker", "predictor", "codec", "speaker"} (``bundle_to_jax_layout``)."""
+    {"talker", "predictor", "codec", "speaker"} (``bundle_to_jax_layout``);
+    each leaf keeps its dtype, so quantized ``q`` / ``q8`` stay int8 and
+    ``scale`` float32."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     (path / "config.json").write_text(json.dumps(cfg.to_dict(), indent=2))
@@ -414,8 +420,8 @@ def load_checkpoint(path, dtype=None, strict: Optional[bool] = None, device=None
     of silently dropping them.
 
     Talker and predictor floating leaves are cast to ``dtype`` (default: the
-    config's, which the returned config then names); int8 ``{"q", "scale"}``
-    leaves keep int8 / float32 as stored (the JAX loader rounds ``scale`` to
+    config's, which the returned config then names); quantized ``{"q",
+    "scale"}`` / ``{"q8", "scale"}`` leaves keep int8 / float32 as stored (the JAX loader rounds ``scale`` to
     the model dtype).  The codec and speaker encoder load in float32, as the
     port computes them.  Each tensor goes from the file's mapping to
     ``device`` once, through the weight bridge."""

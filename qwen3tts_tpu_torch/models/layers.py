@@ -5,7 +5,8 @@ Both the talker and the code predictor are stacks of identical blocks:
 RMSNorm -> GQA attention with per-head q/k norm + RoPE -> RMSNorm -> SwiGLU.
 Parameters keep the JAX package's layer-stacked layout (leading ``L`` axis,
 fused ``qkv_proj`` and ``gateup_proj``, matmul weights ``[in, out]``, or
-int8 weight-only dicts ``{"q", "scale"}`` from ``ops/quant.py``) and the KV
+the quantized dicts of ``ops/quant.py``: int8 weight-only ``{"q", "scale"}``,
+w8a8 ``{"q8", "scale"}``) and the KV
 cache its ``[L, B, S, KVH, D]`` layout; an int8 cache adds f32 scales
 ``"ks"``/``"vs"`` ``[L, B, KVH, S]``.  The stack runs as a Python loop over
 layers that writes the stacked cache in place (the JAX package threads it
@@ -77,7 +78,8 @@ def init_block_stack(gen: torch.Generator, spec: BlockSpec, dtype, device) -> Pa
 def unstack_layers(stack: Params) -> List[Params]:
     """Per-layer views of a layer-stacked parameter dict (built once, so the
     decode loop does not re-index the stack every step).  A quantized leaf
-    ``{"q", "scale"}`` becomes a per-layer dict of views."""
+    (``{"q", "scale"}`` or ``{"q8", "scale"}``) becomes a per-layer dict of
+    views."""
     def layer(v, i):
         return {k: t[i] for k, t in v.items()} if isinstance(v, dict) else v[i]
 
@@ -162,7 +164,8 @@ def block_forward(
     ``fused`` takes the qkv half and the o + MLP half through
     ``fused_norm_matmul`` and ``fused_o_mlp`` for decode-shaped activations
     (B * Tq <= 32) with plain or int8 weight-only weights, as the JAX
-    package gates them (``layers.py:182-185``)."""
+    package gates them (``layers.py:182-185``); a w8a8 ``q8`` weight stays
+    on ``maybe_matmul``."""
     B, Tq, H = x.shape
     eps = spec.rms_norm_eps
     kv_quant = "ks" in kv

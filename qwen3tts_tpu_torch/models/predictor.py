@@ -9,8 +9,10 @@ single-token micro-steps run each block through the fused kernels; the
 2-token prefill does not.  With ``micro_kernel`` each micro-step is one
 launch of ``ops/predictor_step.py:fused_micro_step`` (proj + every block +
 final norm), gated as in the JAX package: batch 1, no sliding window,
-unquantized blocks.  The lm_heads may be int8 weight-only
-(``ops/quant.py:quantize_bundle``).
+unquantized blocks.  The blocks may be int8 weight-only or w8a8, the
+lm_heads int8 weight-only (``ops/quant.py:quantize_bundle``).
+``predict_frame_teacher`` runs the frame on given tokens and returns every
+head's logits: the quantization quality gate's path (``utils/quality.py``).
 
 A frame reads nothing from the host and allocates nothing that a replayed
 CUDA graph could not reuse: ``frame_scratch`` holds the 17-slot cache (every
@@ -206,6 +208,42 @@ def predict_frame(
 
     tokens = torch.stack(toks, dim=1)  # [B, 15]
     return tokens, embed_sum_for(params, tokens, pred_input.dtype)
+
+
+@torch.inference_mode()
+def predict_frame_teacher(
+    params: Params,
+    cfg: PredictorConfig,
+    pred_input: torch.Tensor,  # [B, 2, H_talker] = cat(past_hidden, token0_embed)
+    teacher: torch.Tensor,  # [B, 15] int: the forced codebook tokens 1..15
+) -> torch.Tensor:
+    """Teacher-forced frame: the 15-codebook loop fed the GIVEN tokens in
+    place of samples, returning every head's raw logits [B, 15, CB]
+    float32 (head ``i`` predicts ``teacher[:, i]``).  Port of the JAX
+    package's ``predict_frame_teacher``: with the same token history, two
+    models' per-step logit deltas isolate their numeric difference (e.g.
+    quantization).  Eager, on a fresh 17-slot cache; no sampling."""
+    B, dev = pred_input.shape[0], pred_input.device
+    spec, S = block_spec(cfg), cfg.max_seq
+    kv = init_kv_cache(spec, B, S, pred_input.dtype, dev)
+    zero_pad = torch.zeros((B,), dtype=torch.int32, device=dev)
+    layers = params["blocks"]
+    h = _proj(params, pred_input)
+    cos, sin = _rope(cfg, torch.arange(2, device=dev).expand(B, 2))
+    h, kv = stack_forward(layers, h, cos, sin, kv, 0,
+                          prefill_mask(2, 2, zero_pad, cfg.sliding_window), spec)
+    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    logits = [_lm_logits(params, 0, h[:, -1, :])]
+    teacher = teacher.long()
+    for cb in range(1, cfg.num_codebooks):
+        x = _proj(params, params["codec_embeddings"][cb - 1][teacher[:, cb - 1]])[:, None, :]
+        pos = cb + 1
+        cos, sin = _rope(cfg, torch.full((B, 1), pos, dtype=torch.long, device=dev))
+        x, kv = stack_forward(layers, x, cos, sin, kv, pos,
+                              decode_mask(S, pos, zero_pad, cfg.sliding_window), spec)
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        logits.append(_lm_logits(params, cb, x[:, -1, :]))
+    return torch.stack(logits, dim=1)
 
 
 def embed_sum_for(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:

@@ -29,12 +29,14 @@ SOURCES = {"flash_decode": CSRC / "flash_decode.cu",
            "fused_block": CSRC / "fused_block.cu",
            "predictor_step": CSRC / "predictor_step.cu",
            "matvec": CSRC / "matvec.cu",
+           "w8a8": CSRC / "w8a8.cu",
            "graph_cond": CSRC / "graph_cond.cu"}
 
 # each launch wrapper's kernel, as its name appears (mangled) in a CUDA
 # graph's kernel nodes; flash_decode_kernel is the float and the int8 cache's
 KERNEL_SYMBOLS = {"flash_decode": "flash_decode_kernel", "fused_norm_matmul": "norm_matmul_kernel",
-                  "fused_o_mlp": "o_mlp_kernel", "fused_micro_step": "micro_step_kernel"}
+                  "fused_o_mlp": "o_mlp_kernel", "fused_micro_step": "micro_step_kernel",
+                  "quantize_act": "quantize_act_kernel", "w8a8_gemv": "w8a8_gemv_kernel"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

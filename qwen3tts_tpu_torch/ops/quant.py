@@ -1,22 +1,31 @@
-"""Int8 weight-only quantization for the decode path.
+"""Int8 quantization for the decode path: weight-only and w8a8.
 
-Port of ``qwen3tts_tpu/ops/quant.py``.  A quantized weight is the dict
-``{"q": int8 [..., in, out], "scale": f32 [..., 1, out]}`` (per output
-channel), the JAX package's layout.  Only the layer-stack projection
-matrices, and the predictor's per-codebook lm_heads, are quantized;
-embeddings and norms stay in the model dtype.
+Port of ``qwen3tts_tpu/ops/quant.py``.  Two formats, the JAX package's
+layouts (per output channel; the key names the mode):
 
-Modes: ``"int8"`` quantizes talker and predictor, ``"int8-talker"`` and
-``"int8-predictor"`` one of them.  The ``w8a8`` modes (an int8 x int8 dot
-with per-token activation scales) are named but not ported: at batch 1 on
-the card they need an int8 matrix-vector kernel of their own (ROADMAP,
-Queue 1), so ``quantize_bundle`` raises ``NotImplementedError`` for them.
+- ``int8`` (weight-only): ``{"q": int8 [..., in, out], "scale": f32 [...,
+  1, out]}``; the weight is converted to the activations' values and the
+  products accumulate in float32 (``dequant_matmul``).
+- ``w8a8``: ``{"q8": int8, "scale": f32}``; activations are quantized per
+  row on the fly and the int8 x int8 products summed exactly
+  (``quantize_act``, ``w8a8_matmul``: ``ops/w8a8.py``, with the CUDA
+  kernels of ``csrc/w8a8.cu`` on the card).
+
+Only the layer-stack projection matrices, and the predictor's per-codebook
+lm_heads, are quantized; embeddings and norms stay in the model dtype.  The
+lm_heads stay int8 weight-only even in the w8a8 modes (their logits feed
+sampling), as in the JAX package.
+
+Modes: ``"int8"`` / ``"w8a8"`` quantize talker and predictor,
+``"<base>-talker"`` and ``"<base>-predictor"`` one of them (``parse_mode``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+
+from .w8a8 import quantize_act, w8a8_matmul  # noqa: F401  (part of this module's API)
 
 _QUANT_KEYS = ("qkv_proj", "o_proj", "gateup_proj", "down_proj")
 _BASE_MODES = ("int8", "w8a8")
@@ -25,31 +34,27 @@ MODES = _BASE_MODES + tuple(f"{b}-{p}" for b in _BASE_MODES for p in _PARTS)
 
 
 def parse_mode(mode: str):
-    """'int8' -> ('int8', ('talker', 'predictor')); 'int8-predictor' ->
-    ('int8', ('predictor',)).  Raises ValueError on unknown modes."""
+    """'int8' -> ('int8', ('talker', 'predictor')); 'w8a8-predictor' ->
+    ('w8a8', ('predictor',)).  Raises ValueError on unknown modes."""
     if mode not in MODES:
         raise ValueError(f"unknown quantize mode {mode!r}; expected one of {MODES}")
     base, _, part = mode.partition("-")
     return base, ((part,) if part else _PARTS)
 
 
-def _not_ported(mode: str):
-    raise NotImplementedError(
-        f"quantize mode {mode!r} (w8a8) is not ported: it needs a hand-written "
-        "int8 x int8 matrix-vector kernel at batch 1 (ROADMAP Queue 1)")
-
-
 def quantize_tensor(w: torch.Tensor, mode: str = "int8") -> Dict[str, torch.Tensor]:
-    """[..., in, out] float -> int8 + f32 per-out-channel scale [..., 1, out].
-    Bit-identical to the JAX package: f32 divide, round half to even, clip
-    to +-127."""
-    if mode != "int8":
-        _not_ported(mode)
+    """[..., in, out] float -> int8 + f32 per-out-channel scale [..., 1, out]:
+    ``{"q", "scale"}`` for "int8", ``{"q8", "scale"}`` for "w8a8".
+    Bit-identical to the JAX package on the CPU and on the card: IEEE f32
+    divides (by a tensor: the card turns a Python-number divisor into a
+    reciprocal multiply), round half to even, clip to +-127."""
+    if mode not in _BASE_MODES:
+        raise ValueError(f"quantize_tensor: mode 'int8' or 'w8a8' wanted; got {mode!r}")
     wf = w.float()
     amax = wf.abs().amax(dim=-2, keepdim=True)  # per out channel
-    scale = amax.clamp_min(1e-8) / 127.0
+    scale = amax.clamp_min(1e-8) / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
-    return {"q": q, "scale": scale}
+    return {"q": q, "scale": scale} if mode == "int8" else {"q8": q, "scale": scale}
 
 
 def dequant(w: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
@@ -78,11 +83,10 @@ def quantize_block_stack(blocks: Dict[str, Any], mode: str = "int8") -> Dict[str
 
 def quantize_bundle(bundle: Dict[str, Any], mode: str = "int8") -> Dict[str, Any]:
     """Quantize the decode-path weights of a parameter bundle: the block
-    projections of each selected component and, for the predictor, its
-    per-codebook lm_heads (read in full every frame)."""
+    projections of each selected component (in the mode's format) and, for
+    the predictor, its per-codebook lm_heads (read in full every frame),
+    int8 weight-only in every mode: their logits feed sampling."""
     base, parts = parse_mode(mode)
-    if base != "int8":
-        _not_ported(mode)
     out = dict(bundle)
     for part in parts:
         p = dict(bundle[part])
@@ -94,9 +98,9 @@ def quantize_bundle(bundle: Dict[str, Any], mode: str = "int8") -> Dict[str, Any
 
 
 def maybe_matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ w for a plain tensor or an int8 weight-only dict."""
+    """x @ w for a plain tensor or a quantized dict (the mode from its keys)."""
     if isinstance(w, dict):
         if "q8" in w:
-            _not_ported("w8a8")
+            return w8a8_matmul(x, w)
         return dequant_matmul(x, w)
     return x @ w

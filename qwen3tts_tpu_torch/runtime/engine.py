@@ -64,9 +64,9 @@ predictor's 14 micro-steps through the fused block kernels
 (``ops/fused_block.py``); ``use_micro_kernel`` (default off, batch 1 only)
 runs each predictor micro-step as one launch of
 ``ops/predictor_step.py:fused_micro_step`` where ``predict_frame``'s gate
-lets it (int8 predictor blocks keep the other paths); ``kv_quant`` keeps the
-talker's KV cache in int8 with f32 per-(slot, head) scales, read by the
-int8-KV flash-decode kernel.
+lets it (quantized predictor blocks, int8 or w8a8, keep the other paths);
+``kv_quant`` keeps the talker's KV cache in int8 with f32 per-(slot, head)
+scales, read by the int8-KV flash-decode kernel.
 """
 from __future__ import annotations
 

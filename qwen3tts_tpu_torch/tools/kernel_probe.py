@@ -1,6 +1,6 @@
 """Measure the design choices behind the port's CUDA kernels on the card.
 
-    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm]
+    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm|intmm]
 
 ``stream`` (fused_o_mlp and fused_micro_step, csrc/wstream.cuh) builds the
 two sources once more per variant with a ``-DQWEN3TTS_...`` flag and, at the
@@ -62,6 +62,14 @@ each phase of a CTA.  Then, at the 0.6B talker's shapes (L 28, KVH 8, D
   the shipped and the base-2 kernel;
 * matvec at K 1024 x N 65536 beside torch.matmul and a plain read of the
   same 134 MB, 16 bytes a lane (the card's streaming rate).
+
+``intmm`` (the w8a8 route above 16 rows, ops/w8a8.py) prints which K
+torch._int_mm refuses on a row-major int8 weight [K, N] (the port's layout:
+cuBLASLt's NN) and on a column-major one, at N 64 to 2048 and 17 to 115
+rows, each result checked against a float64 product; then, at the 0.6B
+talker's four product shapes and 17 to 460 rows, its time with either
+layout beside the w8a8 GEMV kernel in 16-row blocks (CUDA graphs of one
+call per layer, 28 layers of their own weights).
 """
 from __future__ import annotations
 
@@ -693,6 +701,52 @@ def main():
         flash_probe()
     if which in ("all", "norm"):
         norm_probe()
+    if which in ("all", "intmm"):
+        intmm_probe()
+
+
+def intmm_probe():
+    """See the module docstring (``intmm``)."""
+    from ..ops import w8a8
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    refused = {"row-major": [], "column-major": []}
+    for K in (32, 64, 96, 128, 192, 256, 512, 1024, 3072):
+        for N in (64, 128, 512, 1024, 2048):
+            for M in (17, 20, 64, 115):
+                a, b = int8(M, K), int8(K, N)
+                want = (a.double() @ b.double()).int()
+                for layout, bb in (("row-major", b), ("column-major", b.t().contiguous().t())):
+                    try:
+                        ok = torch.equal(torch._int_mm(a, bb), want)
+                    except RuntimeError:
+                        ok = False
+                    if not ok:
+                        refused[layout].append((K, N, M))
+    for layout, cases in refused.items():
+        ks = sorted({k for k, _, _ in cases})
+        print(f"torch._int_mm, {layout} int8 weight: {len(cases)} of 180 (K, N, M) cases "
+              f"refused or wrong, at K {ks}")
+    layers = 28
+    for K, N in ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024)):
+        ws = [int8(K, N) for _ in range(layers)]
+        wcs = [w.t().contiguous().t() for w in ws]
+        scale = torch.ones((1, N), device=dev)
+        for M in (17, 32, 115, 460):
+            a, xs = int8(M, K), torch.ones((M, 1), device=dev)
+            t_nn = graph_us(lambda i: torch._int_mm(a, ws[i % layers]), layers)
+            t_tn = graph_us(lambda i: torch._int_mm(a, wcs[i % layers]), layers)
+            t_gemv = graph_us(lambda i: [w8a8.w8a8_gemv(a[r: r + 16], xs[r: r + 16],
+                                                        ws[i % layers], scale, torch.bfloat16)
+                                         for r in range(0, M, 16)], layers)
+            print(f"K {K} N {N} M {M}: torch._int_mm row-major {t_nn:.2f} us, column-major "
+                  f"{t_tn:.2f} us; w8a8_gemv in {-(-M // 16)} blocks of 16 rows {t_gemv:.2f} us")
+        del ws, wcs
 
 
 def flash_probe():

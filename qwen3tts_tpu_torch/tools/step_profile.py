@@ -1,11 +1,11 @@
 """Where a decode step's time goes, on the card.
 
     python -m qwen3tts_tpu_torch.tools.step_profile [--steps 48] [--out DIR]
-        [--quantize int8|int8-talker|int8-predictor] [--kv-quant] [--fused]
+        [--quantize int8|w8a8[-talker|-predictor]] [--kv-quant] [--fused]
         [--micro]
 
-Loads ``random:qwen3-tts-0.6b`` in bf16 (with ``--quantize``, int8
-weight-only; ``--kv-quant``, an int8 KV cache; ``--fused``,
+Loads ``random:qwen3-tts-0.6b`` in bf16 (with ``--quantize``, a
+quantize mode: int8 weight-only or w8a8; ``--kv-quant``, an int8 KV cache; ``--fused``,
 ``use_fused_kernels=True``; ``--micro``, ``use_micro_kernel=True``) with
 an engine that runs its chunks eagerly, warms up, then runs one streaming
 request (chunk 8) without and then under ``torch.profiler`` and prints:
@@ -47,7 +47,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=48)
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--out", default=None, help="directory for trace.json")
-    ap.add_argument("--quantize", default=None, help="int8, int8-talker or int8-predictor")
+    ap.add_argument("--quantize", default=None,
+                    help="a quantize mode: int8 or w8a8, -talker / -predictor for one part")
     ap.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
     ap.add_argument("--fused", action="store_true", help="use_fused_kernels=True")
     ap.add_argument("--micro", action="store_true", help="use_micro_kernel=True")

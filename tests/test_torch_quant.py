@@ -8,7 +8,8 @@
   ``q`` and float32 ``scale`` unchanged.
 - ``dequant_matmul`` / ``maybe_matmul``: float32, atol 1e-5 (summation
   order only).
-- The w8a8 modes raise NotImplementedError; unknown modes ValueError.
+- The modes as in JAX: the w8a8 modes quantize (``tests/test_torch_w8a8.py``
+  holds them against JAX bit for bit); unknown modes raise ValueError.
 
 Inputs come from numpy.random.default_rng and go to both packages.
 """
@@ -129,16 +130,31 @@ def test_dequant_and_maybe_matmul(quantized):
 
 
 def test_modes_and_w8a8_not_ported():
+    """The modes, ``parse_mode`` and the unknown-mode check as in JAX.  The
+    w8a8 modes, which raised NotImplementedError before they were ported,
+    now quantize the selected blocks as ``{"q8", "scale"}`` (the lm_heads
+    stay int8 ``{"q", "scale"}``), and ``maybe_matmul`` sends a ``q8``
+    weight to ``w8a8_matmul``."""
     assert TQ.MODES == JQ.MODES
     for mode in TQ.MODES:
         assert TQ.parse_mode(mode) == JQ.parse_mode(mode)
     with pytest.raises(ValueError, match="unknown quantize mode"):
         TQ.parse_mode("int4")
-    bundle = {"talker": {"blocks": {"qkv_proj": torch.zeros(1, 4, 4)}},
-              "predictor": {"blocks": {}, "lm_heads": torch.zeros(1, 4, 4)}}
+    g = torch.Generator().manual_seed(0)
+    bundle = {"talker": {"blocks": {"qkv_proj": torch.randn(1, 4, 4, generator=g)}},
+              "predictor": {"blocks": {"qkv_proj": torch.randn(1, 4, 4, generator=g)},
+                            "lm_heads": torch.randn(1, 4, 4, generator=g)}}
     for mode in ("w8a8", "w8a8-talker", "w8a8-predictor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TQ.quantize_bundle(bundle, mode)
-    with pytest.raises(NotImplementedError):
-        TQ.maybe_matmul(torch.zeros(1, 4), {"q8": torch.zeros(4, 4, dtype=torch.int8),
-                                            "scale": torch.ones(1, 4)})
+        out = TQ.quantize_bundle(bundle, mode)
+        _, parts = TQ.parse_mode(mode)
+        for part in ("talker", "predictor"):
+            leaf = out[part]["blocks"]["qkv_proj"]
+            assert (set(leaf) == {"q8", "scale"}) if part in parts else leaf is bundle[
+                part]["blocks"]["qkv_proj"]
+        lm = out["predictor"]["lm_heads"]
+        assert set(lm) == {"q", "scale"} if "predictor" in parts else lm is bundle[
+            "predictor"]["lm_heads"]
+    x = torch.randn(2, 4, generator=g)
+    w = TQ.quantize_tensor(torch.randn(4, 4, generator=g), "w8a8")
+    assert set(w) == {"q8", "scale"}
+    assert torch.equal(TQ.maybe_matmul(x, w), TQ.w8a8_matmul(x, w))

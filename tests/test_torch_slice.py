@@ -14,8 +14,8 @@
   serving (the scheduler, the replica pool, the OpenAI-compatible server,
   timing, mp3), saves and loads a checkpoint, imports the CLI and the
   fixtures, and runs a predictor
-  frame through the micro-step and the matvec probes' kernels (plain
-  versions).
+  frame through the micro-step, the matvec probes' and the w8a8 kernels
+  (plain versions), and imports the quality gate.
 - With no card and no device given, the entry points raise instead of
   running on the CPU.
 """
@@ -179,15 +179,20 @@ def test_api_int8_and_kv_quant_audio_length(ref_wav_path):
 
 
 def test_api_quantize_modes():
-    for mode in ("int8-talker", "int8-predictor"):
+    """The selective modes quantize one component (w8a8 as ``{"q8",
+    "scale"}``, which raised NotImplementedError before the w8a8 modes were
+    ported); unknown modes raise."""
+    for mode in ("int8-talker", "int8-predictor", "w8a8-talker", "w8a8-predictor"):
         m = FasterQwen3TTS.from_pretrained("random:tiny", device="cpu", quantize=mode)
-        talker_q = isinstance(m.params["talker"]["blocks"]["o_proj"], dict)
-        pred_q = isinstance(m.params["predictor"]["blocks"]["o_proj"], dict)
-        assert (talker_q, pred_q) == (mode == "int8-talker", mode == "int8-predictor")
+        key = "q8" if mode.startswith("w8a8") else "q"
+        talker_q, pred_q = (isinstance(w, dict) and key in w for w in (
+            m.params["talker"]["blocks"]["o_proj"], m.params["predictor"]["blocks"]["o_proj"]))
+        assert (talker_q, pred_q) == (mode.endswith("-talker"), mode.endswith("-predictor"))
     with pytest.raises(ValueError, match="unknown quantize mode"):
         FasterQwen3TTS.from_pretrained("random:tiny", device="cpu", quantize="int4")
-    with pytest.raises(NotImplementedError, match="w8a8"):
-        FasterQwen3TTS.from_pretrained("random:tiny", device="cpu", quantize="w8a8")
+    m = FasterQwen3TTS.from_pretrained("random:tiny", device="cpu", quantize="w8a8")
+    assert set(m.params["talker"]["blocks"]["qkv_proj"]) == {"q8", "scale"}
+    assert set(m.params["predictor"]["lm_heads"]) == {"q", "scale"}
 
 
 def test_chunk_vocode_pcm16_matches_f32(tiny_port):
@@ -260,6 +265,14 @@ def test_package_runs_without_jax(tmp_path):
 
         from qwen3tts_tpu_torch.models import predictor as P
         from qwen3tts_tpu_torch.ops import matvec as mv
+        from qwen3tts_tpu_torch.ops import w8a8
+        from qwen3tts_tpu_torch.utils import quality
+
+        x8 = torch.randn((3, 64))
+        y8 = w8a8.w8a8_matmul(x8, {"q8": torch.ones((64, 32), dtype=torch.int8),
+                                   "scale": torch.ones((1, 32))})
+        assert y8.shape == (3, 32) and w8a8.quantize_act(x8)[0].dtype == torch.int8
+        assert quality.waveform_snr_db(np.ones(8), np.ones(8)) == 99.0
 
         pin = torch.randn((1, 2, m.cfg.talker.hidden_size))
         toks, emb = P.predict_frame(m.params["predictor"], m.cfg.predictor, pin, None,
