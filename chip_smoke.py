@@ -174,6 +174,25 @@ Phases, in order; any failure raises and exits non-zero:
    quant_quality(bf16, w8a8) and quant_quality(bf16, int8) at 24 steps
    (teacher-forced logit MSE and argmax-flip rates, talker and predictor
    apart; the vocoder's SNR on identical codes must be 99.0).
+14. slice-demo — the web demo (apps/demo_server.py) in the process on a
+   free port, its /transcribe on the builtin CTC recognizer (the committed
+   samples/asr/ctc_selftrained) on the card: /status names cuda:0; /load of
+   random:qwen3-tts-0.6b (bf16); streamed clone requests (preset_low, chunk
+   8, ramp 2, 4, 96 frames at most, sampled as the page sends them), one
+   that captures its chunks and three warm ones: the server's ttfa_ms, the
+   client's ms to the first chunk event, rtf, total_audio_s and the event
+   count, the events chunk ... done, every chunk whole codec frames of
+   finite audio; a counted request (the demo model's engine recording:
+   flash-decode 28 a step, read from each replay's graph, capturing then
+   replaying); a non-streamed /generate; MODEL_CACHE_SIZE 2, /load
+   random:tiny then random:qwen3-tts-0.6b-custom, which evicts the 0.6B: the
+   release under the generation lock must give back at least 90 % of the
+   0.6B's parameter bytes (torch.cuda.memory_allocated before and after),
+   then a streamed request on the custom model; the 16 committed clips
+   through /transcribe: mean CER within 0.08 of metrics.json's
+   eval_cer_heldout_perturbation and below 0.7, every transcript equal to
+   the port's recognizer on the CPU, the logits' card-vs-CPU max abs error
+   with cuDNN's TF32 as it is and off, the warm ms a transcription.
 
 No phase runs torch.profiler around a captured replay: its tracing of CUDA
 graphs with conditional nodes lost kernel records, and a replay after such
@@ -3674,6 +3693,325 @@ def slice_w8a8_phase(card: str, models: dict) -> dict:
     return res
 
 
+DEMO_MODEL = "random:qwen3-tts-0.6b"
+DEMO_MODELS = [DEMO_MODEL, "random:tiny", "random:qwen3-tts-0.6b-custom"]
+DEMO_STEPS = 96  # max_new_tokens of each streamed demo request (chunk 8, ramp 2, 4)
+DEMO_WARM = 3  # warm streamed requests after the one that captures
+DEMO_TEXT = "The demo streams this sentence while the page shows its TTFA and RTF."
+ASR_CER_BOUND = 0.08  # the JAX gate's bound on the committed clips' mean CER (tests/test_asr.py)
+
+
+def _demo_post(url: str, path: str, body, ctype="application/json", timeout: float = 300):
+    """POST to the demo: (status, parsed JSON, wall ms)."""
+    import urllib.request
+
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, headers={"Content-Type": ctype},
+                                 method="POST")
+    t = time.time()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read()), (time.time() - t) * 1e3
+
+
+def _demo_stream(url: str, body: dict, what: str) -> dict:
+    """POST /generate/stream and read its server-sent events as they come:
+    the events must be ``chunk`` ... ``done``, every chunk a wav of whole
+    codec frames of finite audio.  Returns the server's ``ttfa_ms`` on the
+    first chunk, the client's ms to that event, the last chunk's ``rtf``
+    and ``total_audio_s``, the event count, frames and wall ms."""
+    import base64
+    import urllib.request
+
+    from qwen3tts_tpu_torch.audio.wav import read_wav
+
+    req = urllib.request.Request(url + "/generate/stream", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    events, client_ms = [], None
+    t = time.time()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if r.status != 200 or r.headers["Content-Type"] != "text/event-stream":
+            raise AssertionError(f"{what}: {r.status} {r.headers['Content-Type']}")
+        for line in r:
+            if not line.startswith(b"data: "):
+                continue
+            e = json.loads(line[6:])
+            if client_ms is None and e["event"] == "chunk":
+                client_ms = (time.time() - t) * 1e3
+            events.append(e)
+    wall = (time.time() - t) * 1e3
+    kinds = [e["event"] for e in events]
+    if len(kinds) < 2 or kinds[-1] != "done" or set(kinds[:-1]) != {"chunk"}:
+        raise AssertionError(f"{what}: events {kinds[:3]} ... {kinds[-2:]} "
+                             f"{events[-1] if events else ''}")
+    frames = 0
+    for i, e in enumerate(events[:-1]):
+        audio, sr = read_wav(base64.b64decode(e["wav_b64"]))
+        if (e["chunk_index"] != i or sr != 24_000 or len(audio) == 0 or len(audio) % 2000
+                or not np.isfinite(audio).all()):
+            raise AssertionError(f"{what}: chunk {i}: {len(audio)} samples at {sr} Hz, "
+                                 "not whole frames of finite audio")
+        frames += len(audio) // 2000
+    last = events[-2]
+    if not 0 < frames <= body["max_new_tokens"] or events[-1]["total_audio_s"] != round(
+            frames * 2000 / 24_000, 2):
+        raise AssertionError(f"{what}: {frames} frames, done says {events[-1]}")
+    return {"ttfa_ms": events[0]["ttfa_ms"], "client_first_chunk_ms": client_ms,
+            "rtf": last["rtf"], "total_audio_s": last["total_audio_s"], "events": len(events),
+            "frames": frames, "wall_ms": wall}
+
+
+def _chunk_steps(frames: int, budget: int, chunk: int, ramp: tuple) -> int:
+    """The steps a streamed request's chunks run for ``frames`` frames: up to
+    an EOS the frames themselves (a chunk stops when its row is done); at the
+    budget, every step of the chunks dispatched to reach it (``ramp``, then
+    ``chunk`` each), the last one's steps past the budget trimmed from its
+    audio but run (``runtime/loops.py:_chunk_iter``)."""
+    if frames < budget:
+        return frames
+    sizes, steps = list(ramp), 0
+    while steps < budget:
+        steps += sizes.pop(0) if sizes else chunk
+    return steps
+
+
+def _demo_requests(url: str, engine, body: dict, card: str) -> dict:
+    """The streamed clone requests of the demo's model, under ``_recording``
+    on its engine: the first one (it captures its chunks: the API's warm-up
+    captures chunks 2, 4 and 8 and runs each once), then DEMO_WARM warm ones
+    (replays only), then a non-streamed /generate.  Each streamed request
+    runs with the launch counters set to 0 just before it and read just
+    after; each replay's launches are read from its graph.  Every captured
+    step must hold flash-decode 28 and no other counted kernel, the eager
+    launches must be one step's for each capture, and a warm request's
+    replays must have run the steps its chunks were dispatched for
+    (``_chunk_steps``; the first request's also ran the warm-up's)."""
+    import base64
+
+    from qwen3tts_tpu_torch.audio.wav import read_wav
+
+    want = {k: 28 if k == "flash_decode" else 0 for k in KERNELS}
+    res = {"warm": []}
+    with _recording(engine) as graphs:
+        for i in range(1 + DEMO_WARM):
+            what = "first streamed request (captures)" if i == 0 else f"warm request {i}"
+            graphs.log.clear()
+            captures = graphs.captures
+            torch.cuda.synchronize()
+            _zero_counts()  # the main path's run starts here
+            out = _demo_stream(url, body, what)
+            torch.cuda.synchronize()
+            eager = _launch_counts()  # ... and ends here
+            replayed, steps, device_ms, per_step = _replayed(graphs)
+            warm = graphs.captures - captures
+            bad = [c for c in per_step if {k: c[k] for k in KERNELS} != want]
+            want_steps = _chunk_steps(out["frames"], body["max_new_tokens"], CHUNK, (2, 4))
+            if (bad or steps < want_steps or (i and steps != want_steps)
+                    or replayed != {k: v * steps for k, v in want.items()}
+                    or eager != {k: v * warm for k, v in want.items()}):
+                raise AssertionError(
+                    f"{what}: {steps} steps replayed for {out['frames']} frames, launches "
+                    f"{replayed} from the graphs and {eager} eagerly ({warm} captures), "
+                    f"captured steps holding {bad[:1]}; want flash_decode 28 a step")
+            out.update(steps=steps, request_steps=want_steps, captures=warm,
+                       replays=len(graphs.log),
+                       launches={k: eager[k] + replayed[k] for k in KERNELS},
+                       flash_decode_a_step=replayed["flash_decode"] / steps,
+                       kernel_nodes_a_step=sorted({c["all"] for c in per_step}),
+                       replay_device_ms=device_ms, busy_share=device_ms / out["wall_ms"])
+            if i == 0:
+                res["first"] = out
+                log(f"  first streamed request (captures chunks 2, 4, 8): {json.dumps(out)}"
+                    f"  [{card}]")
+            else:
+                res["warm"].append(out)
+                log(f"  warm streamed request: {json.dumps(out)}  [{card}]")
+        status, body_, ms = _demo_post(url, "/generate", body)
+    if status != 200 or set(body_) != {"wav_b64", "duration_s", "wall_s", "rtf"}:
+        raise AssertionError(f"/generate: {status} {sorted(body_)}")
+    audio, sr = read_wav(base64.b64decode(body_["wav_b64"]))
+    if (sr != 24_000 or len(audio) == 0 or len(audio) % 2000 or not np.isfinite(audio).all()
+            or body_["duration_s"] != round(len(audio) / sr, 2)):
+        raise AssertionError(f"/generate: {len(audio)} samples at {sr} Hz, "
+                             f"{body_['duration_s']} s")
+    res["non_streamed"] = {"duration_s": body_["duration_s"], "wall_s": body_["wall_s"],
+                           "rtf": body_["rtf"], "client_ms": ms, "frames": len(audio) // 2000}
+    log(f"  /generate (non-streamed): {json.dumps(res['non_streamed'])}  [{card}]")
+    return res
+
+
+def _param_bytes(tree) -> int:
+    from qwen3tts_tpu_torch.core.loader import flatten
+
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values()
+               if isinstance(t, torch.Tensor))
+
+
+def _demo_evict(url: str, state, card: str) -> dict:
+    """MODEL_CACHE_SIZE 2: /load random:tiny, then /load the 0.6B custom
+    model, which evicts the 0.6B.  The eviction (under the generation
+    lock) must give back at least 90 % of the 0.6B's parameter
+    bytes; then one streamed request on the custom model (a named speaker)."""
+    import gc
+
+    from qwen3tts_tpu_torch.apps import demo_server
+
+    demo_server.MODEL_CACHE_SIZE = 2
+    param_bytes = _param_bytes(state.model_cache[DEMO_MODEL].params)  # no reference kept
+    _demo_post(url, "/load", {"model": "random:tiny"})
+    gc.collect()  # the earlier phases' garbage: the release below then frees the 0.6B's alone
+    torch.cuda.synchronize()
+    res = {"param_bytes_0.6b": param_bytes, "allocated_before_load": torch.cuda.memory_allocated()}
+    released = []
+
+    def evict():  # the server's eviction, with the allocator's bytes around it
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        real()
+        torch.cuda.synchronize()
+        released.append((before, torch.cuda.memory_allocated()))
+
+    real, state.evict_lru = state.evict_lru, evict
+    try:
+        _, body, load_ms = _demo_post(url, "/load", {"model": "random:qwen3-tts-0.6b-custom"})
+    finally:
+        del state.evict_lru  # the class's own method again
+    torch.cuda.synchronize()
+    if body["cached"] != ["random:tiny", "random:qwen3-tts-0.6b-custom"] or len(released) != 1:
+        raise AssertionError(f"eviction: cache {body['cached']}, releases {released}")
+    before, after = released[0]
+    res.update(load_custom_ms=load_ms, allocated_before_release=before,
+               allocated_after_release=after, returned_bytes=before - after,
+               returned_share=(before - after) / param_bytes,
+               allocated_after_load=torch.cuda.memory_allocated())
+    log(f"  eviction: {json.dumps(res)}  [{card}]")
+    if before - after < 0.9 * param_bytes:
+        raise AssertionError(f"eviction returned {before - after} bytes, under 90 % of the "
+                             f"0.6B's {param_bytes} parameter bytes")
+    speaker = sorted(state.model_cache["random:qwen3-tts-0.6b-custom"].cfg.talker.spk_id)[0]
+    res["custom_request"] = _demo_stream(url, {
+        "mode": "custom", "model": "random:qwen3-tts-0.6b-custom", "text": DEMO_TEXT,
+        "speaker": speaker, "chunk_size": CHUNK, "max_new_tokens": DEMO_STEPS},
+        "custom voice after the eviction")
+    res["custom_request"]["speaker"] = speaker
+    log(f"  custom voice ({speaker}), streamed: {json.dumps(res['custom_request'])}  [{card}]")
+    return res
+
+
+def _demo_transcribe(url: str, hook, card: str) -> dict:
+    """The 16 committed clips through /transcribe (the builtin recognizer on
+    the card, the committed checkpoint): the mean CER within ASR_CER_BOUND
+    of the recorded figure and below 0.7; the port's recognizer on the CPU
+    gives each clip's transcript too (all must be equal), and the logits'
+    card-vs-CPU max abs error with cuDNN's TF32 as it is (on by default)
+    and off; the warm ms of a transcription over HTTP and in the process."""
+    from qwen3tts_tpu_torch.audio.wav import read_wav
+    from qwen3tts_tpu_torch.models import asr
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples", "asr")
+    manifest = json.load(open(os.path.join(root, "manifest.json")))
+    recorded = json.load(open(os.path.join(root, "metrics.json")))[
+        "eval_cer_heldout_perturbation"]
+    card_rec = hook.__self__  # the recognizer behind the server's hook
+    cpu_rec = asr.CTCRecognizer.from_pretrained(asr.default_checkpoint(), device="cpu")
+    clips = []
+    for e in manifest:
+        with open(os.path.join(root, e["wav"]), "rb") as f:
+            data = f.read()
+        clips.append((e["text"], data, *read_wav(data)))
+    http_ms, scores, card_text, cpu_text = [], [], [], []
+    for ref, data, _, _ in clips:
+        status, body, ms = _demo_post(url, "/transcribe", data, "audio/wav")
+        if status != 200:
+            raise AssertionError(f"/transcribe: {status} {body}")
+        http_ms.append(ms)
+        card_text.append(body["text"])
+        scores.append(asr.cer(ref, body["text"]))
+    t = time.time()
+    for _, _, wav, sr in clips:
+        cpu_text.append(cpu_rec.transcribe(wav, sr))
+    cpu_ms = (time.time() - t) * 1e3 / len(clips)
+    torch.cuda.synchronize()
+    t = time.time()
+    for _, _, wav, sr in clips:
+        card_rec.transcribe(wav, sr)
+    card_ms = (time.time() - t) * 1e3 / len(clips)
+    err = {}
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for name, tf32 in (("cudnn_tf32_default", prev), ("cudnn_tf32_off", False)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            diffs, same = [], 0
+            for _, _, wav, sr in clips:
+                a, b = card_rec.logits(wav, sr), cpu_rec.logits(wav, sr)
+                diffs.append(float(np.abs(a - b).max()))
+                same += asr.greedy_ctc_decode(a.argmax(-1)) == asr.greedy_ctc_decode(b.argmax(-1))
+            err[name] = {"allow_tf32": tf32, "logit_max_abs_err": max(diffs),
+                         "transcripts_equal": same}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    mean = float(np.mean(scores))
+    res = {"clips": len(clips), "mean_cer": mean, "recorded_cer": recorded,
+           "transcripts_equal_cpu": sum(a == b for a, b in zip(card_text, cpu_text)),
+           "card_vs_cpu": err, "http_ms_first": http_ms[0],
+           "http_ms_warm_mean": float(np.mean(http_ms[1:])), "card_ms_warm": card_ms,
+           "cpu_ms": cpu_ms}
+    log(f"  /transcribe, 16 committed clips: {json.dumps(res)}  [{card}]")
+    if res["transcripts_equal_cpu"] != len(clips):
+        raise AssertionError(f"card transcripts differ from the CPU's: "
+                             f"{[(a, b) for a, b in zip(card_text, cpu_text) if a != b]}")
+    if not (abs(mean - recorded) < ASR_CER_BOUND and mean < 0.7):
+        raise AssertionError(f"mean CER {mean} against the recorded {recorded}")
+    return res
+
+
+def slice_demo_phase(card: str) -> dict:
+    """The web demo (``apps/demo_server.py``) in the process on a free port,
+    with the builtin recognizer (the committed checkpoint) on the card:
+    /status names cuda:0; /load of the bf16 0.6B, then streamed clone
+    requests (``preset_low``, chunk 8, ramp 2, 4, DEMO_STEPS), each counted
+    (flash-decode 28 a step): one that captures, DEMO_WARM warm ones; a
+    non-streamed /generate (``_demo_requests``); the eviction
+    (``_demo_evict``); the 16 committed clips through /transcribe
+    (``_demo_transcribe``).  Shuts the server down and frees its models."""
+    import gc
+    import threading
+    import urllib.request
+
+    from qwen3tts_tpu_torch.apps import demo_server
+
+    res = {}
+    t = time.time()
+    hook = demo_server.resolve_asr("builtin", device="cuda")
+    res["asr_load_s"] = time.time() - t
+    httpd, state = demo_server.serve(models=DEMO_MODELS, dtype="bf16", host="127.0.0.1",
+                                     port=0, asr=hook, device="cuda")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/status", timeout=60) as r:
+            status = json.loads(r.read())
+        if "cuda:0" not in status["device_memory"] or status["available_models"] != DEMO_MODELS:
+            raise AssertionError(f"/status: {status}")
+        res["status_keys"] = sorted(status)
+        _, body, res["load_ms"] = _demo_post(url, "/load", {"model": DEMO_MODEL})
+        if body != {"ok": True, "cached": [DEMO_MODEL]}:
+            raise AssertionError(f"/load: {body}")
+        req = {"mode": "clone", "model": DEMO_MODEL, "text": DEMO_TEXT,
+               "preset_ref": "preset_low", "chunk_size": CHUNK, "max_new_tokens": DEMO_STEPS}
+        res.update(_demo_requests(url, state.model_cache[DEMO_MODEL].engine, req, card))
+        res["eviction"] = _demo_evict(url, state, card)
+        res["transcribe"] = _demo_transcribe(url, hook, card)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        with state.gen_lock:
+            state.model_cache.clear()
+        del state, hook
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
@@ -3717,6 +4055,7 @@ def main():
     voices = phase("slice-voices", slice_voices_phase, card, models)
     ckpt = phase("slice-checkpoint", slice_checkpoint_phase, card)
     w8 = phase("slice-w8a8", slice_w8a8_phase, card, models)
+    demo = phase("slice-demo", slice_demo_phase, card)
     # the main path: the captured chunks, in the counted request that
     # captured them; a replay's launches read from its graph's kernel nodes
     traced = {path: g["paths"][path]["captured"]["counted_request"]["capturing"]["launches"]
@@ -3760,6 +4099,7 @@ def main():
                       for (where, M), t in w_times.items()},
         "bound_us": {f"{where} M={M}": {k: v[0] * 1e3 for k, v in b.items()}
                      for (where, M), b in w_bounds.items()}}))
+    log("slice-demo: " + json.dumps({"card": card, **demo}))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],

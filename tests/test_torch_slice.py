@@ -281,6 +281,12 @@ def test_package_runs_without_jax(tmp_path):
         x, w = torch.randn((1, 64)), torch.randn((64, 32))
         assert mv.matvec(x, w).shape == (1, 32)
         assert mv.matvec_kt(x, w.t().contiguous()).shape == (32, 1)
+        from qwen3tts_tpu_torch.apps import demo_server
+        from qwen3tts_tpu_torch.models import asr
+        rec = asr.CTCRecognizer.from_pretrained(asr.default_checkpoint(), device="cpu")
+        assert rec.cfg.channels == 96  # the committed checkpoint, not random weights
+        assert isinstance(rec.transcribe(np.zeros(16000, np.float32), 16000), str)
+        assert callable(demo_server.serve) and callable(demo_server.resolve_asr)
         assert not any(k.split(".")[0] in ("jax", "qwen3tts_tpu") for k in sys.modules)
         print("OK")
     """)
@@ -291,11 +297,15 @@ def test_package_runs_without_jax(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["from_pretrained", "load_pretrained", "init_random",
-                                   "bundle_from_jax_numpy"])
+                                   "bundle_from_jax_numpy", "CTCRecognizer",
+                                   "asr_params_from_jax_numpy", "DemoState", "serve",
+                                   "resolve_asr"])
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny_models, entry):
     """With no card, an entry point given no device raises and names
     device="cpu"; it never builds on the CPU by itself."""
+    from qwen3tts_tpu_torch.apps import demo_server
     from qwen3tts_tpu_torch.core import loader
+    from qwen3tts_tpu_torch.models import asr
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_preset("tiny")
@@ -305,6 +315,12 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny_models, entry):
         "init_random": lambda: loader.init_random(cfg),
         "bundle_from_jax_numpy": lambda: loader.bundle_from_jax_numpy(
             {"predictor": jax.tree.map(np.asarray, tiny_models[1])}, cfg),
+        "CTCRecognizer": lambda: asr.CTCRecognizer.from_pretrained(asr.default_checkpoint()),
+        "asr_params_from_jax_numpy": lambda: asr.asr_params_from_jax_numpy(
+            {"down1": {"w": np.zeros((3, 2, 2)), "b": np.zeros(2)}}),
+        "DemoState": lambda: demo_server.DemoState(["random:tiny"]),
+        "serve": lambda: demo_server.serve(["random:tiny"], host="127.0.0.1", port=0),
+        "resolve_asr": lambda: demo_server.resolve_asr("builtin:random:ctc-tiny"),
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
