@@ -193,6 +193,18 @@ Phases, in order; any failure raises and exits non-zero:
    eval_cer_heldout_perturbation and below 0.7, every transcript equal to
    the port's recognizer on the CPU, the logits' card-vs-CPU max abs error
    with cuDNN's TF32 as it is and off, the warm ms a transcription.
+15. slice-shard — tensor-parallel serving (parallel/sharding.py) on the
+   0.6B (``slice_shard_phase``): two gloo ranks on the one card (eager):
+   the float32 flagship check with the int8 cache, 4 greedy steps,
+   token-exact with the unsharded run, flash-decode's int8 instance 28 a
+   step on each rank, ms/step sharded and whole and the collectives a step;
+   the bf16 structural check (logit deltas within the JAX check's
+   thresholds); the tiny batched serving check with a join; then one NCCL
+   rank, the bf16 flagship with captured chunks equal to the eager sharded
+   run and the unsharded one; TP 2 and TP 4 over NCCL, captured, only
+   where the machine has that many cards (else a line says so).  The
+   kernel phase holds flash-decode at one rank's heads (8 over 4, 4 over 2;
+   ``rank_flash_phase``) and times ``set_condition`` (``set_condition_phase``).
 
 No phase runs torch.profiler around a captured replay: its tracing of CUDA
 graphs with conditional nodes lost kernel records, and a replay after such
@@ -4012,6 +4024,341 @@ def slice_demo_phase(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice-shard: tensor-parallel serving (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+# (KVH, NH) of one rank's talker at TP 2 and at TP 4: group 2, head_dim 128
+RANK_FLASH_LAYOUTS = ((4, 8), (2, 4))
+RANK_FLASH_CASES = [(27, 300, 0, None), (13, 2000, 0, None), (5, 2000, 1990, None),
+                    (11, 1500, 0, 300), (2, 40, 100, None)]
+
+
+def rank_flash_phase(card: str) -> dict:
+    """Flash-decode at one rank's head count under TP 2 (8 heads over 4 kv
+    heads) and TP 4 (4 over 2), the 0.6B's 28 layers, 2048 slots and
+    head_dim 128: float (bf16 and float32 q) and int8 caches against the
+    plain version (RANK_FLASH_CASES, at the kernel phase's tolerances;
+    pad past pos gives exact zeros), then timed at pos 300 and 2000 (28
+    calls a graph, one a layer, CUDA events; one cache stack) beside the
+    bound."""
+    from qwen3tts_tpu_torch.models.layers import _quantize_rows
+    from qwen3tts_tpu_torch.ops import cuda_build
+    from qwen3tts_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    L, B, S, D = 28, 1, 2048, 128
+
+    def ints(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    out = {}
+    for KVH, NH in RANK_FLASH_LAYOUTS:
+        g = torch.Generator(device=dev).manual_seed(KVH)
+        k32 = torch.randn((L, B, S, KVH, D), generator=g, device=dev)
+        v32 = torch.randn((L, B, S, KVH, D), generator=g, device=dev)
+        q32 = torch.randn((B, NH, D), generator=g, device=dev)
+        kq, ks = _quantize_rows(k32)
+        vq, vs = _quantize_rows(v32)
+        ks, vs = (t.transpose(-1, -2).contiguous() for t in (ks, vs))  # [L, B, KVH, S]
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+        runs = {"bf16": (qb, kb, vb, (), BF16_TOL), "f32": (q32, k32, v32, (), F32_TOL),
+                "int8kv bf16": (qb, kq, vq, (ks, vs), BF16_TOL),
+                "int8kv f32": (q32, kq, vq, (ks, vs), F32_TOL)}
+        errs = {}
+        for name, (qq, kk, vv, scales, tol) in runs.items():
+            errs[name] = 0.0
+            for layer, pos, pad, window in RANK_FLASH_CASES:
+                args = (qq, kk, vv, layer, ints(pos), ints(pad), window, *scales)
+                o = fd.flash_decode(*args)
+                errs[name] = max(errs[name], _held(
+                    f"flash-decode {NH}/{KVH} heads {name}", o, fd.flash_decode_plain(*args), tol,
+                    f"layer={layer} pos={pos} pad={pad} window={window}"))
+                if pad > pos and o.abs().max().item() != 0.0:
+                    raise AssertionError("pad > pos must give exact zeros")
+        res = {"splits": fd.num_splits(S, B, KVH, cuda_build.sm_count(dev)),
+               "max_abs_err": errs, "us": {}, "plain_us": {}, "bound_us": {}}
+        zero = ints(0)
+        for cache, (qq, kk, vv, scales, _) in (("float", runs["bf16"]),
+                                              ("int8kv", runs["int8kv bf16"])):
+            for pos in (300, 2000):
+                p = ints(pos)
+                t_k = graph_ms(lambda i: fd.flash_decode(qq, kk, vv, i, p, zero, None, *scales), L)
+                t_p = graph_ms(lambda i: fd.flash_decode_plain(qq, kk, vv, i, p, zero, None,
+                                                               *scales), L)
+                per_slot = KVH * (D * kk.element_size() + (4 if scales else 0))
+                b = bound(nbytes(qq, qq) + 2 * (pos + 1) * per_slot, 4 * NH * (pos + 1) * D,
+                          torch.int8 if scales else qq.dtype)
+                key = f"{cache} pos={pos}"
+                res["us"][key], res["plain_us"][key], res["bound_us"][key] = (
+                    t_k * 1e3, t_p * 1e3, b[0] * 1e3)
+                log(f"  flash-decode {NH}/{KVH} heads {key}: kernel {t_k * 1e3:.2f} us/call, "
+                    f"plain {t_p * 1e3:.2f}, bound {b[0] * 1e3:.3f} us ({b[1]}), "
+                    f"{KVH} x {res['splits']} CTAs  [{card}]")
+        out[f"{NH}/{KVH}"] = res
+    return out
+
+
+def set_condition_phase(card: str) -> dict:
+    """``set_condition`` (``csrc/graph_cond.cu``), the one-thread kernel that
+    sets a captured step's IF-node predicate: 64 IF nodes with empty bodies
+    in one graph, their predicate true, replayed and timed with CUDA
+    events; a node's time is its kernel's launch plus the node's branch.
+    Its bound: the bool read and the 32-bit condition written."""
+    from qwen3tts_tpu_torch.runtime.graphs import _IfNodes
+
+    dev = torch.device("cuda")
+    pred = torch.ones((), dtype=torch.bool, device=dev)
+    nodes, n, replays = _IfNodes(dev), 64, 20
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
+                          capture_error_mode="thread_local"):
+        for _ in range(n):
+            with nodes.node(pred):
+                pass
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * n)
+    b = bound(1 + 4, 0, torch.int8)
+    log(f"  set_condition + its IF node: {ms * 1e3:.3f} us a node ({n} a graph); bound "
+        f"{b[0] * 1e6:.4f} ns ({b[1]})  [{card}]")
+    return {"ms": ms, "bound_ms": b[0], "bound_by": b[1], "nodes": n}
+
+
+SHARD_PRESET = "qwen3-tts-0.6b"
+SHARD_STEPS = 4  # the float32 flagship check's greedy steps (the JAX check's)
+SHARD_NCCL_STEPS = 8  # two chunks of 4: the first captures, the second replays
+# seconds a launch of the ranks may take (each ~25-55 s on the H100): a
+# rank that hangs in a collective fails the phase instead of the whole run
+SHARD_LAUNCH_S = 300
+
+
+def _shard_gloo_rank(mesh) -> dict:
+    """One of two gloo ranks on the one card: the 0.6B flagship in float32
+    with the int8 cache (eager), the bf16 structural check, and the tiny
+    batched serving check with its join (no flash-decode instance for
+    head_dim 16)."""
+    import torch.distributed as dist
+
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.parallel import sharding as S
+
+    cfg = get_preset(SHARD_PRESET)
+    t = time.time()
+    params = S.host_init_flagship(cfg)
+    init_s = time.time() - t
+    stats = {}
+    ids, single = S.sharded_flagship_check(mesh, SHARD_STEPS, preset=cfg, params=params,
+                                           use_cuda_graphs=False, stats=stats)
+    structural = S.sharded_flagship_structural_check(mesh, 6, preset=cfg, params=params,
+                                                     fp32_ids=single, use_cuda_graphs=False)
+    batched = S.sharded_batched_serving_check(mesh, use_flash_decode=False,
+                                              use_cuda_graphs=False)
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, stats["sharded"])
+    return {"ids": ids, "single": single, "stats": stats, "per_rank": per_rank,
+            "structural": structural, "batched": batched, "host_init_s": init_s}
+
+
+def _counted_shard_request(mesh, cfg, params, steps: int, what: str) -> dict:
+    """One greedy request of ``steps`` frame steps on a captured sharded
+    engine (the flagship check's inputs, EOS held off), run through
+    ``_held_request``: the counters set to 0 just before it and read just
+    after, each replay's launches read from its graph's kernel nodes, and
+    every captured step holding 28 flash-decode launches."""
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.parallel import sharding as S
+    from qwen3tts_tpu_torch.runtime import loops
+    from qwen3tts_tpu_torch.runtime.engine import Engine, GenerationPolicy
+
+    dt = cfg.torch_dtype
+    eng = Engine(S.shard_params(S._host(params[0], dt), mesh, S.talker_param_specs(cfg.talker)),
+                 S.shard_params(S._host(params[1], dt), mesh,
+                                S.predictor_param_specs(cfg.predictor)),
+                 cfg, max_seq_len=64, kv_quant=True, mesh=mesh, use_cuda_graphs=True)
+    H = cfg.talker.hidden_size
+    embeds, tth = S._randn(2, 1, 10, H), S._randn(3, 1, 4, H)
+    tpe = np.zeros((1, 1, H), np.float32)
+    pol = GenerationPolicy(do_sample=False, min_new_tokens=steps)
+
+    def request():
+        loops.fast_generate(eng, embeds, tth, tpe, generator=None, max_new_tokens=steps,
+                            policy=pol, pred_policy=SamplingPolicy(do_sample=False),
+                            device_chunk=4)
+
+    return _held_request(eng, request, {"flash_decode": 28}, steps, what)
+
+
+def _shard_nccl_rank(mesh, dtypes: tuple, steps: int) -> dict:
+    """One NCCL rank of a mesh, one card each, for each dtype: the flagship
+    check with captured chunks (the collectives captured in each step's
+    IF-node body), then eagerly, then a counted captured request
+    (``_counted_shard_request``)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.parallel import sharding as S
+
+    cfg = get_preset(SHARD_PRESET)
+    params = S.host_init_flagship(cfg)
+    out = {}
+    for dtype in dtypes:
+        stats = {}
+        captured, single = S.sharded_flagship_check(mesh, steps, preset=cfg, dtype=dtype,
+                                                    params=params, use_cuda_graphs=True,
+                                                    stats=stats)
+        eager, _ = S.sharded_flagship_check(mesh, steps, preset=cfg, dtype=dtype, params=params,
+                                            use_cuda_graphs=False, run_single=False)
+        counted = _counted_shard_request(
+            mesh, dataclasses.replace(cfg, dtype=dtype), params, steps,
+            f"NCCL world {dist.get_world_size()} rank {dist.get_rank()}, {dtype}")
+        per_rank = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, {**stats["sharded"], "counted": counted})
+        out[dtype] = {"captured": captured, "single": single, "eager": eager, "stats": stats,
+                      "per_rank": per_rank}
+    return out
+
+
+def _shard_summary(what: str, stats: dict, per_rank: list, steps: int) -> dict:
+    """ms/step sharded and whole; the collectives and flash-decode launches
+    of one eager step on each rank (28 int8 flash-decode launches); and
+    each rank's flash-decode launches in its counted request: an eager
+    engine's first request from the counters, a captured engine's counted
+    request from its replayed graphs (``_counted_shard_request``)."""
+    want = {"flash_decode": 0, "flash_decode_int8kv": 28}
+    request = []
+    for r, st in enumerate(per_rank):
+        if st["eager_step_flash_decode"] != want:
+            raise AssertionError(f"{what}: rank {r}'s eager step launched "
+                                 f"{st['eager_step_flash_decode']} flash-decode kernels, not "
+                                 f"{want}")
+        if "counted" in st:
+            rep = st["counted"]["replaying"]
+            request.append({"steps": rep["steps"], "from": "replayed graphs",
+                            "flash_decode": rep["launches"]["flash_decode"],
+                            "kernel_nodes_a_step": rep["kernel_nodes_a_step"]})
+        else:
+            n = st["flash_decode_launches"]
+            if n != {"flash_decode": 0, "flash_decode_int8kv": 28 * steps}:
+                raise AssertionError(f"{what}: rank {r}'s {steps}-step request launched {n}")
+            request.append({"steps": steps, "from": "counters (eager)",
+                            "flash_decode": n["flash_decode_int8kv"]})
+    out = {"ms_per_step_sharded": [st["ms_per_step"] for st in per_rank],
+           "ms_per_step_single": stats["single"]["ms_per_step"],
+           "collectives_per_eager_step": per_rank[0]["eager_step_collectives"],
+           "flash_decode_per_eager_step_per_rank": [st["eager_step_flash_decode"]
+                                                    for st in per_rank],
+           "flash_decode_request_per_rank": request}
+    log(f"  {what}: ms/step sharded {out['ms_per_step_sharded']} whole "
+        f"{out['ms_per_step_single']:.2f}; collectives an eager step "
+        f"{out['collectives_per_eager_step']}; flash-decode per rank in a counted request "
+        f"{request}")
+    return out
+
+
+def slice_shard_phase(card: str) -> dict:
+    """Tensor-parallel serving (``parallel/sharding.py``) on the 0.6B:
+
+    - two gloo ranks on the one card (eager; gloo moves every collective
+      through the host, so its ms/step measures the layout, not TP's
+      speed): the float32 flagship with the int8 cache, SHARD_STEPS greedy
+      steps, token-exact with the unsharded run, flash-decode's int8
+      instance 28 a step on each rank; the bf16 structural check (logit
+      deltas within JAX's thresholds); the batched serving check (3 rows, a
+      join) equal to the unsharded run;
+    - one NCCL rank: the bf16 flagship with captured chunks, equal to the
+      eager sharded run and to the unsharded one;
+    - ``nccl_tp_phase``: TP 2 and TP 4 over NCCL, captured, where the
+      machine has that many cards; on one card a line says they did not
+      run."""
+    return {**_gloo_tp2_phase(card), **_nccl_world1_phase(card), **nccl_tp_phase(card)}
+
+
+def _gloo_tp2_phase(card: str) -> dict:
+    """Two gloo ranks on the one card (``_shard_gloo_rank``)."""
+    from qwen3tts_tpu_torch.parallel import sharding as S
+
+    t = time.time()
+    r = S.launch(_shard_gloo_rank, 2, device="cuda", backend="gloo", timeout=SHARD_LAUNCH_S)
+    if not np.array_equal(r["ids"], r["single"]):
+        raise AssertionError(f"TP 2 (gloo) float32 tokens differ from the unsharded run:\n"
+                             f"{r['ids']}\n{r['single']}")
+    s, b = r["batched"]
+    if s.shape != (3, 32, 16) or not np.array_equal(s, b):
+        raise AssertionError("TP 2 (gloo) batched serving differs from the unsharded run")
+    res = {"gloo_tp2": {
+        "seconds": time.time() - t, "host_init_s": r["host_init_s"], "steps": SHARD_STEPS,
+        "tokens_equal": True, "batched_equal": True, "structural": r["structural"],
+        **_shard_summary("gloo TP 2, float32, int8 cache", r["stats"], r["per_rank"],
+                         SHARD_STEPS)}}
+    log(f"  gloo TP 2: float32 tokens equal the unsharded run over {SHARD_STEPS} steps; bf16 "
+        f"structural {r['structural']}; batched (3 rows, a join) equal  [{card}]")
+    return res
+
+
+def _nccl_world1_phase(card: str) -> dict:
+    """One NCCL rank, captured (``_shard_nccl_rank``, bf16)."""
+    from qwen3tts_tpu_torch.parallel import sharding as S
+
+    t = time.time()
+    r = S.launch(_shard_nccl_rank, 1, ("bfloat16",), SHARD_NCCL_STEPS,
+                 timeout=SHARD_LAUNCH_S)["bfloat16"]
+    for name in ("eager", "single"):
+        if not np.array_equal(r["captured"], r[name]):
+            raise AssertionError(f"NCCL world 1, bf16: captured tokens differ from {name}")
+    res = {"nccl_world1_captured": {
+        "seconds": time.time() - t, "steps": SHARD_NCCL_STEPS, "tokens_equal": True,
+        **_shard_summary("NCCL world 1, bf16, captured", r["stats"], r["per_rank"],
+                         SHARD_NCCL_STEPS)}}
+    log(f"  NCCL world 1, bf16: captured == eager == unsharded  [{card}]")
+    return res
+
+
+def nccl_tp_phase(card: str, tps: tuple = (2, 4),
+                  dtypes: tuple = ("float32", "bfloat16")) -> dict:
+    """TP 2 and TP 4 (``tps``) over NCCL, one card a rank, captured: the
+    0.6B flagship in float32 with the int8 cache (captured tokens equal the
+    eager sharded run and the unsharded one) and in bf16 (captured equal
+    eager; the agreement with the unsharded bf16 run printed), ms/step
+    sharded and whole.  A mesh needs as many cards as ranks: on fewer, a
+    line says it did not run."""
+    from qwen3tts_tpu_torch.parallel import sharding as S
+
+    res = {}
+    cards = torch.cuda.device_count()
+    for tp in tps:
+        if cards < tp:
+            log(f"  NCCL TP {tp} captured: did not run: this machine has {cards} card(s), "
+                f"TP {tp} over NCCL needs {tp}")
+            continue
+        t = time.time()
+        runs = S.launch(_shard_nccl_rank, tp, dtypes, SHARD_NCCL_STEPS, timeout=SHARD_LAUNCH_S)
+        seconds = time.time() - t  # both dtypes in one launch of the ranks
+        for dtype, r in runs.items():
+            if not np.array_equal(r["captured"], r["eager"]):
+                raise AssertionError(f"NCCL TP {tp}, {dtype}: captured tokens differ from eager")
+            agree = float((r["captured"] == r["single"]).mean())
+            if dtype == "float32" and agree != 1.0:
+                raise AssertionError(f"NCCL TP {tp}, float32: captured tokens differ from the "
+                                     f"unsharded run:\n{r['captured']}\n{r['single']}")
+            res[f"nccl_tp{tp}_{dtype}_captured"] = {
+                "launch_seconds": seconds, "steps": SHARD_NCCL_STEPS,
+                "token_agree_vs_unsharded": agree,
+                **_shard_summary(f"NCCL TP {tp}, {dtype}, captured", r["stats"], r["per_rank"],
+                                 SHARD_NCCL_STEPS)}
+            log(f"  NCCL TP {tp}, {dtype}: captured == eager; tokens agree with the unsharded "
+                f"run: {agree:.3f}  [{card}]")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
@@ -4036,6 +4383,8 @@ def main():
     m17_err, m17_out = phase("kernel", micro_kernel_phase, card, "qwen3-tts-1.7b")
     v_err, v_launches, v_times = phase("kernel", matvec_phase, card)
     w_err, w_times, w_bounds = phase("kernel", w8a8_kernel_phase, card)
+    rank_flash = phase("kernel", rank_flash_phase, card)
+    cond = phase("kernel", set_condition_phase, card)
     models = {"bf16": _load(), "int8": _load(quantize="int8", kv_quant=True)}
     _, results = phase("slice", slice_phase, card, models["bf16"])
     _, q_results = phase("slice-int8", slice_int8_phase, card, models["int8"])
@@ -4056,6 +4405,7 @@ def main():
     ckpt = phase("slice-checkpoint", slice_checkpoint_phase, card)
     w8 = phase("slice-w8a8", slice_w8a8_phase, card, models)
     demo = phase("slice-demo", slice_demo_phase, card)
+    shard = phase("slice-shard", slice_shard_phase, card)
     # the main path: the captured chunks, in the counted request that
     # captured them; a replay's launches read from its graph's kernel nodes
     traced = {path: g["paths"][path]["captured"]["counted_request"]["capturing"]["launches"]
@@ -4100,6 +4450,8 @@ def main():
         "bound_us": {f"{where} M={M}": {k: v[0] * 1e3 for k, v in b.items()}
                      for (where, M), b in w_bounds.items()}}))
     log("slice-demo: " + json.dumps({"card": card, **demo}))
+    log("slice-shard: " + json.dumps({"card": card, **shard, "rank_flash_decode": rank_flash,
+                                      "set_condition": cond}))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],

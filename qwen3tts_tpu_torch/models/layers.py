@@ -11,6 +11,14 @@ cache its ``[L, B, S, KVH, D]`` layout; an int8 cache adds f32 scales
 ``"ks"``/``"vs"`` ``[L, B, KVH, S]``.  The stack runs as a Python loop over
 layers that writes the stacked cache in place (the JAX package threads it
 through ``lax.scan`` with donation instead).
+
+Under tensor parallelism (``parallel/sharding.py``) each rank holds the
+columns of ``qkv_proj`` for its q, k and v heads, the gate and up columns
+of ``gateup_proj`` for its share of the intermediate width, the matching
+input rows of ``o_proj`` and ``down_proj``, and its kv heads of the cache:
+the stack runs at ``BlockSpec.shard(tp)``, and with a ``group`` the two
+row-parallel products are summed over it
+(``parallel/collectives.py:all_reduce``) before their residual adds.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from ..ops.flash_decode import flash_decode
 from ..ops.fused_block import fused_norm_matmul, fused_o_mlp
 from ..ops.quant import maybe_matmul
 from ..ops.rope import apply_rope
+from ..parallel.collectives import all_reduce
 
 Params = Dict[str, torch.Tensor]
 
@@ -47,6 +56,19 @@ class BlockSpec:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def shard(self, tp: int) -> "BlockSpec":
+        """One rank's share of the stack under ``tp``-way tensor
+        parallelism: heads, kv heads and the MLP's intermediate width
+        divided by ``tp``."""
+        if tp == 1:
+            return self
+        for name in ("num_heads", "num_kv_heads", "intermediate_size"):
+            if getattr(self, name) % tp:
+                raise ValueError(f"{name} {getattr(self, name)} does not split {tp} ways")
+        return dataclasses.replace(self, num_heads=self.num_heads // tp,
+                                   num_kv_heads=self.num_kv_heads // tp,
+                                   intermediate_size=self.intermediate_size // tp)
 
 
 def randn(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
@@ -152,6 +174,7 @@ def block_forward(
     flash_ctx: Optional[Dict] = None,  # {"pos","pad","window"} -> flash decode
     sliding: bool = False,  # THIS layer slides (selects the window)
     fused: bool = False,  # the fused weight-streaming kernels (ops/fused_block.py)
+    group=None,  # the tp process group: p, kv and spec are this rank's shard
 ) -> Tuple[torch.Tensor, Params]:
     """One decoder block.  Returns (x_out, kv) with kv updated in place.
 
@@ -165,7 +188,12 @@ def block_forward(
     ``fused_norm_matmul`` and ``fused_o_mlp`` for decode-shaped activations
     (B * Tq <= 32) with plain or int8 weight-only weights, as the JAX
     package gates them (``layers.py:182-185``); a w8a8 ``q8`` weight stays
-    on ``maybe_matmul``."""
+    on ``maybe_matmul``.  With a ``group`` the o- and down-projections'
+    partial sums are all-reduced before their residual adds, which
+    ``fused_o_mlp`` makes inside the kernel: ``fused`` raises there."""
+    if fused and group is not None:
+        raise ValueError("fused=True adds the residual inside fused_o_mlp, before the "
+                         "row-parallel all-reduce: no fused kernels with a tp group")
     B, Tq, H = x.shape
     eps = spec.rms_norm_eps
     kv_quant = "ks" in kv
@@ -218,11 +246,13 @@ def block_forward(
         return fused_o_mlp(x.reshape(B * Tq, H), attn.reshape(B * Tq, spec.q_dim),
                            p["o_proj"], p["post_norm"], p["gateup_proj"], p["down_proj"],
                            eps=eps).reshape(B, Tq, H), kv
-    x = x + maybe_matmul(attn.reshape(B, Tq, spec.q_dim), p["o_proj"])
+    o = maybe_matmul(attn.reshape(B, Tq, spec.q_dim), p["o_proj"])
+    x = x + (o if group is None else all_reduce(o, group))
     h = rms_norm(x, p["post_norm"], eps)
     gu = maybe_matmul(h, p["gateup_proj"])
     I = spec.intermediate_size
-    x = x + maybe_matmul(F.silu(gu[..., :I]) * gu[..., I:], p["down_proj"])
+    d = maybe_matmul(F.silu(gu[..., :I]) * gu[..., I:], p["down_proj"])
+    x = x + (d if group is None else all_reduce(d, group))
     return x, kv
 
 
@@ -239,8 +269,11 @@ def stack_forward(
     layer_is_sliding: Optional[Sequence[bool]] = None,
     flash_ctx: Optional[Dict] = None,
     fused: bool = False,
+    group=None,
 ) -> Tuple[torch.Tensor, Params]:
-    """Run the whole layer stack.  Returns (x_out, kv) — kv written in place."""
+    """Run the whole layer stack.  Returns (x_out, kv) — kv written in place.
+    With a tp ``group``, ``layers``, ``kv`` and ``spec`` are this rank's
+    shard (``block_forward``)."""
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
     if layer_is_sliding is None:
@@ -251,7 +284,7 @@ def stack_forward(
         sl = bool(layer_is_sliding[li])
         x, kv = block_forward(lp, x, cos, sin, kv, li, write_pos,
                               mask_sliding if sl else mask_full, spec,
-                              flash_ctx=flash_ctx, sliding=sl, fused=fused)
+                              flash_ctx=flash_ctx, sliding=sl, fused=fused, group=group)
     return x, kv
 
 

@@ -20,6 +20,15 @@ read is masked to the slots the frame has written) and the frame's fixed
 positions, RoPE rows and masks, made once by the caller; the sampling
 ``temperature`` and ``top_p`` may be 0-d tensors (``runtime/engine.py``'s
 knobs).
+
+With a tp ``group`` (``parallel/sharding.py``) ``params`` is this rank's
+shard (``predictor_param_specs``): the blocks and the 17-slot cache hold its
+heads, each LM head a slice of the codebook's vocabulary (the logits are
+all-gathered, so every rank samples from the same full logits), each codec
+embedding table a slice of its vocabulary rows: a lookup by id
+(``codec_rows``) gives this rank's rows and zeros for the ids it does not
+hold, and is all-reduced (``embed_sum_for`` sums the 15 codebooks' rows
+first and all-reduces once).  ``small_to_mtp`` stays whole.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from ..ops.predictor_step import fused_micro_step, micro_step_weights
 from ..ops.quant import is_quantized
 from ..ops.rope import mrope_cos_sin
 from ..ops.sampling import Knob, sample_logits
+from ..parallel.collectives import all_gather, all_reduce, rank, size
 from .layers import (
     BlockSpec,
     decode_mask,
@@ -72,7 +82,8 @@ class SamplingPolicy:
                             use_top_p=self.top_p < 1.0)
 
 
-def block_spec(cfg: PredictorConfig) -> BlockSpec:
+def block_spec(cfg: PredictorConfig, tp: int = 1) -> BlockSpec:
+    """The stack's geometry, one rank's share of it at ``tp``."""
     return BlockSpec(
         num_layers=cfg.num_hidden_layers,
         hidden_size=cfg.hidden_size,
@@ -81,7 +92,7 @@ def block_spec(cfg: PredictorConfig) -> BlockSpec:
         head_dim=cfg.head_dim,
         intermediate_size=cfg.intermediate_size,
         rms_norm_eps=cfg.rms_norm_eps,
-    )
+    ).shard(tp)
 
 
 def init_params(gen: torch.Generator, cfg: PredictorConfig, talker_hidden: int,
@@ -104,26 +115,47 @@ def _proj(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
-def _lm_logits(params: Params, cb: int, h: torch.Tensor) -> torch.Tensor:
+def _lm_logits(params: Params, cb: int, h: torch.Tensor, group=None) -> torch.Tensor:
     """h [B, Hp] @ lm_heads[cb] -> float32 logits [B, CB].  An int8 head is
     converted to h's values, accumulated in float32 and scaled per column,
-    as the JAX package computes it (``predictor.py:104-115``)."""
+    as the JAX package computes it (``predictor.py:104-115``).  With a
+    ``group``, this rank's vocabulary slice, all-gathered."""
     lm = params["lm_heads"]
     if is_quantized(lm):
         y = torch.matmul(h.float(), lm["q"][cb].float())
         return y * lm["scale"][cb].float()
-    return (h @ lm[cb]).float()
+    logits = (h @ lm[cb]).float()
+    return logits if group is None else all_gather(logits, group)
+
+
+def codec_rows(params: Params, cb, ids: torch.Tensor, group=None) -> torch.Tensor:
+    """``codec_embeddings[cb, ids]`` (``cb`` an int or an index tensor that
+    broadcasts against ``ids``): [..., H_talker].  With a ``group`` the
+    tables hold this rank's vocabulary rows, ``rank * n`` to ``(rank + 1) *
+    n``: an id outside them gives zeros, and the caller all-reduces."""
+    table = params["codec_embeddings"]
+    if group is None:
+        return table[cb, ids]
+    n = table.shape[1]
+    local = ids - rank(group) * n
+    held = (local >= 0) & (local < n)
+    return table[cb, local.clamp(0, n - 1)].masked_fill(~held[..., None], 0)
+
+
+def _codec_embed(params: Params, cb: int, ids: torch.Tensor, group=None) -> torch.Tensor:
+    rows = codec_rows(params, cb, ids, group)
+    return rows if group is None else all_reduce(rows, group)
 
 
 def _rope(cfg: PredictorConfig, pos_1d: torch.Tensor):
     return mrope_cos_sin(pos_1d, cfg.head_dim, cfg.rope_theta, None)
 
 
-def frame_scratch(cfg: PredictorConfig, batch: int, dtype, device) -> Dict:
-    """What every frame of one batch size reuses: the 17-slot cache and, per
-    micro-step, its slot ``pos`` (int32 [1]), RoPE rows and decode mask; the
-    2-token prefill's RoPE rows and mask.  Make it once, outside any CUDA
-    graph that reads it."""
+def frame_scratch(cfg: PredictorConfig, batch: int, dtype, device, tp: int = 1) -> Dict:
+    """What every frame of one batch size reuses: the 17-slot cache (of one
+    rank's kv heads at ``tp``) and, per micro-step, its slot ``pos`` (int32
+    [1]), RoPE rows and decode mask; the 2-token prefill's RoPE rows and
+    mask.  Make it once, outside any CUDA graph that reads it."""
     B, S, dev = batch, cfg.max_seq, torch.device(device)
     zero_pad = torch.zeros((B,), dtype=torch.int32, device=dev)
     steps = []
@@ -133,7 +165,7 @@ def frame_scratch(cfg: PredictorConfig, batch: int, dtype, device) -> Dict:
         steps.append({"pos": pos, "cos": cos, "sin": sin,
                       "mask": decode_mask(S, cb + 1, zero_pad, cfg.sliding_window)})
     cos, sin = _rope(cfg, torch.arange(2, device=dev).expand(B, 2))
-    return {"kv": init_kv_cache(block_spec(cfg), B, S, dtype, dev), "steps": steps,
+    return {"kv": init_kv_cache(block_spec(cfg, tp), B, S, dtype, dev), "steps": steps,
             "prefill": {"cos": cos, "sin": sin,
                         "mask": prefill_mask(2, 2, zero_pad, cfg.sliding_window)}}
 
@@ -151,23 +183,30 @@ def predict_frame(
     temperature: Optional[Knob] = None,  # default: policy.temperature
     top_p: Optional[Knob] = None,  # default: policy.top_p
     scratch: Optional[Dict] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the 15-codebook frame.  Returns (tokens [B, 15] int64, embed_sum
     [B, 1, H_talker]) with embed_sum = sum_i codec_embeddings[i][tokens_i].
     ``micro_weights`` is ``micro_step_weights(params)``, prepared once
     outside the frame loop (made here when it is not given); ``scratch`` is
-    ``frame_scratch`` for this batch, dtype and device (made here when it is
-    not given)."""
+    ``frame_scratch`` for this batch, dtype, device and tp (made here when
+    it is not given).  With a tp ``group`` neither ``fused`` nor
+    ``micro_kernel`` may be set: both kernels run what the row-parallel
+    all-reduce must split."""
+    if group is not None and (fused or micro_kernel):
+        raise ValueError("predict_frame with a tp group runs neither the fused kernels "
+                         "nor the micro-step kernel")
     if isinstance(policy, SamplingPolicy):
         temperature = policy.temperature if temperature is None else temperature
         top_p = policy.top_p if top_p is None else top_p
         policy = policy.static
     B = pred_input.shape[0]
     dev = pred_input.device
-    spec = block_spec(cfg)
+    tp = size(group)
+    spec = block_spec(cfg, tp)
     layers = layers if layers is not None else params["blocks"]
     if scratch is None:
-        scratch = frame_scratch(cfg, B, pred_input.dtype, dev)
+        scratch = frame_scratch(cfg, B, pred_input.dtype, dev, tp)
     kv = scratch["kv"]
 
     def sample(logits):
@@ -178,9 +217,10 @@ def predict_frame(
     # prefill: 2 tokens, local [B, 2, 2] mask
     h = _proj(params, pred_input)
     pre = scratch["prefill"]
-    h, kv = stack_forward(layers, h, pre["cos"], pre["sin"], kv, 0, pre["mask"], spec)
+    h, kv = stack_forward(layers, h, pre["cos"], pre["sin"], kv, 0, pre["mask"], spec,
+                          group=group)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    tok = sample(_lm_logits(params, 0, h[:, -1, :]))
+    tok = sample(_lm_logits(params, 0, h[:, -1, :], group))
     toks = [tok]
 
     # the whole-micro-step kernel masks idx <= pos and nothing else, and
@@ -190,7 +230,7 @@ def predict_frame(
         w = micro_weights if micro_weights is not None else micro_step_weights(params)
         kk, vv = kv["k"][:, 0], kv["v"][:, 0]  # [L, S, KVH, D] views, written in place
         for cb, st in enumerate(scratch["steps"], start=1):
-            h, kk, vv = fused_micro_step(w, params["codec_embeddings"][cb - 1][tok],
+            h, kk, vv = fused_micro_step(w, codec_rows(params, cb - 1, tok),
                                          st["cos"][0, 0], st["sin"][0, 0], kk, vv, st["pos"],
                                          eps=cfg.rms_norm_eps)
             tok = sample(_lm_logits(params, cb, h))
@@ -199,15 +239,15 @@ def predict_frame(
         return tokens, embed_sum_for(params, tokens, pred_input.dtype)
 
     for cb, st in enumerate(scratch["steps"], start=1):
-        x = _proj(params, params["codec_embeddings"][cb - 1][tok])[:, None, :]
+        x = _proj(params, _codec_embed(params, cb - 1, tok, group))[:, None, :]
         x, kv = stack_forward(layers, x, st["cos"], st["sin"], kv, cb + 1, st["mask"], spec,
-                              fused=fused)
+                              fused=fused, group=group)
         x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-        tok = sample(_lm_logits(params, cb, x[:, -1, :]))
+        tok = sample(_lm_logits(params, cb, x[:, -1, :], group))
         toks.append(tok)
 
     tokens = torch.stack(toks, dim=1)  # [B, 15]
-    return tokens, embed_sum_for(params, tokens, pred_input.dtype)
+    return tokens, embed_sum_for(params, tokens, pred_input.dtype, group)
 
 
 @torch.inference_mode()
@@ -236,7 +276,7 @@ def predict_frame_teacher(
     logits = [_lm_logits(params, 0, h[:, -1, :])]
     teacher = teacher.long()
     for cb in range(1, cfg.num_codebooks):
-        x = _proj(params, params["codec_embeddings"][cb - 1][teacher[:, cb - 1]])[:, None, :]
+        x = _proj(params, codec_rows(params, cb - 1, teacher[:, cb - 1]))[:, None, :]
         pos = cb + 1
         cos, sin = _rope(cfg, torch.full((B, 1), pos, dtype=torch.long, device=dev))
         x, kv = stack_forward(layers, x, cos, sin, kv, pos,
@@ -246,10 +286,10 @@ def predict_frame_teacher(
     return torch.stack(logits, dim=1)
 
 
-def embed_sum_for(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def embed_sum_for(params: Params, tokens: torch.Tensor, dtype, group=None) -> torch.Tensor:
     """sum_i codec_embeddings[i][tokens_i] for a [B, 15] frame, summed in
-    float32 -> [B, 1, H_talker] in ``dtype``."""
-    table = params["codec_embeddings"]  # [15, CB, Ht]
-    cb = torch.arange(table.shape[0], device=tokens.device)
-    rows = table[cb[None, :], tokens]  # [B, 15, Ht]
-    return rows.float().sum(dim=1).to(dtype)[:, None, :]
+    float32 -> [B, 1, H_talker] in ``dtype``.  With a ``group``, this
+    rank's rows summed, then all-reduced once."""
+    cb = torch.arange(params["codec_embeddings"].shape[0], device=tokens.device)
+    s = codec_rows(params, cb[None, :], tokens, group).float().sum(dim=1)  # [B, Ht]
+    return (s if group is None else all_reduce(s, group)).to(dtype)[:, None, :]

@@ -4,6 +4,15 @@ Port of ``qwen3tts_tpu/models/talker.py``: codec/text embeddings, the
 speaker projection, the stacked decoder blocks with MRoPE-3 + GQA, and the
 codec head.  Prefill writes straight into the static KV cache; decode masks
 and RoPE positions derive from (pos, pad_count) device tensors.
+
+Every function that reads parameters takes an optional tp ``group``
+(``parallel/sharding.py``); with one, ``params`` is this rank's shard
+(``talker_param_specs``): the codec embedding holds a slice of the hidden
+axis (looked up, then all-gathered), the codec head a slice of its
+vocabulary (the logits all-gathered), the blocks and the KV cache their kv
+heads.  The text embedding, the text projection and the speaker projection
+are sharded too, but nothing here reads them: the prompt is built on the
+host from whole leaves (``api/prompt.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +22,7 @@ import torch
 
 from ..core.config import TalkerConfig
 from ..ops.rope import mrope_cos_sin
+from ..parallel.collectives import all_gather, size
 from .layers import (
     BlockSpec,
     decode_mask,
@@ -27,7 +37,8 @@ from .layers import (
 Params = Dict
 
 
-def block_spec(cfg: TalkerConfig) -> BlockSpec:
+def block_spec(cfg: TalkerConfig, tp: int = 1) -> BlockSpec:
+    """The stack's geometry, one rank's share of it at ``tp``."""
     return BlockSpec(
         num_layers=cfg.num_hidden_layers,
         hidden_size=cfg.hidden_size,
@@ -36,7 +47,7 @@ def block_spec(cfg: TalkerConfig) -> BlockSpec:
         head_dim=cfg.head_dim,
         intermediate_size=cfg.intermediate_size,
         rms_norm_eps=cfg.rms_norm_eps,
-    )
+    ).shard(tp)
 
 
 def layer_sliding_flags(cfg: TalkerConfig) -> List[bool]:
@@ -68,16 +79,19 @@ def init_params(gen: torch.Generator, cfg: TalkerConfig, dtype, device) -> Param
 
 
 def new_kv_cache(cfg: TalkerConfig, batch: int, max_len: int, dtype, device,
-                 kv_quant: bool = False):
-    return init_kv_cache(block_spec(cfg), batch, max_len, dtype, device, kv_quant=kv_quant)
+                 kv_quant: bool = False, tp: int = 1):
+    """The static cache, of one rank's kv heads at ``tp``."""
+    return init_kv_cache(block_spec(cfg, tp), batch, max_len, dtype, device, kv_quant=kv_quant)
 
 
-def embed_codec(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    return params["codec_embedding"][ids]
+def embed_codec(params: Params, ids: torch.Tensor, group=None) -> torch.Tensor:
+    rows = params["codec_embedding"][ids]
+    return rows if group is None else all_gather(rows, group)
 
 
-def codec_head(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    return (hidden @ params["codec_head"]).float()
+def codec_head(params: Params, hidden: torch.Tensor, group=None) -> torch.Tensor:
+    logits = (hidden @ params["codec_head"]).float()
+    return logits if group is None else all_gather(logits, group)
 
 
 def _positions(cfg: TalkerConfig, pos_1d: torch.Tensor):
@@ -93,6 +107,7 @@ def prefill(
     pad_count: torch.Tensor,  # [B] int32 left pads
     kv: Params,  # static cache [L, B, S, KVH, D], written in place from slot 0
     layers: Optional[Sequence[Params]] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
     """Full-sequence prefill.  Returns (last_hidden [B,1,H], logits [B,V], kv)."""
     B, T, _ = inputs_embeds.shape
@@ -104,11 +119,12 @@ def prefill(
                if cfg.sliding_window is not None else None)
     x, kv = stack_forward(
         layers if layers is not None else params["blocks"], inputs_embeds, cos, sin,
-        kv, 0, m_full, block_spec(cfg), mask_sliding=m_slide,
-        layer_is_sliding=layer_sliding_flags(cfg) if m_slide is not None else None)
+        kv, 0, m_full, block_spec(cfg, size(group)), mask_sliding=m_slide,
+        layer_is_sliding=layer_sliding_flags(cfg) if m_slide is not None else None,
+        group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = x[:, -1:, :]
-    return last, codec_head(params, last[:, 0, :]), kv
+    return last, codec_head(params, last[:, 0, :], group), kv
 
 
 def decode_step(
@@ -121,6 +137,7 @@ def decode_step(
     use_flash: bool = False,
     layers: Optional[Sequence[Params]] = None,
     fused: bool = False,
+    group=None,
 ) -> Tuple[torch.Tensor, Params]:
     """Single-token decode over the static cache.  Returns (hidden [B,1,H], kv).
     RoPE position is ``pos - pad_count``.  ``fused`` runs each block's two
@@ -139,6 +156,6 @@ def decode_step(
     sliding = layer_sliding_flags(cfg) if cfg.sliding_window is not None else None
     x, kv = stack_forward(
         layers if layers is not None else params["blocks"], x, cos, sin, kv, pos,
-        m_full, block_spec(cfg), mask_sliding=m_slide,
-        layer_is_sliding=sliding, flash_ctx=flash_ctx, fused=fused)
+        m_full, block_spec(cfg, size(group)), mask_sliding=m_slide,
+        layer_is_sliding=sliding, flash_ctx=flash_ctx, fused=fused, group=group)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv

@@ -67,11 +67,27 @@ runs each predictor micro-step as one launch of
 lets it (quantized predictor blocks, int8 or w8a8, keep the other paths);
 ``kv_quant`` keeps the talker's KV cache in int8 with f32 per-(slot, head)
 scales, read by the int8-KV flash-decode kernel.
+
+``mesh`` (``parallel/sharding.py:Mesh``) runs the engine tensor-parallel:
+the parameters are this rank's shard (``shard_params``), and the KV caches,
+the predictor's frame scratch and the layer views are built at the
+rank-local geometry (``BlockSpec.shard``), the caches split by kv head
+(``kv_cache_specs``).  Every rank of the mesh runs the same calls; the
+model's collectives go over ``mesh.tp_group``.  ``join_row``, the chunks,
+``prefill`` and ``release`` need nothing else: their writes land on the
+batch and slot axes, never on kv heads.  With a mesh the fused kernels,
+the micro-step kernel and quantized weights raise (each runs, inside one
+kernel or one product, what the row-parallel all-reduce must split), and
+so do captured chunks on a gloo group, which CUDA graphs cannot hold, and
+on NCCL unless ``NCCL_GRAPH_MIXING_SUPPORT=0`` was set before the group
+started (``launch`` sets it): with it NCCL captures kernel and memcpy nodes
+only, which fit in each step's conditional node.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 import time
 from collections import deque
@@ -171,6 +187,27 @@ def _roll_out(kv: Dict[str, torch.Tensor], roll: int, Tb: int) -> None:
         t.narrow(axis, 0, Tb - roll).copy_(t.narrow(axis, roll, Tb - roll).clone())
 
 
+def _check_mesh(mesh, talker_params, predictor_params, fused: bool, micro: bool,
+                graphs: bool) -> None:
+    """Raise for what a tensor-parallel engine cannot run."""
+    if fused or micro:
+        raise ValueError("use_fused_kernels / use_micro_kernel with a mesh: fused_o_mlp adds "
+                         "the residual inside the kernel, before the row-parallel all-reduce "
+                         "can run, and the micro-step kernel runs the whole predictor")
+    leaves = (talker_params["blocks"]["qkv_proj"], predictor_params["blocks"]["qkv_proj"],
+              predictor_params["lm_heads"])
+    if any(is_quantized(leaf) for leaf in leaves):
+        raise ValueError("quantized weights with a mesh: shard_params splits float leaves only")
+    if graphs and mesh.backend == "gloo":
+        raise ValueError("use_cuda_graphs with a gloo mesh: gloo's collectives run on the "
+                         "host and cannot be captured; pass use_cuda_graphs=False")
+    if graphs and os.environ.get("NCCL_GRAPH_MIXING_SUPPORT") != "0":
+        raise ValueError("use_cuda_graphs with an NCCL mesh needs NCCL_GRAPH_MIXING_SUPPORT=0 "
+                         "set before the process group starts (parallel/sharding.py:launch "
+                         "sets it): NCCL's graph-mixing support records events into a captured "
+                         "step, and a conditional node's body takes none")
+
+
 # the decode state's tensors: what a captured chunk reads and writes in place
 STATE_TENSORS = ("past_hidden", "token", "pos", "pad_count", "gen_step", "seen", "n_gen",
                  "done", "knobs")
@@ -192,6 +229,7 @@ class Engine:
         use_micro_kernel: bool = False,
         use_cuda_graphs: Optional[bool] = None,
         kv_quant: bool = False,
+        mesh=None,
     ):
         self.cfg = cfg
         self.talker_cfg = cfg.talker
@@ -216,6 +254,13 @@ class Engine:
         # off unless asked for, as in the JAX engine (engine.py:142-153)
         self.use_fused_kernels = bool(use_fused_kernels)
         self.use_micro_kernel = bool(use_micro_kernel)
+        if use_cuda_graphs is None:
+            use_cuda_graphs = self.device.type == "cuda"
+        self.group = None if mesh is None else mesh.tp_group
+        self.tp = 1 if mesh is None else mesh.shape["tp"]
+        if mesh is not None:
+            _check_mesh(mesh, talker_params, predictor_params, self.use_fused_kernels,
+                        self.use_micro_kernel, use_cuda_graphs)
         self._micro_weights = None
         if self.use_micro_kernel and not is_quantized(predictor_params["blocks"]["qkv_proj"]):
             self._micro_weights = micro_step_weights(predictor_params)
@@ -223,11 +268,9 @@ class Engine:
         self._talker_layers = unstack_layers(talker_params["blocks"])
         self._pred_layers = unstack_layers(predictor_params["blocks"])
         self._frame_scratch = predictor_lib.frame_scratch(cfg.predictor, self.batch,
-                                                          self.dtype, self.device)
+                                                          self.dtype, self.device, self.tp)
         self._suppress = torch.from_numpy(
             build_suppress_mask(tc.vocab_size, self.eos_id)).to(self.device)
-        if use_cuda_graphs is None:
-            use_cuda_graphs = self.device.type == "cuda"
         self.graphs = None
         if use_cuda_graphs:
             from .graphs import ChunkGraphs
@@ -267,7 +310,7 @@ class Engine:
                 return self._kv_pool.pop(i)
         return talker_lib.new_kv_cache(
             self.talker_cfg, self.batch, self.max_seq_len, self.dtype, self.device,
-            kv_quant=self.kv_quant)
+            kv_quant=self.kv_quant, tp=self.tp)
 
     def release(self, state: Dict) -> None:
         """Recycle a finished generation's KV cache: into an empty pool, and
@@ -314,7 +357,7 @@ class Engine:
         pad = upload(pads, dev, torch.int32)
         last, logits, kv = talker_lib.prefill(
             self.talker_params, self.talker_cfg, embeds, pad, self.new_kv(),
-            layers=self._talker_layers)
+            layers=self._talker_layers, group=self.group)
         if roll:
             _roll_out(kv, roll, Tb)
             pad = pad - roll
@@ -357,7 +400,7 @@ class Engine:
         token = state["token"]
         B = token.shape[0]
 
-        tok_embed = talker_lib.embed_codec(self.talker_params, token)[:, None, :]
+        tok_embed = talker_lib.embed_codec(self.talker_params, token, self.group)[:, None, :]
         pred_input = torch.cat([state["past_hidden"], tok_embed], dim=1)
         with record_function("predictor_frame"):
             cb_tokens, cb_embed_sum = predictor_lib.predict_frame(
@@ -365,7 +408,7 @@ class Engine:
                 state["pred_policy"].static, layers=self._pred_layers,
                 fused=self.use_fused_kernels, micro_kernel=self.use_micro_kernel,
                 micro_weights=self._micro_weights, temperature=knobs[4], top_p=knobs[5],
-                scratch=self._frame_scratch)
+                scratch=self._frame_scratch, group=self.group)
         frame = torch.cat([token[:, None], cb_tokens], dim=1)  # [B, 16]
 
         # next talker input = sum of the 16 codec embeds + trailing text hidden
@@ -379,8 +422,8 @@ class Engine:
             hidden, _ = talker_lib.decode_step(
                 self.talker_params, tcfg, x, state["pos"], state["pad_count"],
                 state["kv"], use_flash=self.use_flash_decode, layers=self._talker_layers,
-                fused=self.use_fused_kernels)
-            logits = talker_lib.codec_head(self.talker_params, hidden[:, 0, :])
+                fused=self.use_fused_kernels, group=self.group)
+            logits = talker_lib.codec_head(self.talker_params, hidden[:, 0, :], self.group)
 
         seen = state["seen"]
         seen.scatter_(1, token[:, None], True)  # a scalar fill: no host copy under capture
@@ -590,9 +633,10 @@ class Engine:
         self._own(state)
         pad = torch.full((1,), pad_inner, dtype=torch.int32, device=dev)
         tiny = talker_lib.new_kv_cache(self.talker_cfg, 1, Tb, self.dtype, dev,
-                                       kv_quant=self.kv_quant)
+                                       kv_quant=self.kv_quant, tp=self.tp)
         last, logits, tiny = talker_lib.prefill(self.talker_params, self.talker_cfg, embeds,
-                                                pad, tiny, layers=self._talker_layers)
+                                                pad, tiny, layers=self._talker_layers,
+                                                group=self.group)
         # the splice ends at the device's position (its start clamped into
         # the cache, as JAX's dynamic_update_slice clamps)
         start = state["pos"].long() - Tb

@@ -299,13 +299,14 @@ def test_package_runs_without_jax(tmp_path):
 @pytest.mark.parametrize("entry", ["from_pretrained", "load_pretrained", "init_random",
                                    "bundle_from_jax_numpy", "CTCRecognizer",
                                    "asr_params_from_jax_numpy", "DemoState", "serve",
-                                   "resolve_asr"])
+                                   "resolve_asr", "make_mesh", "launch"])
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny_models, entry):
     """With no card, an entry point given no device raises and names
     device="cpu"; it never builds on the CPU by itself."""
     from qwen3tts_tpu_torch.apps import demo_server
     from qwen3tts_tpu_torch.core import loader
     from qwen3tts_tpu_torch.models import asr
+    from qwen3tts_tpu_torch.parallel import sharding
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_preset("tiny")
@@ -321,6 +322,8 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny_models, entry):
         "DemoState": lambda: demo_server.DemoState(["random:tiny"]),
         "serve": lambda: demo_server.serve(["random:tiny"], host="127.0.0.1", port=0),
         "resolve_asr": lambda: demo_server.resolve_asr("builtin:random:ctc-tiny"),
+        "make_mesh": lambda: sharding.make_mesh(),
+        "launch": lambda: sharding.launch(sharding.sharded_inference_check, 1),
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
