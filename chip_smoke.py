@@ -204,7 +204,25 @@ Phases, in order; any failure raises and exits non-zero:
    run and the unsharded one; TP 2 and TP 4 over NCCL, captured, only
    where the machine has that many cards (else a line says so).  The
    kernel phase holds flash-decode at one rank's heads (8 over 4, 4 over 2;
-   ``rank_flash_phase``) and times ``set_condition`` (``set_condition_phase``).
+   ``rank_flash_phase``, beside SDPA with ``enable_gqa`` at the same heads)
+   and times ``set_condition`` (``set_condition_phase``).
+16. slice-train — the training half (``slice_train_phase``): the ASR
+   self-training tool (below), then the talker train step (``parallel/sharding.py:make_train_step``) on the 0.6B at full width,
+   float32 with TF32 off, B 2 x T 64, left pads (0, 5), lr 1e-4, 3 steps,
+   unsharded in the process, then TP 2 over gloo on the one card, then dp 2
+   x tp 2 over NCCL where the machine has four cards (else a line says it
+   did not run): the losses finite and falling, a TP run's within 1e-4
+   relative of the unsharded run's, the replicated leaves bit-equal across
+   ranks after each step, the forward and backward collectives a step as
+   the formula gives them; ms a step, peak memory a rank; the unsharded
+   step's forward and backward alone, traced eagerly by torch.profiler
+   (device ms, kernels), and its AdamW update alone.  The ASR
+   self-training tool (``tools/train_asr.py``'s ``main``, synthesis by the
+   0.6B, 96 channels x 3 layers, 8 texts, 4 epochs) into a temporary
+   directory: the epoch losses falling, its checkpoint loaded on the card,
+   whose logits on the 16 committed clips agree with the CPU's within 0.1
+   (cuDNN's TF32) and 1e-3 (TF32 off); seconds of synthesis,
+   featurisation and an epoch.
 
 No phase runs torch.profiler around a captured replay: its tracing of CUDA
 graphs with conditional nodes lost kernel records, and a replay after such
@@ -4041,7 +4059,10 @@ def rank_flash_phase(card: str) -> dict:
     plain version (RANK_FLASH_CASES, at the kernel phase's tolerances;
     pad past pos gives exact zeros), then timed at pos 300 and 2000 (28
     calls a graph, one a layer, CUDA events; one cache stack) beside the
-    bound."""
+    bound and, for the float cache, SDPA with ``enable_gqa`` over the same
+    live slice."""
+    import torch.nn.functional as F
+
     from qwen3tts_tpu_torch.models.layers import _quantize_rows
     from qwen3tts_tpu_torch.ops import cuda_build
     from qwen3tts_tpu_torch.ops import flash_decode as fd
@@ -4077,8 +4098,16 @@ def rank_flash_phase(card: str) -> dict:
                 if pad > pos and o.abs().max().item() != 0.0:
                     raise AssertionError("pad > pos must give exact zeros")
         res = {"splits": fd.num_splits(S, B, KVH, cuda_build.sm_count(dev)),
-               "max_abs_err": errs, "us": {}, "plain_us": {}, "bound_us": {}}
+               "max_abs_err": errs, "us": {}, "plain_us": {}, "bound_us": {},
+               "library_us": {}}
         zero = ints(0)
+        qs = qb[:, :, None, :]
+
+        def sdpa(i, live):  # the library yardstick, as the kernel phase times it
+            return F.scaled_dot_product_attention(
+                qs, kb[i, :, :live].transpose(1, 2), vb[i, :, :live].transpose(1, 2),
+                enable_gqa=True)[:, :, 0]
+
         for cache, (qq, kk, vv, scales, _) in (("float", runs["bf16"]),
                                               ("int8kv", runs["int8kv bf16"])):
             for pos in (300, 2000):
@@ -4092,8 +4121,12 @@ def rank_flash_phase(card: str) -> dict:
                 key = f"{cache} pos={pos}"
                 res["us"][key], res["plain_us"][key], res["bound_us"][key] = (
                     t_k * 1e3, t_p * 1e3, b[0] * 1e3)
+                lib = ""
+                if not scales:  # SDPA reads no int8 cache
+                    res["library_us"][key] = graph_ms(lambda i: sdpa(i, pos + 1), L) * 1e3
+                    lib = f", SDPA (enable_gqa) {res['library_us'][key]:.2f}"
                 log(f"  flash-decode {NH}/{KVH} heads {key}: kernel {t_k * 1e3:.2f} us/call, "
-                    f"plain {t_p * 1e3:.2f}, bound {b[0] * 1e3:.3f} us ({b[1]}), "
+                    f"plain {t_p * 1e3:.2f}{lib}, bound {b[0] * 1e3:.3f} us ({b[1]}), "
                     f"{KVH} x {res['splits']} CTAs  [{card}]")
         out[f"{NH}/{KVH}"] = res
     return out
@@ -4359,6 +4392,299 @@ def nccl_tp_phase(card: str, tps: tuple = (2, 4),
     return res
 
 
+TRAIN_PRESET = "qwen3-tts-0.6b"
+TRAIN_ROWS, TRAIN_T, TRAIN_PADS = 2, 64, (0, 5)  # the talker step's batch
+TRAIN_LR, TRAIN_STEPS = 1e-4, 3
+TRAIN_RTOL = 1e-4  # a TP run's losses against the unsharded run's (float32, TF32 off)
+# the ASR tool's short run: the committed recognizer's size (96 channels x
+# 3 layers, the tool's defaults), synthesis by the 0.6B (its talker has a
+# flash-decode instance), 8 texts x 3 voices x 3 perturbations = 72 clips
+ASR_TRAIN_ARGS = ["--model", "random:qwen3-tts-0.6b", "--n-train", "8", "--n-eval", "4",
+                  "--epochs", "4"]
+# card vs CPU logits of the tool's checkpoint: cuDNN's default TF32 convs,
+# then TF32 off (summation order only), as tests/test_torch_cuda_demo.py
+ASR_TF32_ATOL, ASR_F32_ATOL = 0.1, 1e-3
+
+
+def _train_batch(tk):
+    """The talker step's batch: embeds [2, 64, H] * 0.02 and codebook-0
+    targets from RandomState(0), left pads TRAIN_PADS."""
+    rs = np.random.RandomState(0)
+    embeds = (rs.randn(TRAIN_ROWS, TRAIN_T, tk.hidden_size) * 0.02).astype(np.float32)
+    targets = rs.randint(0, tk.vocab_size, (TRAIN_ROWS, TRAIN_T)).astype(np.int32)
+    return embeds, targets, np.array(TRAIN_PADS, np.int32)
+
+
+def _spec_paths(specs, prefix: str = "") -> dict:
+    from qwen3tts_tpu_torch.parallel.sharding import P
+
+    if isinstance(specs, P):
+        return {prefix: specs}
+    return {k2: v2 for k, v in specs.items()
+            for k2, v2 in _spec_paths(v, f"{prefix}/{k}" if prefix else k).items()}
+
+
+def _talker_train(mesh) -> dict:
+    """TRAIN_STEPS steps of ``make_train_step`` on the 0.6B talker at full
+    width (28 layers, hidden 1024, GQA 16/8), float32 with TF32 off, the
+    weights drawn on the card from a seeded generator (the same bits in
+    every process), unsharded (``mesh=None``) or this rank's shard: the
+    losses, ms a step (host wall around a synchronised step), the
+    collectives of each step and the peak memory (above what the process
+    held before: the parameters, the state and the steps); on a mesh, whether the
+    replicated leaves have the same bits on every rank after each step."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models import talker as T
+    from qwen3tts_tpu_torch.parallel import collectives
+    from qwen3tts_tpu_torch.parallel import sharding as S
+    from qwen3tts_tpu_torch.utils import optim
+
+    tk = get_preset(TRAIN_PRESET).talker
+    dev = torch.device("cuda", torch.cuda.current_device()) if mesh is None else mesh.device
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+    try:
+        params = T.init_params(torch.Generator(device=dev).manual_seed(0), tk, torch.float32,
+                               dev)
+        n_params = sum(p.numel() for p in optim.leaves(params))
+        replicated = []
+        if mesh is not None:
+            specs = S.talker_param_specs(tk)
+            replicated = [k for k, v in _spec_paths(specs).items() if "tp" not in v]
+            params = S.shard_params(params, mesh, specs)
+        torch.cuda.empty_cache()
+        init_opt, step = S.make_train_step(tk, mesh, TRAIN_LR,
+                                           device=dev if mesh is None else None)
+        state = init_opt(params)
+        batch = _train_batch(tk)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = {"params": n_params, "losses": [], "ms": [], "collectives": [],
+               "replicated_equal": []}
+        for _ in range(TRAIN_STEPS):
+            collectives.reset_counts()
+            torch.cuda.synchronize(dev)
+            t = time.time()
+            params, state, loss = step(params, state, *batch)
+            out["losses"].append(loss.item())
+            torch.cuda.synchronize(dev)
+            out["ms"].append((time.time() - t) * 1e3)
+            out["collectives"].append({"forward": collectives.counts(),
+                                       "backward": collectives.backward_counts()})
+            if mesh is not None:
+                named = dict(optim.named_leaves(params))
+                h = hashlib.sha256()
+                for k in replicated:
+                    h.update(named[k].cpu().numpy().tobytes())
+                got = [None] * dist.get_world_size()
+                dist.all_gather_object(got, h.hexdigest())
+                out["replicated_equal"].append(len(set(got)) == 1)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+        if mesh is None:
+            out["breakdown_ms"] = _step_breakdown(tk, params, state, batch, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def _step_breakdown(tk, params, state, batch, dev) -> dict:
+    """Where an unsharded step's time goes: the loss's forward and backward
+    alone (``_talker_nll`` and ``torch.autograd.grad``; host wall around
+    synchronised work), then the same under ``torch.profiler`` (the
+    kernels' device time and count, the five longest kernels), then one
+    AdamW update alone on those gradients (it moves the parameters one more
+    step).  Eager work only: no CUDA graph is traced."""
+    from torch.autograd import DeviceType
+
+    from qwen3tts_tpu_torch.parallel import sharding as S
+    from qwen3tts_tpu_torch.utils import optim
+
+    ps = optim.leaves(params)
+    embeds, targets, pad = (torch.from_numpy(x).to(dev) for x in batch)
+
+    def forward_backward():
+        for p in ps:
+            p.requires_grad_(True)
+        nll, n = S._talker_nll(params, tk, embeds, targets, pad)
+        grads = torch.autograd.grad(nll / n, ps, allow_unused=True)
+        for p in ps:
+            p.requires_grad_(False)
+        torch.cuda.synchronize(dev)
+        return grads
+
+    torch.cuda.synchronize(dev)
+    t = time.time()
+    grads = forward_backward()
+    out = {"forward_backward": (time.time() - t) * 1e3}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        forward_backward()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    out["forward_backward_device"] = device_us / 1e3 if device_us else None  # None: no trace
+    out["forward_backward_kernels"] = sum(e.count for e in kernels)
+    out["top_kernels_ms"] = [[e.key[:80], e.self_device_time_total / 1e3] for e in sorted(
+        kernels, key=lambda e: -e.self_device_time_total)[:5]]
+    t = time.time()
+    optim.adamw(TRAIN_LR).step(params, list(grads), state)
+    torch.cuda.synchronize(dev)
+    out["adamw"] = (time.time() - t) * 1e3
+    return out
+
+
+def _talker_train_rank(mesh) -> dict:
+    """One rank of ``_talker_train``, with every rank's ms a step and peak
+    memory."""
+    import torch.distributed as dist
+
+    out = _talker_train(mesh)
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, {"ms": out["ms"], "peak_bytes": out["peak_bytes"]})
+    out["per_rank"] = per_rank
+    return out
+
+
+def _train_held(what: str, run: dict, single: dict, dp: int, tp: int, card: str) -> dict:
+    """A TP run of the talker step against the unsharded one: the losses
+    finite and falling and within TRAIN_RTOL, the replicated leaves bit-equal
+    across ranks after each step, the collectives of each step as
+    ``make_train_step`` gives them."""
+    L = 28
+    losses, ref = np.array(run["losses"]), np.array(single["losses"])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: losses {losses.tolist()} not finite and falling")
+    rel = float(np.abs(losses - ref).max() / np.abs(ref).max())
+    if rel > TRAIN_RTOL:
+        raise AssertionError(f"{what}: losses {losses.tolist()} against the unsharded "
+                             f"{ref.tolist()}: {rel:.2e} relative > {TRAIN_RTOL}")
+    if run["replicated_equal"] != [True] * TRAIN_STEPS:
+        raise AssertionError(f"{what}: replicated leaves differ across ranks "
+                             f"{run['replicated_equal']}")
+    want = {"forward": {"all_reduce": 2 * L + (dp > 1), "all_gather": 1},
+            "backward": {"all_reduce": 2 * L + 2 + (dp > 1)}}
+    if run["collectives"] != [want] * TRAIN_STEPS:
+        raise AssertionError(f"{what}: collectives {run['collectives']} not {want} a step")
+    res = {"dp": dp, "tp": tp, "losses": run["losses"], "loss_rel_err": rel,
+           "ms_per_step_per_rank": [r["ms"] for r in run["per_rank"]],
+           "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in run["per_rank"]],
+           "collectives_per_step": want}
+    log(f"  talker step, {what}: losses {run['losses']} ({rel:.2e} rel. of the unsharded); "
+        f"ms/step by rank {res['ms_per_step_per_rank']}; peak GB by rank "
+        f"{res['peak_gb_per_rank']}; collectives a step {want}  [{card}]")
+    return res
+
+
+def _asr_train(card: str) -> dict:
+    """The ASR tool's ``main`` at ASR_TRAIN_ARGS into a temporary directory
+    on the card: the epoch losses falling; the checkpoint it wrote loads
+    into the port's CTCRecognizer (the card by default); its logits on the
+    16 committed samples/asr/eval clips, card against CPU, within
+    ASR_TF32_ATOL with cuDNN's default TF32 and ASR_F32_ATOL with it off;
+    the seconds of synthesis, featurisation and an epoch."""
+    from qwen3tts_tpu_torch.audio.wav import read_wav
+    from qwen3tts_tpu_torch.models import asr
+    from qwen3tts_tpu_torch.tools import train_asr
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples", "asr")
+    manifest = json.load(open(os.path.join(root, "manifest.json")))
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        with contextlib.redirect_stdout(sys.stderr):  # the tool's own JSON line
+            r = train_asr.main([*ASR_TRAIN_ARGS, "--out", tmp])
+        seconds = time.time() - t
+        ckpt = os.path.join(tmp, "ctc_selftrained")
+        card_rec = asr.CTCRecognizer.from_pretrained(ckpt)
+        cpu_rec = asr.CTCRecognizer.from_pretrained(ckpt, device="cpu")
+    if r["device"] != "cuda" or card_rec.device.type != "cuda":
+        raise AssertionError(f"the tool ran on {r['device']}, its recognizer on "
+                             f"{card_rec.device}")
+    losses = r["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"ASR tool: epoch losses {losses} not finite and falling")
+    clips = [read_wav(os.path.join(root, e["wav"])) for e in manifest]
+    err = {}
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for name, tf32, atol in (("cudnn_tf32_default", prev, ASR_TF32_ATOL),
+                                 ("cudnn_tf32_off", False, ASR_F32_ATOL)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            d = max(float(np.abs(card_rec.logits(w, sr) - cpu_rec.logits(w, sr)).max())
+                    for w, sr in clips)
+            if d > atol:
+                raise AssertionError(f"ASR tool's checkpoint: card vs CPU logits {d} > {atol} "
+                                     f"({name})")
+            err[name] = d
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    res = {"seconds": seconds, "tool_seconds": r["seconds"], "losses": losses,
+           "clips": len(clips), "card_vs_cpu_logit_max_abs_err": err,
+           "eval_cer_heldout_perturbation": r["eval_cer_heldout_perturbation"]}
+    log(f"  ASR tool ({' '.join(ASR_TRAIN_ARGS)}): {json.dumps(res)}  [{card}]")
+    return res
+
+
+def slice_train_phase(card: str) -> dict:
+    """The training half on the card:
+
+    - the ASR tool (``tools/train_asr.py``) at ASR_TRAIN_ARGS
+      (``_asr_train``);
+    - the talker step (``parallel/sharding.py:make_train_step``) on the
+      0.6B at full width, float32, B 2 x T 64, left pads (0, 5), lr 1e-4, 3
+      steps: unsharded in this process (and where its time goes:
+      ``_step_breakdown``), then TP 2 over gloo on the one card
+      (``_train_held``: losses within TRAIN_RTOL of the unsharded run's,
+      replicated leaves bit-equal across ranks, the collectives' formula),
+      then dp 2 x tp 2 over NCCL where the machine has four cards (else a
+      line says it did not run); ms a step, peak memory a rank."""
+    import gc
+
+    from qwen3tts_tpu_torch.parallel import sharding as S
+
+    # the tool first: its synthesis replays CUDA graphs, and the talker's
+    # breakdown traces (eagerly) with torch.profiler, after which no replay
+    # may follow (tools/graph_trace_probe.py)
+    res = {"asr": _asr_train(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.time()
+    single = _talker_train(None)
+    losses = np.array(single["losses"])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"unsharded talker step: losses {losses.tolist()} not finite "
+                             "and falling")
+    zero = {"forward": {"all_reduce": 0, "all_gather": 0}, "backward": {"all_reduce": 0}}
+    if single["collectives"] != [zero] * TRAIN_STEPS:
+        raise AssertionError(f"unsharded talker step made collectives {single['collectives']}")
+    res["talker_unsharded"] = {
+        "seconds": time.time() - t, "params": single["params"], "losses": single["losses"],
+        "ms_per_step": single["ms"], "peak_gb": single["peak_bytes"] / 1e9,
+        "breakdown_ms": single["breakdown_ms"]}
+    log(f"  talker step, unsharded: {json.dumps(res['talker_unsharded'])}  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.time()
+    run = S.launch(_talker_train_rank, 2, device="cuda", backend="gloo", timeout=SHARD_LAUNCH_S)
+    res["talker_gloo_tp2"] = {"seconds": time.time() - t,
+                              **_train_held("gloo TP 2 on one card", run, single, 1, 2, card)}
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        t = time.time()
+        run = S.launch(_talker_train_rank, 4, dp=2, timeout=SHARD_LAUNCH_S)
+        res["talker_nccl_dp2xtp2"] = {
+            "seconds": time.time() - t,
+            **_train_held("NCCL dp 2 x tp 2", run, single, 2, 2, card)}
+    else:
+        log(f"  talker step, NCCL dp 2 x tp 2: did not run: this machine has {cards} card(s), "
+            "the mesh needs 4")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
@@ -4406,6 +4732,7 @@ def main():
     w8 = phase("slice-w8a8", slice_w8a8_phase, card, models)
     demo = phase("slice-demo", slice_demo_phase, card)
     shard = phase("slice-shard", slice_shard_phase, card)
+    train = phase("slice-train", slice_train_phase, card)
     # the main path: the captured chunks, in the counted request that
     # captured them; a replay's launches read from its graph's kernel nodes
     traced = {path: g["paths"][path]["captured"]["counted_request"]["capturing"]["launches"]
@@ -4452,6 +4779,7 @@ def main():
     log("slice-demo: " + json.dumps({"card": card, **demo}))
     log("slice-shard: " + json.dumps({"card": card, **shard, "rank_flash_decode": rank_flash,
                                       "set_condition": cond}))
+    log("slice-train: " + json.dumps({"card": card, **train}))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],

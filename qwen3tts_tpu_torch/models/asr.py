@@ -9,7 +9,7 @@ Port of ``qwen3tts_tpu/models/asr.py``:
 
 then a greedy CTC decode on the host (collapse repeats, drop blanks).
 
-Activations run channels-first ``[1, C, T]`` for ``F.conv1d``; conv weights
+Activations run channels-first ``[B, C, T]`` for ``F.conv1d``; conv weights
 are held ``[Cout, Cin, K]``.  A checkpoint on disk keeps the JAX layout
 (``config.json`` + ``model.safetensors`` of the ``/``-joined pytree, conv
 weights ``[K, Cin, Cout]``), so each package loads what the other wrote, and
@@ -138,26 +138,31 @@ def _same_pad(T: int, k: int, stride: int):
 
 
 def _conv1d(x: torch.Tensor, p: Params, stride: int = 1) -> torch.Tensor:
-    """x [1, Cin, T] -> [1, Cout, ceil(T / stride)], XLA ``"SAME"`` padding."""
+    """x [B, Cin, T] -> [B, Cout, ceil(T / stride)], XLA ``"SAME"`` padding."""
     x = F.pad(x, _same_pad(x.shape[-1], p["w"].shape[-1], stride))
     return F.conv1d(x, p["w"], p["b"], stride=stride)
 
 
 def _layer_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Over the channels of x [1, C, T]: a gain, no bias."""
+    """Over the channels of x [B, C, T]: a gain, no bias."""
     mu = x.mean(1, keepdim=True)
     var = (x - mu).square().mean(1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * g[:, None]
 
 
 def forward(params: Params, mel: torch.Tensor) -> torch.Tensor:
-    """mel [T, n_mels] -> CTC logits [ceil(T / 4), vocab]."""
-    x = torch.relu(_conv1d(mel.T[None], params["down1"], stride=2))
+    """mel [T, n_mels] -> CTC logits [ceil(T / 4), vocab]; a batch [B, T,
+    n_mels] -> [B, ceil(T / 4), vocab], each row as alone (JAX's
+    ``jax.vmap(forward)`` in ``tools/train_asr.py``)."""
+    x = mel.transpose(-1, -2)
+    x = x[None] if mel.dim() == 2 else x
+    x = torch.relu(_conv1d(x, params["down1"], stride=2))
     x = torch.relu(_conv1d(x, params["down2"], stride=2))
     for blk in params["blocks"]:
         a, b = _conv1d(_layer_norm(x, blk["norm"]), blk["conv"]).chunk(2, dim=1)
         x = x + a * torch.sigmoid(b)  # GLU, residual
-    return x[0].T @ params["head"]["w"] + params["head"]["b"]
+    out = x.transpose(1, 2) @ params["head"]["w"] + params["head"]["b"]
+    return out[0] if mel.dim() == 2 else out
 
 
 def cer(ref: str, hyp: str) -> float:

@@ -18,7 +18,10 @@ of ``gateup_proj`` for its share of the intermediate width, the matching
 input rows of ``o_proj`` and ``down_proj``, and its kv heads of the cache:
 the stack runs at ``BlockSpec.shard(tp)``, and with a ``group`` the two
 row-parallel products are summed over it
-(``parallel/collectives.py:all_reduce``) before their residual adds.
+(``parallel/collectives.py:all_reduce``) before their residual adds.  With
+grad enabled (training, ``parallel/sharding.py:make_train_step``) the sums
+are ``reduce_from_tp`` and the inputs of the column-parallel products pass
+``copy_to_tp``, so that autograd sums their gradients over the group.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from ..ops.flash_decode import flash_decode
 from ..ops.fused_block import fused_norm_matmul, fused_o_mlp
 from ..ops.quant import maybe_matmul
 from ..ops.rope import apply_rope
-from ..parallel.collectives import all_reduce
+from ..parallel.collectives import all_reduce, carries_grads, copy_to_tp, reduce_from_tp
 
 Params = Dict[str, torch.Tensor]
 
@@ -101,12 +104,17 @@ def unstack_layers(stack: Params) -> List[Params]:
     """Per-layer views of a layer-stacked parameter dict (built once, so the
     decode loop does not re-index the stack every step).  A quantized leaf
     (``{"q", "scale"}`` or ``{"q8", "scale"}``) becomes a per-layer dict of
-    views."""
-    def layer(v, i):
-        return {k: t[i] for k, t in v.items()} if isinstance(v, dict) else v[i]
+    views.  The views come from ``unbind``, whose backward stacks the
+    layers' gradients once (an index per layer would give each a zeroed
+    copy of the whole stack, and their sum L - 1 full-stack adds)."""
+    def layers(v):
+        if isinstance(v, dict):
+            return [dict(zip(v, parts)) for parts in zip(*(t.unbind(0) for t in v.values()))]
+        return v.unbind(0)
 
+    per_leaf = {k: layers(v) for k, v in stack.items()}
     L = stack["input_norm"].shape[0]
-    return [{k: layer(v, i) for k, v in stack.items()} for i in range(L)]
+    return [{k: per_leaf[k][i] for k in stack} for i in range(L)]
 
 
 def init_kv_cache(spec: BlockSpec, batch: int, max_len: int, dtype, device,
@@ -199,11 +207,16 @@ def block_forward(
     kv_quant = "ks" in kv
     w_qkv = p["qkv_proj"]
     fused = fused and B * Tq <= 32 and (not isinstance(w_qkv, dict) or "q" in w_qkv)
+    if carries_grads(group):
+        copy, reduce = (lambda t: copy_to_tp(t, group)), (lambda t: reduce_from_tp(t, group))
+    else:
+        copy = lambda t: t  # noqa: E731
+        reduce = (lambda t: t) if group is None else (lambda t: all_reduce(t, group))
     if fused:
         qkv = fused_norm_matmul(x.reshape(B * Tq, H), p["input_norm"], w_qkv,
                                 eps=eps).reshape(B, Tq, -1)
     else:
-        qkv = maybe_matmul(rms_norm(x, p["input_norm"], eps), w_qkv)
+        qkv = maybe_matmul(copy(rms_norm(x, p["input_norm"], eps)), w_qkv)
     q = qkv[..., : spec.q_dim].reshape(B, Tq, spec.num_heads, spec.head_dim)
     k = qkv[..., spec.q_dim: spec.q_dim + spec.kv_dim].reshape(
         B, Tq, spec.num_kv_heads, spec.head_dim)
@@ -247,12 +260,12 @@ def block_forward(
                            p["o_proj"], p["post_norm"], p["gateup_proj"], p["down_proj"],
                            eps=eps).reshape(B, Tq, H), kv
     o = maybe_matmul(attn.reshape(B, Tq, spec.q_dim), p["o_proj"])
-    x = x + (o if group is None else all_reduce(o, group))
-    h = rms_norm(x, p["post_norm"], eps)
+    x = x + reduce(o)
+    h = copy(rms_norm(x, p["post_norm"], eps))
     gu = maybe_matmul(h, p["gateup_proj"])
     I = spec.intermediate_size
     d = maybe_matmul(F.silu(gu[..., :I]) * gu[..., I:], p["down_proj"])
-    x = x + (d if group is None else all_reduce(d, group))
+    x = x + reduce(d)
     return x, kv
 
 

@@ -12,7 +12,10 @@ axis (looked up, then all-gathered), the codec head a slice of its
 vocabulary (the logits all-gathered), the blocks and the KV cache their kv
 heads.  The text embedding, the text projection and the speaker projection
 are sharded too, but nothing here reads them: the prompt is built on the
-host from whole leaves (``api/prompt.py``).
+host from whole leaves (``api/prompt.py``).  With grad enabled the
+collectives are the ones that carry gradients (``parallel/collectives.py``:
+``copy_to_tp`` before the codec head, ``gather_from_tp`` after it and after
+the embedding lookup).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import torch
 
 from ..core.config import TalkerConfig
 from ..ops.rope import mrope_cos_sin
-from ..parallel.collectives import all_gather, size
+from ..parallel.collectives import (all_gather, carries_grads, copy_to_tp, gather_from_tp,
+                                   size)
 from .layers import (
     BlockSpec,
     decode_mask,
@@ -86,12 +90,18 @@ def new_kv_cache(cfg: TalkerConfig, batch: int, max_len: int, dtype, device,
 
 def embed_codec(params: Params, ids: torch.Tensor, group=None) -> torch.Tensor:
     rows = params["codec_embedding"][ids]
-    return rows if group is None else all_gather(rows, group)
+    if group is None:
+        return rows
+    return gather_from_tp(rows, group) if carries_grads(group) else all_gather(rows, group)
 
 
 def codec_head(params: Params, hidden: torch.Tensor, group=None) -> torch.Tensor:
+    if carries_grads(group):
+        hidden = copy_to_tp(hidden, group)
     logits = (hidden @ params["codec_head"]).float()
-    return logits if group is None else all_gather(logits, group)
+    if group is None:
+        return logits
+    return gather_from_tp(logits, group) if carries_grads(group) else all_gather(logits, group)
 
 
 def _positions(cfg: TalkerConfig, pos_1d: torch.Tensor):

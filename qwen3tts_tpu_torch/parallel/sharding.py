@@ -35,7 +35,17 @@ tiny shardable config, ``sharded_flagship_check`` and
 ``sharded_flagship_structural_check`` on a preset (the 0.6B by default).
 Each takes ``params`` (numpy or torch, as the JAX package's initialisers
 make them, so that a test can run both packages on one set of weights).
-The training half (``make_train_step``, ``_talker_loss``) is not ported.
+
+The training half: ``_talker_loss`` (the codec head's cross entropy
+against next-frame codebook-0 targets, JAX's ``sharding.py:519-535``) and
+``make_train_step(cfg, mesh, learning_rate)`` -> ``(init_opt,
+train_step)``, one AdamW step (``utils/optim.py:adamw``, optax's numbers)
+on this rank's shard.  Autograd sees the collectives through
+``parallel/collectives.py``'s ``copy_to_tp`` / ``reduce_from_tp`` /
+``gather_from_tp``; what XLA sums by itself is written here: the loss is
+the masked mean over the whole mesh's batch, the gradients are summed over
+the dp group, and those of ``q_norm`` / ``k_norm`` (whole on every rank,
+applied to the rank's own heads only) over the tp group.
 """
 from __future__ import annotations
 
@@ -62,6 +72,7 @@ from ..models.layers import prefill_mask, rms_norm, stack_forward
 from ..ops import flash_decode as flash_lib
 from ..runtime import loops
 from ..runtime.engine import Engine, GenerationPolicy, upload
+from ..utils import optim
 from . import collectives
 
 # ---------------------------------------------------------------------------
@@ -110,15 +121,21 @@ class Mesh:
         return self.rank // self.shape["tp"]
 
 
+def _resolved(device) -> torch.device:
+    """``resolve_device``'s answer, a card with its index."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
               tp: Optional[int] = None, device=None) -> Mesh:
     """The (dp, tp) mesh over the initialised process group (``launch``
     initialises it); every rank must call it.  ``device`` defaults to the
     current card, whatever the backend; with no card that raises, and the
     CPU must be asked for (``device="cpu"``)."""
-    device = resolve_device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _resolved(device)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed initialised (launch does it)")
     world = dist.get_world_size()
@@ -813,3 +830,131 @@ def sharded_flagship_structural_check(
     out.update(bf16_token_agree_vs_replicated=float((ids[:n, 0] == ids_single[:n, 0]).mean()),
                steps=int(ids.shape[0]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# sharded training step (forward + loss + grad + adamw)
+# ---------------------------------------------------------------------------
+
+
+def _talker_nll(params, cfg: TalkerConfig, embeds: torch.Tensor, targets: torch.Tensor,
+                pad_count: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the masked NLL summed over the rows' valid positions, the count of
+    those positions): ``_talker_loss`` before its division.  With a tp
+    ``group`` the params are this rank's shard."""
+    B, T, _ = embeds.shape
+    dev = embeds.device
+    tp = collectives.size(group)
+    kv = talker_lib.new_kv_cache(cfg, B, T, embeds.dtype, dev, tp=tp)
+    pad = pad_count.reshape(-1, 1).long()
+    t = torch.arange(T, device=dev)[None, :]
+    cos, sin = talker_lib._positions(cfg, (t - pad).clamp_min(0))
+    x, _ = stack_forward(params["blocks"], embeds, cos, sin, kv, 0,
+                         prefill_mask(T, T, pad_count), talker_lib.block_spec(cfg, tp),
+                         group=group)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logp = torch.log_softmax(talker_lib.codec_head(params, x, group), dim=-1)  # [B, T, V]
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    valid = (t >= pad).float()
+    return (nll * valid).sum(), valid.sum()
+
+
+def _talker_loss(params, cfg: TalkerConfig, embeds: torch.Tensor, targets: torch.Tensor,
+                 pad_count: torch.Tensor, group=None) -> torch.Tensor:
+    """CE loss of codec-head logits against next-frame codebook-0 targets
+    [B, T], averaged over the positions at or after each row's left pad: a
+    fresh KV cache, pad-corrected positions, ``prefill_mask``, the stack,
+    ``final_norm``, the codec head, ``log_softmax``."""
+    nll, n = _talker_nll(params, cfg, embeds, targets, pad_count, group)
+    return nll / n.clamp_min(1.0)
+
+
+# leaves whole on every rank whose gradient is a rank's partial sum: the
+# per-head q / k norms, applied to the rank's own heads only
+_TP_PARTIAL_GRADS = ("blocks/q_norm", "blocks/k_norm")
+
+
+def _on(x, device, dtype=None) -> torch.Tensor:
+    x = x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+    return x.to(device, dtype) if dtype is not None else x.to(device)
+
+
+def make_train_step(cfg: TalkerConfig, mesh: Optional[Mesh] = None,
+                    learning_rate: float = 1e-4, *, device=None):
+    """``(init_opt, train_step)``: ``optax.adamw(learning_rate)`` over the
+    talker loss, each rank on its shard of the parameters
+    (``shard_params(..., talker_param_specs(cfg))``; every rank of the mesh
+    calls ``train_step``).  ``mesh=None`` is one process, unsharded, on
+    ``device`` (default: the card; with no card it raises, and the CPU must
+    be asked for: ``device="cpu"``); with a mesh, on ``mesh.device``.
+
+    ``train_step(params, opt_state, embeds [B, T, H], targets [B, T],
+    pad_count [B])`` -> ``(params, opt_state, loss)``: every rank passes
+    the global batch (numpy or tensors) and takes its dp rows; the loss is
+    the masked mean over the whole batch (the NLL sum and the valid count
+    all-reduced over dp, not a mean of the ranks' means); the gradients
+    are summed over dp, and those of ``q_norm`` / ``k_norm`` over tp.
+    ``params`` and ``opt_state`` are updated in place (JAX donates them)
+    and returned; ``loss`` is a 0-d tensor.  Parameters made under
+    ``torch.inference_mode()`` cannot take gradients: build them outside
+    it.
+
+    Collectives a step at tp > 1 (``collectives.counts`` /
+    ``backward_counts``): forward 2 L all-reduces and 1 all-gather (the
+    codec head), backward 2 L + 1 all-reduces (``copy_to_tp`` before qkv,
+    gate|up and the codec head) and 1 for the q / k norms; at dp > 1 one
+    more forward (the loss's sum and count) and one more backward (the
+    gradients, one flat buffer)."""
+    if mesh is None:
+        device = _resolved(device)
+        dp, dp_rank, tp_group, dp_group = 1, 0, None, None
+    else:
+        if device is not None and _resolved(device) != mesh.device:
+            raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
+        device, dp, dp_rank = mesh.device, mesh.shape["dp"], mesh.dp_rank
+        tp_group = mesh.tp_group if mesh.shape["tp"] > 1 else None
+        dp_group = mesh.dp_group if dp > 1 else None
+    opt = optim.adamw(learning_rate)
+
+    def init_opt(params):
+        return opt.init(params)
+
+    def train_step(params, opt_state, embeds, targets, pad_count):
+        named = optim.named_leaves(params)
+        dtype = named[0][1].dtype
+        embeds = _on(embeds, device, dtype)
+        targets, pad_count = _on(targets, device), _on(pad_count, device, torch.int32)
+        B = embeds.shape[0]
+        if B % dp:
+            raise ValueError(f"a batch of {B} rows does not split over dp {dp}")
+        rows = slice(dp_rank * (B // dp), (dp_rank + 1) * (B // dp))
+        ps = [p for _, p in named]
+        for path, p in named:
+            if p.device != device:
+                raise ValueError(f"{path} is on {p.device}, the step runs on {device}")
+            if p.is_inference():
+                raise ValueError(f"{path} was made under torch.inference_mode() and cannot "
+                                 "take a gradient: build training parameters outside it")
+        try:
+            for p in ps:
+                p.requires_grad_(True)
+            nll, n = _talker_nll(params, cfg, embeds[rows], targets[rows], pad_count[rows],
+                                 tp_group)
+            totals = torch.stack([nll.detach(), n])
+            if dp_group is not None:
+                collectives.all_reduce(totals, dp_group)
+            denom = totals[1].clamp_min(1.0)
+            grads = list(torch.autograd.grad(nll / denom, ps, allow_unused=True))
+        finally:
+            for p in ps:
+                p.requires_grad_(False)
+        if tp_group is not None:
+            collectives.all_reduce_grads(
+                [g for (path, _), g in zip(named, grads) if path in _TP_PARTIAL_GRADS],
+                tp_group)
+        if dp_group is not None:
+            collectives.all_reduce_grads([g for g in grads if g is not None], dp_group)
+        opt.step(params, grads, opt_state)
+        return params, opt_state, totals[0] / denom
+
+    return init_opt, train_step
