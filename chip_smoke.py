@@ -223,6 +223,15 @@ Phases, in order; any failure raises and exits non-zero:
    whose logits on the 16 committed clips agree with the CPU's within 0.1
    (cuDNN's TF32) and 1e-3 (TF32 off); seconds of synthesis,
    featurisation and an epoch.
+17. examples — the port's x-vector examples as a user runs them, each in a
+   fresh process (``python3 examples/torch_*.py``, the checkout on
+   PYTHONPATH, random:qwen3-tts-0.6b, bf16, the card by default):
+   torch_extract_speaker.py on the phase's reference wav writes one finite
+   float32 vector of the preset's speaker width; torch_generate_with_embedding.py
+   reads it (prompt builder, captured chunks, ``loops.fast_generate``, 48
+   new tokens at most) and writes a wav of exactly the printed steps x
+   samples per frame of finite audio; each process's seconds and the
+   example's ms/step.
 
 No phase runs torch.profiler around a captured replay: its tracing of CUDA
 graphs with conditional nodes lost kernel records, and a replay after such
@@ -241,6 +250,7 @@ import dataclasses
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -4685,6 +4695,77 @@ def slice_train_phase(card: str) -> dict:
     return res
 
 
+EXAMPLE_MODEL = ["--model", "random:qwen3-tts-0.6b", "--dtype", "bf16"]
+EXAMPLE_STEPS = 48  # --max-new-tokens of the generate example
+EXAMPLE_S = 300  # each example process's time limit
+EXAMPLE_WROTE = re.compile(r"wrote (\S+): ([0-9.]+)s in ([0-9.]+)s \(([0-9.]+) ms/step\)")
+
+
+def _example(script: str, *argv) -> tuple:
+    """``python3 examples/<script> *argv`` in a fresh process, as a user
+    runs it (the checkout on PYTHONPATH): (its last stdout line, seconds).
+    Raises unless it exits 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    t = time.time()
+    res = subprocess.run([sys.executable, os.path.join(root, "examples", script), *argv,
+                          *EXAMPLE_MODEL], capture_output=True, text=True, env=env, cwd=root,
+                         timeout=EXAMPLE_S)
+    dt = time.time() - t
+    if res.returncode != 0 or not res.stdout.strip():
+        raise AssertionError(f"examples/{script} exited {res.returncode}: "
+                             f"{res.stderr.strip()[-2000:]}")
+    return res.stdout.strip().splitlines()[-1], dt
+
+
+def examples_phase(card: str) -> dict:
+    """The port's x-vector examples on the card as a user runs them: two
+    fresh processes, ``examples/torch_extract_speaker.py`` on the phase's
+    reference wav, then ``examples/torch_generate_with_embedding.py`` on its
+    .npz (random:qwen3-tts-0.6b, bf16, EXAMPLE_STEPS new tokens at most).
+    The .npz must hold one finite float32 vector of the preset's speaker
+    width, the wav exactly (printed steps) x samples per frame of finite
+    audio, where the printed seconds give the steps (a frame is 1/12 s, the
+    line prints 1/100 s); each process's seconds and the example's
+    ms/step."""
+    from qwen3tts_tpu_torch.audio.wav import read_wav
+    from qwen3tts_tpu_torch.core.presets import get_preset
+
+    cfg = get_preset("qwen3-tts-0.6b")
+    sr, spf = cfg.codec.sample_rate, cfg.codec.total_upsample
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, npz, out = (os.path.join(tmp, f) for f in ("ref.wav", "speaker.npz", "out.wav"))
+        _ref_wav(ref)
+        extract_line, extract_s = _example("torch_extract_speaker.py", ref, "-o", npz)
+        with np.load(npz) as f:
+            keys, vec = list(f.keys()), f["ref_spk_embedding"]
+        if (keys != ["ref_spk_embedding"] or vec.dtype != np.float32
+                or vec.shape != (cfg.speaker_encoder.emb_dim,) or not np.isfinite(vec).all()):
+            raise AssertionError(f"extract example: {keys} {vec.dtype} {vec.shape} is not one "
+                                 f"finite float32 vector of {cfg.speaker_encoder.emb_dim}")
+        gen_line, gen_s = _example("torch_generate_with_embedding.py", npz, "-o", out,
+                                   "--max-new-tokens", str(EXAMPLE_STEPS))
+        m = EXAMPLE_WROTE.fullmatch(gen_line)
+        if not m or m.group(1) != out:
+            raise AssertionError(f"generate example printed {gen_line!r}")
+        audio_s, wall_s, ms_per_step = (float(m.group(i)) for i in (2, 3, 4))
+        steps = round(audio_s * sr / spf)
+        if not (2 <= steps <= EXAMPLE_STEPS and abs(steps * spf / sr - audio_s) <= 0.005 + 1e-9):
+            raise AssertionError(f"generate example: {audio_s} s is not a whole number of "
+                                 f"frames in [2, {EXAMPLE_STEPS}]")
+        audio, wav_sr = read_wav(out)
+    if wav_sr != sr or audio.shape != (steps * spf,) or not np.isfinite(audio).all():
+        raise AssertionError(f"generate example: wav of {audio.shape} at {wav_sr} Hz, want "
+                             f"({steps * spf},) finite samples at {sr} Hz")
+    res = {"extract": {"process_s": extract_s, "printed": extract_line},
+           "generate": {"process_s": gen_s, "steps": steps, "audio_s": audio_s,
+                        "printed_wall_s": wall_s, "ms_per_step": ms_per_step,
+                        "printed": gen_line}}
+    log(f"  examples: {json.dumps(res)}  [{card}]")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the card")
@@ -4733,6 +4814,7 @@ def main():
     demo = phase("slice-demo", slice_demo_phase, card)
     shard = phase("slice-shard", slice_shard_phase, card)
     train = phase("slice-train", slice_train_phase, card)
+    examples = phase("examples", examples_phase, card)
     # the main path: the captured chunks, in the counted request that
     # captured them; a replay's launches read from its graph's kernel nodes
     traced = {path: g["paths"][path]["captured"]["counted_request"]["capturing"]["launches"]
@@ -4780,6 +4862,7 @@ def main():
     log("slice-shard: " + json.dumps({"card": card, **shard, "rank_flash_decode": rank_flash,
                                       "set_condition": cond}))
     log("slice-train: " + json.dumps({"card": card, **train}))
+    log("examples: " + json.dumps({"card": card, **examples}))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],
