@@ -29,13 +29,14 @@ Phases, in order; any failure raises and exits non-zero:
    after x, pos, the rope rows and the cache were rewritten;
    matvec and matvec_kt at the probe's default (K 1024, N 65536) and the
    talker's qkv shape (1024 x 4096), then the probe's 20-call run;
-   quantize_act and w8a8_gemv (csrc/w8a8.cu) at the 0.6B talker's four
-   product shapes, the predictor's qkv and o and the 1.7B talker's qkv, 1,
-   2, 4 and 16 rows, bf16 and float32, bit-equal to their plain versions
-   (tolerance 0), two runs equal, the route above 16 rows (torch._int_mm)
-   at 17 and 64 rows also exact, one captured graph per shape replayed
-   after its input was rewritten; timed beside their bounds, the bf16
-   torch.matmul of the same shape and torch._int_mm at 17 rows.
+   w8a8_gemv (csrc/w8a8.cu: the activation quantize fused into the GEMV)
+   at the 0.6B talker's four product shapes, the predictor's qkv and o and
+   the 1.7B talker's qkv, 1, 2, 4, 8 and 16 rows, bf16 and float32,
+   bit-equal to its plain version (tolerance 0), two runs equal, the route
+   above 16 rows (quantize_act's kernel, torch._int_mm) at 17 and 64 rows
+   also exact, one captured graph per shape replayed after its input was
+   rewritten; timed beside its bound, the bf16 torch.matmul of the same
+   shape and torch._int_mm at 17 rows; quantize_act at 64 rows.
    bf16 (the main path's dtype) is held to 2e-3 + 1.6e-2*|ref|, float32 to
    1e-5 (where a slot or a row counted wrong shows above the tolerance).
    The split-K kernels (flash-decode, matvec) give the same bits in two
@@ -76,7 +77,8 @@ Phases, in order; any failure raises and exits non-zero:
    float32 model with a w8a8 bundle, captured on the card (the w8a8
    kernels) against eager on the CPU: equal greedy frames through every
    step before the first activation whose int8 rounding differs (found by
-   recording every quantize_act on both), that rounding off by one.
+   recording every w8a8 product's input on both and quantizing it with the
+   plain version), that rounding off by one.
 7. slice-graph — the main path: the API's captured chunks (CUDA graphs,
    runtime/graphs.py) on the 0.6B at full width, on three paths (bf16; bf16
    with use_micro_kernel=True; int8 weights + int8 KV cache +
@@ -167,8 +169,9 @@ Phases, in order; any failure raises and exits non-zero:
 13. slice-w8a8 — random:qwen3-tts-0.6b (bf16) with quantize="w8a8" through
    the API with captured chunks: warm-up, a non-streamed and a streamed
    (chunk 8) request of 48 steps (ms/step, RTF, TTFA) and a counted
-   streamed request (flash-decode 28, quantize_act 412, w8a8_gemv 412
-   kernel nodes a step, and the eager prefill's); a B 4 fast_generate_batch
+   streamed request (flash-decode 28, w8a8_gemv 412, quantize_act 0
+   kernel nodes a step, and the eager prefill's quantize_act); a B 4
+   fast_generate_batch
    of 48 steps (the same counts a step); one request each with
    "w8a8-talker" and "w8a8-predictor"; then utils/quality.py's
    quant_quality(bf16, w8a8) and quant_quality(bf16, int8) at 24 steps
@@ -3362,13 +3365,14 @@ W8A8_SHAPES = {  # where -> (K, N, distinct weights in the timing graph, calls a
     "talker_gateup": (1024, 6144, 28, 28), "talker_down": (3072, 1024, 28, 28),
     "pred_qkv": (1024, 2048, 5, 70), "pred_o": (1024, 1024, 5, 70),
     "talker_1.7b_qkv": (2048, 4096, 28, 28)}
-W8A8_ROWS = (1, 2, 4, 16)  # the GEMV kernel's rows
+W8A8_ROWS = (1, 2, 4, 8, 16)  # the fused GEMV kernel's rows
 W8A8_LIBRARY_ROWS = (17, 64)  # quantize_act's kernel, then torch._int_mm
 W8A8_TIMED_ROWS = {"talker_qkv": (1, 4, 16)}  # the others at 1 row
+W8A8_QUANT_ROWS = 64  # quantize_act timed on the route above 16 rows (the prefill's)
 # a captured 0.6B step at B 1 and B 4: 28 talker layers x 4 products, and
 # the predictor's 5 layers x 4 products over its 2-token prefill and 14
-# micro-steps; each product a quantize_act and a GEMV
-W8A8_WANT = {"flash_decode": 28, "quantize_act": 412, "w8a8_gemv": 412}
+# micro-steps; each product one launch of the fused GEMV
+W8A8_WANT = {"flash_decode": 28, "quantize_act": 0, "w8a8_gemv": 412}
 W8A8_STEPS = 48
 QUALITY_STEPS = 24
 
@@ -3385,19 +3389,21 @@ def _exact(name: str, out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
 
 
 def w8a8_kernel_phase(card: str):
-    """quantize_act and w8a8_gemv against their plain versions, tolerance 0:
-    the 0.6B talker's four product shapes, the predictor's qkv and o, the
-    1.7B talker's qkv; 1, 2, 4 and 16 rows; bf16 and float32 activations;
-    two runs bit-equal.  The route above 16 rows (quantize_act's kernel,
-    torch._int_mm, the epilogue) at 17 and 64 rows, also exact.  One
-    captured graph of w8a8_matmul per shape, replayed after its input was
-    rewritten.  Timing (bf16 activations, one call per layer in a CUDA
-    graph, each layer with its own weights as a step has them: 28 talker
-    layers; the predictor's 5 layers, 70 calls): the GEMV, quantize_act,
-    their plain versions, the bf16 torch.matmul of the same unquantized
-    shape (what the mode replaces, not the same function) and
+    """w8a8_gemv (the fused kernel: quantize and product in one launch)
+    against its plain version, tolerance 0: the 0.6B talker's four product
+    shapes, the predictor's qkv and o, the 1.7B talker's qkv; 1, 2, 4, 8 and
+    16 rows; bf16 and float32 activations; two runs bit-equal.  The route
+    above 16 rows (quantize_act's kernel, torch._int_mm, the epilogue) at 17
+    and 64 rows, also exact, and quantize_act's kernel twice against its
+    plain version there.  One captured graph of w8a8_matmul per shape,
+    replayed after its input was rewritten.  Timing (bf16 activations, one
+    call per layer in a CUDA graph, each layer with its own weights as a
+    step has them: 28 talker layers; the predictor's 5 layers, 70 calls):
+    the fused GEMV and its plain version, the bf16 torch.matmul of the same
+    unquantized shape (what the mode replaces, not the same function) and
     torch._int_mm at 17 rows (its smallest legal M): no PyTorch call
-    computes the product at 16 rows or fewer."""
+    computes the product at 16 rows or fewer; quantize_act and its plain
+    version at W8A8_QUANT_ROWS rows, where the prefill runs it."""
     from qwen3tts_tpu_torch.ops import cuda_build
     from qwen3tts_tpu_torch.ops import w8a8 as W
     from qwen3tts_tpu_torch.ops.quant import quantize_tensor
@@ -3420,18 +3426,16 @@ def w8a8_kernel_phase(card: str):
                 before = (W.quantize_act.launches, W.w8a8_gemv.launches)
                 y = W.w8a8_matmul(x, qw)
                 routed = (W.quantize_act.launches - before[0], W.w8a8_gemv.launches - before[1])
-                if routed != (1, int(M <= W.MAX_ROWS)):
+                if routed != ((0, 1) if M <= W.MAX_ROWS else (1, 0)):
                     raise AssertionError(f"w8a8_matmul at {what} launched {routed}")
                 _exact("w8a8_matmul", y, ref, what)
                 if M <= W.MAX_ROWS:
-                    runs = []
-                    for _ in range(2):
-                        xq, xs = W.quantize_act(x)
-                        runs.append((xq, xs, W.w8a8_gemv(xq, xs, qw["q8"], qw["scale"], dt)))
-                    for (xq, xs, out) in runs:
+                    for out in [W.w8a8_gemv(x, qw["q8"], qw["scale"], dt) for _ in range(2)]:
+                        _exact("w8a8_gemv", out, ref, what)
+                else:
+                    for xq, xs in [W.quantize_act(x) for _ in range(2)]:
                         _exact("quantize_act", xq, pq, what)
                         _exact("quantize_act scale", xs, ps, what)
-                        _exact("w8a8_gemv", out, ref, what)
                 checked += 1
         # one captured graph, replayed after its input was rewritten
         for M in (1, 4):
@@ -3440,9 +3444,8 @@ def w8a8_kernel_phase(card: str):
             for _ in range(2):
                 xg.copy_(torch.randn((M, K), generator=g, device=dev) * 3)
                 graph.replay()
-                pq, ps = W.quantize_act_plain(xg)
                 _exact("w8a8_matmul graph replay", og,
-                       W.w8a8_matmul_plain(pq, ps, qw["q8"], qw["scale"], torch.bfloat16),
+                       W.w8a8_gemv_plain(xg, qw["q8"], qw["scale"], torch.bfloat16),
                        f"{where} M={M}")
             del graph
         del qw
@@ -3452,33 +3455,33 @@ def w8a8_kernel_phase(card: str):
         wb = [torch.randn((K, N), generator=g, device=dev).bfloat16() for _ in range(layers)]
         for M in W8A8_TIMED_ROWS.get(where, (1,)):
             x = torch.randn((M, K), generator=g, device=dev).bfloat16()
-            xq, xs = W.quantize_act(x)
-            pq, ps = W.quantize_act_plain(x)
             x17 = torch.randint(-127, 128, (17, K), generator=g, device=dev, dtype=torch.int8)
             t = {"w8a8_gemv": graph_ms(lambda i: W.w8a8_gemv(
-                     xq, xs, ws[i % layers]["q8"], ws[i % layers]["scale"], torch.bfloat16),
-                     calls),
-                 "w8a8_gemv_plain": graph_ms(lambda i: W.w8a8_matmul_plain(
-                     pq, ps, ws[i % layers]["q8"], ws[i % layers]["scale"], torch.bfloat16),
-                     calls),
-                 "quantize_act": graph_ms(lambda i: W.quantize_act(x), calls),
-                 "quantize_act_plain": graph_ms(lambda i: W.quantize_act_plain(x), calls),
+                     x, ws[i % layers]["q8"], ws[i % layers]["scale"], torch.bfloat16), calls),
+                 "w8a8_gemv_plain": graph_ms(lambda i: W.w8a8_gemv_plain(
+                     x, ws[i % layers]["q8"], ws[i % layers]["scale"], torch.bfloat16), calls),
                  "bf16_matmul": graph_ms(lambda i: torch.matmul(x, wb[i % layers]), calls),
                  "int_mm_17": graph_ms(lambda i: torch._int_mm(x17, ws[i % layers]["q8"]),
                                        calls)}
-            times[(where, M)] = t
             bounds[(where, M)] = {
-                "w8a8_gemv": bound(K * N + M * K + 4 * M + 4 * N + 2 * M * N, 2 * M * K * N,
+                "w8a8_gemv": bound(K * N + 2 * M * K + 4 * N + 2 * M * N, 2 * M * K * N,
                                    torch.int8),
-                "quantize_act": bound(2 * M * K + M * K + 4 * M, 2 * M * K, torch.float32),
                 "bf16_matmul": bound(2 * K * N + 2 * M * K + 2 * M * N, 2 * M * K * N,
                                      torch.bfloat16)}
-            log(f"  timing w8a8 {where} K={K} N={N} M={M} (mt, vec, splits "
-                f"{W.gemv_geometry(M, K, N, sms)}): "
+            if where == "talker_qkv" and M == 1:
+                xr = torch.randn((W8A8_QUANT_ROWS, K), generator=g, device=dev).bfloat16()
+                t["quantize_act"] = graph_ms(lambda i: W.quantize_act(xr), calls)
+                t["quantize_act_plain"] = graph_ms(lambda i: W.quantize_act_plain(xr), calls)
+                R = W8A8_QUANT_ROWS
+                bounds[(where, M)]["quantize_act"] = bound(2 * R * K + R * K + 4 * R, 2 * R * K,
+                                                           torch.float32)
+            times[(where, M)] = t
+            log(f"  timing w8a8 {where} K={K} N={N} M={M} (geometry "
+                f"{tuple(W.gemv_geometry(M, K, N, sms, 2))}): "
                 + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in t.items())
-                + f"; bound gemv {bounds[(where, M)]['w8a8_gemv'][0] * 1e3:.2f} us, "
-                f"quantize_act {bounds[(where, M)]['quantize_act'][0] * 1e3:.3f} us, bf16 "
-                f"matmul {bounds[(where, M)]['bf16_matmul'][0] * 1e3:.2f} us  [{card}]")
+                + "; bounds " + ", ".join(f"{k} {v[0] * 1e3:.3f} us"
+                                          for k, v in bounds[(where, M)].items())
+                + f"  [{card}]")
         del ws, wb
     log(f"  w8a8: {checked} (shape, rows, dtype) cases bit-equal to the plain versions "
         f"(tolerance 0), two runs equal, {len(W8A8_SHAPES) * 2} captured graphs replayed  "
@@ -3488,12 +3491,16 @@ def w8a8_kernel_phase(card: str):
 
 @contextlib.contextmanager
 def _recorded_activations(engine, log_: list):
-    """Every quantize_act's (step, xq, xs) on the host, in call order, while
+    """Every w8a8 product's (step, xq, xs) on the host, in call order, while
     ``engine`` runs eagerly (step 0 is the prefill; ``_one_step`` counts the
-    rest): the card's kernel wrapper and the CPU's plain version."""
-    from qwen3tts_tpu_torch.ops import w8a8
+    rest): each product's input x is copied to the host as it reaches
+    ``w8a8_matmul`` (ops/quant.py's name, which maybe_matmul calls) and
+    quantized there by the plain version, which the kernel phase holds bit
+    for bit to the fused kernel's and quantize_act's quantization."""
+    from qwen3tts_tpu_torch.ops import quant
+    from qwen3tts_tpu_torch.ops.w8a8 import quantize_act_plain
 
-    real = {name: getattr(w8a8, name) for name in ("quantize_act", "quantize_act_plain")}
+    real = quant.w8a8_matmul
     step = [0]
     one_step = engine._one_step
 
@@ -3501,22 +3508,17 @@ def _recorded_activations(engine, log_: list):
         step[0] += 1
         return one_step(*a, **kw)
 
-    def recorder(fn):
-        def rec(x):
-            xq, xs = fn(x)
-            log_.append((step[0], xq.reshape(-1, xq.shape[-1]).cpu(), xs.reshape(-1).cpu()))
-            return xq, xs
-        rec.launches = 0  # the wrapper counts its launches on the module's name: this one
-        return rec
+    def rec(x, qw):
+        xq, xs = quantize_act_plain(x.reshape(-1, x.shape[-1]).cpu())
+        log_.append((step[0], xq, xs.reshape(-1)))
+        return real(x, qw)
 
     engine._one_step = counted
-    for name, fn in real.items():
-        setattr(w8a8, name, recorder(fn))
+    quant.w8a8_matmul = rec
     try:
         yield
     finally:
-        for name, fn in real.items():
-            setattr(w8a8, name, fn)
+        quant.w8a8_matmul = real
         del engine._one_step
 
 
@@ -3531,8 +3533,11 @@ def parity_w8a8_phase(card: str):
     card's frames are held equal to the CPU's through every step before the
     first activation whose int8 rounding differs, and that first difference
     to one step of one in the int8 values.  The activations come from the
-    card's engine run eagerly with every quantize_act recorded (its frames
-    must equal the captured run's) and from the CPU's run."""
+    card's engine run eagerly with every w8a8 product's input recorded (its
+    frames must equal the captured run's) and from the CPU's run.  Both
+    routes must run: the 20-row talker prefill's products through
+    quantize_act and torch._int_mm (exactly 4 a layer), every other product
+    through the fused GEMV."""
     from qwen3tts_tpu_torch.core.loader import init_random
     from qwen3tts_tpu_torch.core.presets import get_preset
     from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
@@ -3624,8 +3629,8 @@ def parity_w8a8_phase(card: str):
             f"{held}; the scales before it differ by at most {xs_rel:.2e} relative); steps with "
             f"a differing rounding up to that frame (products, entries, most): "
             f"{json.dumps(per_step)}; "
-            f"eager launches on the card (prefill, the captures' steps) quantize_act "
-            f"{launched[0]}, w8a8_gemv {launched[1]}  [{card}]")
+            f"eager launches on the card (prefill: quantize_act; the captures' steps: "
+            f"w8a8_gemv) quantize_act {launched[0]}, w8a8_gemv {launched[1]}  [{card}]")
         if not torch.equal(captured[:held], cpu[:held]):
             raise AssertionError(f"w8a8: card and CPU frames differ at frame {first_frame}, "
                                  f"before the first differing activation rounding (step {held})")
@@ -3635,8 +3640,10 @@ def parity_w8a8_phase(card: str):
         if flip and flip["most"] > 1:
             raise AssertionError(f"w8a8: the first differing activation rounding moved by "
                                  f"{flip['most']}, want one step")
-        if launched[0] <= launched[1] or launched[1] == 0:
-            raise AssertionError(f"w8a8 parity did not run both routes: launches {launched}")
+        if launched[0] != 4 * cfg.talker.num_hidden_layers or launched[1] == 0:
+            raise AssertionError(f"w8a8 parity did not run both routes: launches {launched}; "
+                                 f"want quantize_act {4 * cfg.talker.num_hidden_layers} (the "
+                                 "prefill) and w8a8_gemv > 0")
         return {"frames_equal": int(equal.sum()), "frames": len(equal), "held": held,
                 "first_flip": flip, "scale_rel_diff_before": xs_rel, "flips_by_step": per_step}
     finally:
@@ -3644,11 +3651,11 @@ def parity_w8a8_phase(card: str):
 
 
 def _w8a8_prefill(model, rows: int) -> dict:
-    """The eager talker prefill's w8a8 launches: 4 products a layer, each a
-    quantize_act and then the GEMV kernel (16 rows or fewer) or
+    """The eager talker prefill's w8a8 launches: 4 products a layer, each
+    the fused GEMV (16 rows or fewer) or quantize_act and then
     torch._int_mm (not counted: a library call)."""
     n = 4 * model.cfg.talker.num_hidden_layers
-    return {"quantize_act": n, "w8a8_gemv": n if rows <= 16 else 0}
+    return {"quantize_act": n if rows > 16 else 0, "w8a8_gemv": n if rows <= 16 else 0}
 
 
 def _timed_clone(model, ref: str, steps: int, what: str) -> dict:
@@ -3672,8 +3679,8 @@ def _timed_clone(model, ref: str, steps: int, what: str) -> dict:
 def slice_w8a8_phase(card: str, models: dict) -> dict:
     """The w8a8 modes on random:qwen3-tts-0.6b (bf16) through the API with
     captured chunks: quantize="w8a8" (warm-up, a non-streamed and a streamed
-    48-step request, a counted streamed request: flash-decode 28,
-    quantize_act 412 and w8a8_gemv 412 kernel nodes a step, read from the
+    48-step request, a counted streamed request: flash-decode 28 and
+    w8a8_gemv 412 kernel nodes a step, quantize_act none, read from the
     graphs); one request each with "w8a8-talker" and "w8a8-predictor"; a
     B 4 fast_generate_batch of 48 steps (4 rows a product; the prefill's
     rows above 16 take torch._int_mm); then the quality gate at 24 steps,
@@ -4886,12 +4893,13 @@ def main():
     # flash-decode at pos 300 with a cold L2 (two cache stacks); the fused
     # kernels at the talker's shapes with int8 weights, as the int8 path runs
     # them; the micro-step per step of a bf16 frame; the matvecs at the
-    # probe's default shape in bf16; the w8a8 kernels at the 0.6B talker's
-    # qkv shape, one row of bf16 activations (their launches: slice-w8a8's
-    # counted captured request; no Pallas original: they replace the JAX
-    # package's XLA int8 dot and its activation quantizer)
+    # probe's default shape in bf16; the fused w8a8 GEMV at the 0.6B talker's
+    # qkv shape, one row of bf16 activations, quantize_act there at 64 rows
+    # (the prefill's route; their launches: slice-w8a8's counted captured
+    # request, the prefill's quantize_act included; no Pallas original: they
+    # replace the JAX package's XLA int8 dot and its activation quantizer)
     log(f"phase seconds: {json.dumps(phase_s)}; total {time.time() - t0:.1f} s")
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("flash_decode", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180", launches,
               max_err["bf16"], times["cold300"][0], times["cold300"][1],
               fd_extra["bound"]["cold300"], fd_extra["library_ms"]["cold300"]),
@@ -4921,7 +4929,11 @@ def main():
         entry("w8a8_gemv", w_src, "qwen3tts_tpu/ops/quant.py:76", w_launches["w8a8_gemv"],
               w_err["w8a8_gemv"], w_t["w8a8_gemv"], w_t["w8a8_gemv_plain"], w_b["w8a8_gemv"],
               None),
-    ]}), flush=True)
+    ]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

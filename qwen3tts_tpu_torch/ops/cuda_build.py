@@ -36,7 +36,7 @@ SOURCES = {"flash_decode": CSRC / "flash_decode.cu",
 # graph's kernel nodes; flash_decode_kernel is the float and the int8 cache's
 KERNEL_SYMBOLS = {"flash_decode": "flash_decode_kernel", "fused_norm_matmul": "norm_matmul_kernel",
                   "fused_o_mlp": "o_mlp_kernel", "fused_micro_step": "micro_step_kernel",
-                  "quantize_act": "quantize_act_kernel", "w8a8_gemv": "w8a8_gemv_kernel"}
+                  "quantize_act": "quantize_act_kernel", "w8a8_gemv": "fused_w8a8_gemv_kernel"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 """Measure the design choices behind the port's CUDA kernels on the card.
 
-    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm|intmm]
+    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm|intmm|w8a8]
 
 ``stream`` (fused_o_mlp and fused_micro_step, csrc/wstream.cuh) builds the
 two sources once more per variant with a ``-DQWEN3TTS_...`` flag and, at the
@@ -70,6 +70,26 @@ rows, each result checked against a float64 product; then, at the 0.6B
 talker's four product shapes and 17 to 460 rows, its time with either
 layout beside the w8a8 GEMV kernel in 16-row blocks (CUDA graphs of one
 call per layer, 28 layers of their own weights).
+
+``w8a8`` (csrc/w8a8.cu's fused GEMV, ops/w8a8.py) builds the first w8a8
+design, ``tools/w8a8_unfused.cu`` (quantize_act's kernel, then a GEMV with
+byte-wise multiply-adds), and at chip_smoke.py's seven product shapes
+(W8A8_SHAPES: CUDA graphs of one call per layer, each layer its own
+weights), 1, 2, 4, 8 and 16 rows of bf16 activations, prints in turns
+(unfused, fused, bf16 torch.matmul, torch._int_mm at 17 rows, fused,
+unfused) the time of each, both checked bit-equal to the plain version
+first; beside them the fused kernel with the other dot instruction
+(__dp4a or mma.sync) and, where K is split, the other way to the rows'
+|max| (each CTA over all of K, or over its slice and an exchange over the
+cluster) at every row count and, at 1 and 16 rows, with stages (TMA
+boxes) of 64 and 128 rows (shipped: up to 256), a ring of one stage
+(refilled as it drains; shipped: the whole share in flight where it
+fits) and twice the CTAs (more K splits);
+the kernel alone at K 64 x N 128 (one CTA) and K 1024 x N 128 (a 16-CTA
+cluster), its floor: launch, barriers, one round trip; and, at 1 and 16
+rows, from a copy built with QWEN3TTS_STAMPS (%globaltimer at each phase
+of a CTA), when the CTAs reached each phase of one call (median and last
+CTA, us from the first CTA's entry).
 """
 from __future__ import annotations
 
@@ -92,7 +112,8 @@ SRC = (cuda_build.CSRC / "flash_decode.cu").read_text()
 # the package's sources, and the row-split variants of fused_norm_matmul,
 # which only this probe builds
 PROBE_SOURCES = {**cuda_build.SOURCES,
-                 "norm_matmul_splits": Path(__file__).with_name("norm_matmul_splits.cu")}
+                 "norm_matmul_splits": Path(__file__).with_name("norm_matmul_splits.cu"),
+                 "w8a8_unfused": Path(__file__).with_name("w8a8_unfused.cu")}
 STAMPS = r'''
 __device__ unsigned long long g_stamp[1024 * 8];
 __device__ __forceinline__ void stamp(int i, int dep) {
@@ -703,6 +724,8 @@ def main():
         norm_probe()
     if which in ("all", "intmm"):
         intmm_probe()
+    if which in ("all", "w8a8"):
+        w8a8_probe()
 
 
 def intmm_probe():
@@ -738,15 +761,181 @@ def intmm_probe():
         wcs = [w.t().contiguous().t() for w in ws]
         scale = torch.ones((1, N), device=dev)
         for M in (17, 32, 115, 460):
-            a, xs = int8(M, K), torch.ones((M, 1), device=dev)
+            a = int8(M, K)
+            xb = torch.randn((M, K), generator=g, device=dev).bfloat16()
             t_nn = graph_us(lambda i: torch._int_mm(a, ws[i % layers]), layers)
             t_tn = graph_us(lambda i: torch._int_mm(a, wcs[i % layers]), layers)
-            t_gemv = graph_us(lambda i: [w8a8.w8a8_gemv(a[r: r + 16], xs[r: r + 16],
-                                                        ws[i % layers], scale, torch.bfloat16)
+            t_gemv = graph_us(lambda i: [w8a8.w8a8_gemv(xb[r: r + 16], ws[i % layers], scale,
+                                                        torch.bfloat16)
                                          for r in range(0, M, 16)], layers)
             print(f"K {K} N {N} M {M}: torch._int_mm row-major {t_nn:.2f} us, column-major "
-                  f"{t_tn:.2f} us; w8a8_gemv in {-(-M // 16)} blocks of 16 rows {t_gemv:.2f} us")
+                  f"{t_tn:.2f} us; w8a8_gemv (quantize included) in {-(-M // 16)} blocks of "
+                  f"16 rows {t_gemv:.2f} us")
         del ws, wcs
+
+
+# chip_smoke.py's W8A8_SHAPES: where -> (K, N, layers of their own weights, calls a graph)
+W8A8_SHAPES = {
+    "talker_qkv": (1024, 4096, 28, 28), "talker_o": (2048, 1024, 28, 28),
+    "talker_gateup": (1024, 6144, 28, 28), "talker_down": (3072, 1024, 28, 28),
+    "pred_qkv": (1024, 2048, 5, 70), "pred_o": (1024, 1024, 5, 70),
+    "talker_1.7b_qkv": (2048, 4096, 28, 28)}
+W8A8_ROWS = (1, 2, 4, 8, 16)
+
+
+def unfused_geometry(M: int, K: int, N: int, sms: int):
+    """(mt, vec, splits) of tools/w8a8_unfused.cu's GEMV (its source's note)."""
+    mt = 1
+    while mt < M:
+        mt *= 2
+    vec = min(16, 64 // mt)
+    while vec > 4 and (N % vec or -(-N // (32 * vec)) * 16 < sms):
+        vec //= 2
+    tiles = -(-N // (32 * vec))
+    cap = min(16, max(1, K // 64))
+    splits = 1
+    while 2 * splits <= cap and tiles * 2 * splits <= 2 * sms:
+        splits *= 2
+    return mt, vec, splits
+
+
+def _unfused_pair(lib, sms: int):
+    """quantize_act + GEMV of tools/w8a8_unfused.cu: pair(x bf16 [M, K], q8,
+    scale) -> bf16 [M, N], two launches."""
+    qa, mv = lib.qwen3tts_unfused_quantize_act, lib.qwen3tts_unfused_w8a8_gemv
+    qa.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    mv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    qa.restype = mv.restype = ctypes.c_int
+
+    def pair(x, q8, scale):
+        (M, K), N = x.shape, q8.shape[1]
+        st = torch.cuda.current_stream().cuda_stream
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        xs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        rc = qa(0, x.data_ptr(), xq.data_ptr(), xs.data_ptr(), M, K, st) or mv(
+            0, xq.data_ptr(), xs.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(), M,
+            K, N, *unfused_geometry(M, K, N, sms), st)
+        if rc:
+            raise RuntimeError(f"the unfused w8a8 pair failed to launch: cudaError {rc}")
+        return out
+    return pair
+
+
+W8A8_PHASES = ["stream issued", "x loaded", "|max| of the CTA", "maxima exchanged",
+               "xs shared", "quantized", "first stage landed", "last dot step done",
+               "sums in shared memory", "fold barrier passed", "stored"]
+
+
+def _w8a8_phases(lib, grid: int) -> list:
+    """The stamped fused kernel's last launch: per phase, the median and the
+    last CTA, us from the first CTA's entry."""
+    fn = lib.qwen3tts_w8a8_stamps
+    fn.argtypes = [ctypes.c_void_p]
+    buf = np.zeros((512, 16), dtype=np.uint64)
+    torch.cuda.synchronize()
+    if fn(buf.ctypes.data):
+        raise RuntimeError("reading the stamps failed")
+    st = buf[:grid].astype(np.int64)
+    rel = (st - st[:, 0].min()).astype(np.float64) / 1e3
+    rel[(rel < 0) | (rel > 1e3)] = np.nan  # stamps of an earlier launch
+    out = [f"entry {np.nanmedian(rel[:, 0]):.2f} ({np.nanmax(rel[:, 0]):.2f})"]
+    for i, name in enumerate(W8A8_PHASES, start=1):
+        if not np.isnan(rel[:, i]).all():
+            out.append(f"{name} {np.nanmedian(rel[:, i]):.2f} ({np.nanmax(rel[:, i]):.2f})")
+    return out
+
+
+def w8a8_probe():
+    """See the module docstring (``w8a8``)."""
+    from ..ops import w8a8 as W
+    from ..ops.quant import quantize_tensor
+
+    dev = torch.device("cuda")
+    sms = cuda_build.sm_count(dev)
+    libs, _ = _build_variants(({"copy": ()}, ("w8a8_unfused",)),
+                              ({"stamped": ("QWEN3TTS_STAMPS",)}, ("w8a8",)))
+    pair = _unfused_pair(libs[("copy", "w8a8_unfused")], sms)
+    stamped, shipped = libs[("stamped", "w8a8")], cuda_build.library("w8a8")
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+
+    def q(K, N):
+        return quantize_tensor(torch.randn((K, N), generator=g, device=dev) * K ** -0.5, "w8a8")
+
+    for K, N in ((64, 128), (1024, 128)):
+        w, x = q(K, N), torch.randn((1, K), generator=g, device=dev).bfloat16()
+        geo = W.gemv_geometry(1, K, N, sms)
+        print(f"floor: fused kernel at K {K} x N {N}, 1 row, {geo.splits} CTAs (one cluster): "
+              f"{graph_us(lambda i: W.w8a8_gemv(x, w['q8'], w['scale'], bf), 28):.2f} us/call")
+    print("us/call, bf16 x, in turns: unfused pair, fused, bf16 torch.matmul, torch._int_mm "
+          "(17 rows), fused, unfused pair; then the fused kernel's variants")
+    for where, (K, N, layers, calls) in W8A8_SHAPES.items():
+        ws = [q(K, N) for _ in range(layers)]
+        wb = [torch.randn((K, N), generator=g, device=dev).bfloat16() for _ in range(layers)]
+        x17 = torch.randint(-127, 128, (17, K), generator=g, device=dev, dtype=torch.int8)
+        for M in W8A8_ROWS:
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            ref = W.w8a8_gemv_plain(x, ws[0]["q8"], ws[0]["scale"], bf)
+            geo = W.gemv_geometry(M, K, N, sms, 2)
+            variants = {"other dot": W.gemv_geometry(M, K, N, sms, 2, mma=not geo.mma)}
+            if geo.splits > 1:
+                variants["|max| exchanged" if geo.whole else "|max| over whole rows"] = \
+                    W.gemv_geometry(M, K, N, sms, 2, whole=not geo.whole)
+            if M in (1, 16):
+                variants.update({
+                    "stages of 64 rows": W.gemv_geometry(M, K, N, sms, 2, mma=geo.mma,
+                                                         stage_rows=64),
+                    "stages of 128 rows": W.gemv_geometry(M, K, N, sms, 2, mma=geo.mma,
+                                                          stage_rows=128),
+                    "a ring of one stage": W.gemv_geometry(
+                        M, K, N, sms, 2, mma=geo.mma,
+                        ring_bytes=min(geo.kc, W.MAX_STAGE_ROWS) * W.TILE),
+                    "twice the CTAs": W.gemv_geometry(M, K, N, sms, 2, mma=geo.mma,
+                                                      ctas=2 * sms)})
+            checks = {"unfused": pair(x, ws[0]["q8"], ws[0]["scale"]),
+                      "fused": W.w8a8_gemv(x, ws[0]["q8"], ws[0]["scale"], bf),
+                      **{v: W.w8a8_gemv(x, ws[0]["q8"], ws[0]["scale"], bf, geometry=gv)
+                         for v, gv in variants.items()}}
+            torch.cuda.synchronize()
+            for name, y in checks.items():
+                if not torch.equal(y, ref):
+                    raise AssertionError(f"w8a8 {name} differs from the plain version at "
+                                         f"{where} M={M}")
+
+            def fused(i, gv=None):
+                w = ws[i % layers]
+                return W.w8a8_gemv(x, w["q8"], w["scale"], bf, geometry=gv)
+            t = {}
+            for name, fn in (("unfused", lambda i: pair(x, ws[i % layers]["q8"],
+                                                          ws[i % layers]["scale"])),
+                             ("fused", fused),
+                             ("bf16 torch.matmul", lambda i: torch.matmul(x, wb[i % layers])),
+                             ("torch._int_mm 17 rows",
+                              lambda i: torch._int_mm(x17, ws[i % layers]["q8"])),
+                             ("fused", fused),
+                             ("unfused", lambda i: pair(x, ws[i % layers]["q8"],
+                                                          ws[i % layers]["scale"]))):
+                t.setdefault(name, []).append(graph_us(fn, calls))
+            for v, gv in variants.items():
+                t[f"{v} {tuple(gv[:4])}"] = [graph_us(lambda i, gv=gv: fused(i, gv), calls)]
+            bound = max((K * N + 2 * M * K + 4 * N + 2 * M * N) / 3.35e12,
+                        2 * M * K * N / 1.979e15) * 1e6
+            print(f"w8a8 {where} K={K} N={N} M={M} fused {tuple(geo)}, unfused "
+                  f"{unfused_geometry(M, K, N, sms)}; bound {bound:.2f}: " + "; ".join(
+                      f"{k} {' / '.join(f'{u:.2f}' for u in v)}" for k, v in t.items()),
+                  flush=True)
+            if M in (1, 16):
+                _with_lib(W, stamped)
+                for gname, gv in (("shipped", geo), *(
+                        (v, gv) for v, gv in variants.items() if v.startswith("|max|"))):
+                    for i in range(layers + 1):
+                        fused(i, gv)
+                    print(f"  phases ({gname}), us from the first CTA's entry, median (last "
+                          "CTA): " + "; ".join(_w8a8_phases(stamped,
+                                                            -(-N // W.TILE) * gv.splits)))
+                _with_lib(W, shipped)
+        del ws, wb
 
 
 def flash_probe():

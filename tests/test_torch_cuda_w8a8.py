@@ -1,12 +1,13 @@
 """The w8a8 kernels on the card (``csrc/w8a8.cu``, ``ops/w8a8.py``).
 
-- ``quantize_act`` and ``w8a8_gemv`` against their plain versions at
-  tolerance 0 (every step exact or rounded once in the same order), 1 to 16
-  rows, bf16 and float32, at the 0.6B's product shapes.
+- ``w8a8_gemv``, the fused kernel (the activation quantize inside the
+  GEMV), against its plain version at tolerance 0 (every step exact or
+  rounded once in the same order), 1 to 16 rows, bf16 and float32, at the
+  0.6B's product shapes; two runs equal.
 - The route above 16 rows (``quantize_act``'s kernel, ``torch._int_mm``,
   the epilogue), also exact.
 - One captured graph replayed after its input was rewritten.
-- The launch counters: one each a call at 16 rows or fewer, only
+- The launch counters: one ``w8a8_gemv`` a call at 16 rows or fewer, one
   ``quantize_act`` above, none while a stream captures.
 - A CUDA tensor that neither route takes raises ValueError (no plain
   version on the card).
@@ -54,16 +55,15 @@ def test_kernels_equal_plain(K, N, dtype):
     from qwen3tts_tpu_torch.ops import w8a8 as W
 
     qw = _weight(K, N, K + N)
-    for M in (1, 2, 3, 4, 8, 16):
+    for M in (1, 2, 3, 4, 5, 8, 9, 16):
         x = _rows(M, K, getattr(torch, dtype), M)
-        xq, xs = W.quantize_act(x)
-        pq, ps = W.quantize_act_plain(x)
-        assert torch.equal(xq, pq) and torch.equal(xs, ps), (K, N, M)
-        y = W.w8a8_gemv(xq, xs, qw["q8"], qw["scale"], x.dtype)
-        ref = W.w8a8_matmul_plain(pq, ps, qw["q8"], qw["scale"], x.dtype)
+        if M > 1:
+            x[1] = 0  # the 1e-8 floor
+        y = W.w8a8_gemv(x, qw["q8"], qw["scale"], x.dtype)
+        ref = W.w8a8_gemv_plain(x, qw["q8"], qw["scale"], x.dtype)
         assert y.dtype == x.dtype and torch.equal(y, ref), (K, N, M)
         assert torch.equal(W.w8a8_matmul(x, qw), ref)
-        assert torch.equal(W.w8a8_gemv(xq, xs, qw["q8"], qw["scale"], x.dtype), y)
+        assert torch.equal(W.w8a8_gemv(x, qw["q8"], qw["scale"], x.dtype), y)
 
 
 @pytest.mark.cuda
@@ -76,6 +76,8 @@ def test_route_above_16_rows_equals_plain(M):
         qw = _weight(K, N, 3)
         x = _rows(M, K, torch.bfloat16, M)
         pq, ps = W.quantize_act_plain(x)
+        xq, xs = W.quantize_act(x)
+        assert torch.equal(xq, pq) and torch.equal(xs, ps), (K, N, M)
         before = (W.quantize_act.launches, W.w8a8_gemv.launches)
         y = W.w8a8_matmul(x[None], qw)  # leading axes kept
         assert (W.quantize_act.launches - before[0], W.w8a8_gemv.launches - before[1]) == (1, 0)
@@ -104,10 +106,8 @@ def test_captured_graph_replays_rewritten_input():
     for seed in (2, 3):
         x.copy_(_rows(4, 1024, torch.bfloat16, seed) * seed)
         graph.replay()
-        pq, ps = W.quantize_act_plain(x)
         torch.cuda.synchronize()
-        assert torch.equal(out, W.w8a8_matmul_plain(pq, ps, qw["q8"], qw["scale"],
-                                                    torch.bfloat16))
+        assert torch.equal(out, W.w8a8_gemv_plain(x, qw["q8"], qw["scale"], torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -119,7 +119,7 @@ def test_launch_counters():
     W.quantize_act.launches = W.w8a8_gemv.launches = 0
     for M in (1, 16, 17):
         W.w8a8_matmul(_rows(M, 1024, torch.float32, M), qw)
-    assert (W.quantize_act.launches, W.w8a8_gemv.launches) == (3, 2)
+    assert (W.quantize_act.launches, W.w8a8_gemv.launches) == (1, 2)
 
 
 @pytest.mark.cuda
@@ -129,7 +129,7 @@ def test_shapes_without_a_route_raise():
 
     odd = {"q8": torch.zeros((64, 30), dtype=torch.int8, device="cuda"),
            "scale": torch.ones((1, 30), device="cuda")}
-    with pytest.raises(ValueError, match="no kernel instance"):  # N % 4 != 0, 1 row
+    with pytest.raises(ValueError, match="no kernel instance"):  # N % 16 != 0, 1 row
         W.w8a8_matmul(torch.ones((1, 64), device="cuda"), odd)
     small_k = {"q8": torch.zeros((64, 32), dtype=torch.int8, device="cuda"),
                "scale": torch.ones((1, 32), device="cuda")}
@@ -137,9 +137,11 @@ def test_shapes_without_a_route_raise():
         W.w8a8_matmul(torch.ones((20, 64), device="cuda"), small_k)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         W.quantize_act(torch.ones((2, 64), device="cuda", dtype=torch.float16))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        W.w8a8_gemv(torch.ones((2, 64), device="cuda", dtype=torch.float16), small_k["q8"],
+                    small_k["scale"], torch.float16)
     with pytest.raises(ValueError, match="one device"):
-        W.w8a8_gemv(torch.zeros((1, 64), dtype=torch.int8, device="cuda"),
-                    torch.ones((1, 1), device="cuda"), small_k["q8"].cpu(),
+        W.w8a8_gemv(torch.zeros((1, 64), device="cuda"), small_k["q8"].cpu(),
                     small_k["scale"].cpu(), torch.float32)
 
 
@@ -187,6 +189,6 @@ def test_w8a8_decode_step_on_card_matches_cpu():
         launched = (W.quantize_act.launches - before[0], W.w8a8_gemv.launches - before[1])
         outs[dev] = (logits.cpu(), h.cpu(), launched)
     L = cfg.talker.num_hidden_layers
-    assert outs["cuda"][2] == (8 * L, 4 * L)  # prefill: 20 rows (torch._int_mm); step: GEMV
+    assert outs["cuda"][2] == (4 * L, 4 * L)  # prefill: 20 rows (torch._int_mm); step: GEMV
     assert (outs["cuda"][0] - outs["cpu"][0]).abs().max().item() < 5e-2
     assert (outs["cuda"][1] - outs["cpu"][1]).abs().max().item() < 5e-2

@@ -15,7 +15,11 @@
 - ``from_pretrained("random:tiny", device="cpu", quantize=...)`` in each
   w8a8 mode: streamed and non-streamed audio of the right length; a save /
   load and ``replicate_to`` keep the int8 leaves.
-- The GEMV kernel's geometry (``gemv_geometry``) at the presets' shapes.
+- ``w8a8_gemv(x, q8, scale, dtype)``, the fused kernel's wrapper (its
+  plain version here), bit-equal to JAX's ``w8a8_matmul`` at 1 to 16 rows,
+  bf16 and float32, the tiny and the 0.6B presets' shapes, with ties and an
+  all-zero row.
+- The fused GEMV kernel's geometry (``gemv_geometry``) at the presets' shapes.
 
 Inputs come from numpy.random.default_rng and go to both packages.
 """
@@ -106,8 +110,34 @@ def test_w8a8_matmul_bit_equal(dtype, M, K, N):
     (gq, gs), (wq, ws) = TQ.quantize_act(xt), JQ.quantize_act(xj)
     _bits_equal(gq, wq)
     _bits_equal(gs, ws)
-    # the GEMV's plain version on the same quantized rows
-    _bits_equal(W.w8a8_gemv(gq, gs, qt["q8"], qt["scale"], xt.dtype), want)
+    # the fused GEMV's wrapper (its plain version on CPU tensors)
+    _bits_equal(W.w8a8_gemv(xt, qt["q8"], qt["scale"], xt.dtype), want)
+
+
+# (K, N): the tiny talker's qkv, the tiny predictor's o, the tiny talker's
+# down; the 0.6B talker's qkv and down
+GEMV_SHAPES = [(64, 128), (32, 32), (128, 64), (1024, 4096), (3072, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("K,N", GEMV_SHAPES)
+def test_w8a8_gemv_bit_equal_jax(K, N, M, dtype):
+    """Row 0 holds 127 and values whose quotient by xs = 1 is a tie (round
+    half to even), row 1 is all zero (the 1e-8 floor)."""
+    rng = np.random.default_rng(K * 7 + N + M)
+    x = (rng.standard_normal((M, K)) * 3.0).astype(np.float32)
+    x[0, :8] = [127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -127.0]
+    if M > 1:
+        x[1] = 0.0
+    w = (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+    xt, xj = _pair(x, dtype)
+    qt = TQ.quantize_tensor(torch.from_numpy(w), "w8a8")
+    want = JQ.w8a8_matmul(xj, JQ.quantize_tensor(jnp.asarray(w), "w8a8"))
+    got = W.w8a8_gemv(xt, qt["q8"], qt["scale"], xt.dtype)
+    assert got.dtype == xt.dtype and got.shape == (M, N)
+    _bits_equal(got, want)
+    _bits_equal(W.w8a8_gemv_plain(xt, qt["q8"], qt["scale"], xt.dtype), want)
 
 
 def test_w8a8_matmul_keeps_leading_axes():
@@ -234,27 +264,50 @@ def test_w8a8_model_saves_loads_and_replicates(tmp_path):
                            m.params["predictor"]["lm_heads"]["q"])
 
 
-@pytest.mark.parametrize("M,K,N,want", [
-    (1, 1024, 4096, (1, 8, 16)),  # 0.6B talker qkv, B 1
-    (1, 1024, 1024, (1, 4, 16)),  # N 1024: 8 column tiles at 4 bytes a lane
-    (1, 1024, 6144, (1, 16, 16)),  # gate-up
-    (4, 2048, 1024, (4, 4, 16)),
-    (16, 1024, 4096, (16, 4, 8)),
-    (16, 3072, 1024, (16, 4, 16)),
-    (3, 2048, 4096, (4, 8, 16)),  # 1.7B talker qkv
+G = W.GemvGeometry
+
+
+@pytest.mark.parametrize("M,K,N,elt,want", [
+    (1, 1024, 4096, 2, G(1, False, 4, 256, 256, 1, True)),  # 0.6B talker qkv, B 1: 32 x 4
+    (1, 2048, 1024, 2, G(1, False, 16, 128, 128, 1, True)),  # N 1024: 8 tiles x 16 splits
+    (1, 1024, 6144, 2, G(1, False, 2, 512, 256, 2, True)),  # gate-up: 48 tiles x 2
+    (4, 3072, 1024, 2, G(8, True, 16, 192, 192, 1, False)),  # down, B 4: x exchanged
+    (16, 1024, 4096, 2, G(16, True, 4, 256, 256, 1, False)),  # mma from MMA_FROM_ROWS rows
+    (16, 2048, 4096, 2, G(16, True, 4, 512, 256, 1, False)),  # 2 of 128 KB smem a CTA: ring 1
+    (16, 1024, 1024, 4, G(16, True, 16, 64, 64, 1, False)),  # predictor o, float32
+    (3, 2048, 4096, 2, G(8, True, 4, 512, 256, 2, True)),  # 1.7B talker qkv
+    (8, 32, 32, 4, G(8, True, 1, 32, 32, 1, False)),  # tiny predictor o: no split
+    (16, 2048, 12288, 4, G(16, True, 3, 704, 256, 1, False)),  # x's slice forces 3 splits
 ])
-def test_gemv_geometry(M, K, N, want):
-    mt, vec, splits = W.gemv_geometry(M, K, N, 132)
-    assert (mt, vec, splits) == want
-    assert mt >= M and mt * vec <= 64 and N % vec == 0
-    assert -(-N // (32 * vec)) * splits <= 2 * 132 and K // splits >= W.MIN_SPLIT_ROWS
+def test_gemv_geometry(M, K, N, elt, want):
+    geo = W.gemv_geometry(M, K, N, 132, elt)
+    assert geo == want
+    assert geo.mt >= M and (geo.mt >= 8 if geo.mma else geo.mt < 2 * M)
+    assert geo.kc % W.STEP == 0 and (geo.splits - 1) * geo.kc < K <= geo.splits * geo.kc
+    assert 1 <= geo.splits <= W.MAX_SPLITS
+    assert K * (M * elt + geo.mt) <= geo.splits * W.SLICE_BYTES
+    assert geo.ring * geo.stage_rows * W.TILE <= W.RING_BYTES
+    assert geo.stage_rows % W.STEP == 0 and geo.stage_rows <= min(geo.kc, W.MAX_STAGE_ROWS)
+    assert geo.whole == (geo.splits > 1 and M * K * elt <= W.WHOLE_ROW_BYTES)
+    smem = W.gemv_smem_bytes(geo.mt, M, elt, geo.kc, geo.stage_rows, geo.ring, geo.splits)
+    assert geo.ring == 1 or 4 * -(-N // W.TILE) * geo.splits <= 3 * 132 or (
+        smem <= W.CTA_SMEM_BYTES)
+    forced = -(-K * (M * elt + geo.mt) // W.SLICE_BYTES)  # splits the slice of x needs
+    assert -(-N // W.TILE) * geo.splits <= 132 or geo.splits == forced
+
+
+def test_gemv_geometry_refuses_a_k_no_split_holds():
+    assert W.gemv_geometry(16, 16384, 1024, 132, 4) is None
+    assert W.gemv_geometry(16, 8192, 1024, 132, 4) is not None
 
 
 def test_w8a8_gemv_rejects_bad_shapes():
-    xq, xs = torch.zeros((2, 8), dtype=torch.int8), torch.ones((2, 1))
+    x = torch.zeros((2, 8))
     with pytest.raises(ValueError, match="q8 \\[K, N\\]"):
-        W.w8a8_gemv(xq, xs, torch.zeros((9, 4), dtype=torch.int8), torch.ones((1, 4)),
-                    torch.float32)
+        W.w8a8_gemv(x, torch.zeros((9, 4), dtype=torch.int8), torch.ones((1, 4)), torch.float32)
+    with pytest.raises(ValueError, match="x \\[M, K\\]"):
+        W.w8a8_gemv(torch.zeros((1, 2, 8)), torch.zeros((8, 4), dtype=torch.int8),
+                    torch.ones((1, 4)), torch.float32)
     with pytest.raises(ValueError, match=r"x \[..., 8\]"):
         W.w8a8_matmul(torch.zeros((2, 7)), {"q8": torch.zeros((8, 4), dtype=torch.int8),
                                             "scale": torch.ones((1, 4))})
