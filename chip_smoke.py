@@ -1624,16 +1624,22 @@ def _per_step(want: dict, B: int) -> dict:
 def _recording(engine):
     """``engine`` with captured chunks of its own for the block
     (``ChunkGraphs(record=True)``): its requests capture every chunk they
-    replay, and each replay is logged.  The engine's graphs come back after,
-    so no other request carries the recording."""
+    replay, and each replay is logged.  The recording turns the tracer on
+    (its steps' stamps go to ``TRACE``).  The engine's graphs come back
+    after, and the tracer's state with them, so no other request carries
+    the recording."""
     from qwen3tts_tpu_torch.runtime.graphs import ChunkGraphs
+    from qwen3tts_tpu_torch.utils.timing import TRACE
 
-    saved = engine.graphs
+    saved, was_on = engine.graphs, TRACE.on
     engine.graphs = ChunkGraphs(engine, record=True)
     try:
         yield engine.graphs
     finally:
         engine.graphs = saved
+        if not was_on:
+            TRACE.disable()
+            TRACE.clear()
 
 
 def _steps_run(graphs) -> int:
@@ -3831,10 +3837,14 @@ def _demo_requests(url: str, engine, body: dict, card: str) -> dict:
     step must hold flash-decode 28 and no other counted kernel, the eager
     launches must be one step's for each capture, and a warm request's
     replays must have run the steps its chunks were dispatched for
-    (``_chunk_steps``; the first request's also ran the warm-up's)."""
+    (``_chunk_steps``; the first request's also ran the warm-up's).  Each
+    request also reports its replays' stamped device parts (``TRACE``'s
+    ``predictor_frame``, ``talker_step``, ``step`` and ``codec_stream`` ms)
+    and their share of the replays' CUDA-event ms."""
     import base64
 
     from qwen3tts_tpu_torch.audio.wav import read_wav
+    from qwen3tts_tpu_torch.utils.timing import TRACE
 
     want = {k: 28 if k == "flash_decode" else 0 for k in KERNELS}
     res = {"warm": []}
@@ -3842,6 +3852,7 @@ def _demo_requests(url: str, engine, body: dict, card: str) -> dict:
         for i in range(1 + DEMO_WARM):
             what = "first streamed request (captures)" if i == 0 else f"warm request {i}"
             graphs.log.clear()
+            TRACE.clear()
             captures = graphs.captures
             torch.cuda.synchronize()
             _zero_counts()  # the main path's run starts here
@@ -3859,6 +3870,10 @@ def _demo_requests(url: str, engine, body: dict, card: str) -> dict:
                     f"{what}: {steps} steps replayed for {out['frames']} frames, launches "
                     f"{replayed} from the graphs and {eager} eagerly ({warm} captures), "
                     f"captured steps holding {bad[:1]}; want flash_decode 28 a step")
+            stamped = {k: v["total_ms"] for k, v in TRACE.summary()["device"].items()}
+            out.update(stamped_device_ms=stamped,
+                       stamped_share=(stamped.get("step", 0) + stamped.get("codec_stream", 0))
+                       / device_ms)
             out.update(steps=steps, request_steps=want_steps, captures=warm,
                        replays=len(graphs.log),
                        launches={k: eager[k] + replayed[k] for k in KERNELS},

@@ -33,6 +33,12 @@ bucket up front.  On the CPU nothing is captured.  With
 ``QWEN3TTS_PROFILE_DIR`` set, a generation is traced by ``torch.profiler``
 and runs its chunks eagerly (``Engine.eager``): the profiler is never
 active around a graph replay.
+
+While the tracer is on (``utils/timing.py:TRACE``) each generation call is
+one request (``one_request``), with spans ``prompt`` (the prompt build),
+``warmup`` (the capture check and any capture) and ``vocode`` (a full codec
+decode after a non-streamed generation, one a row in a batch), beside the
+loops' own.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from ..models.predictor import SamplingPolicy
 from ..ops.quant import quantize_bundle
 from ..runtime import loops
 from ..runtime.engine import Engine, GenerationPolicy, bucket_for
-from ..utils.timing import device_trace
+from ..utils.timing import TRACE, device_trace, one_request
 from .prompt import PromptBuilder
 from .tokenizer import TextTokenizer
 
@@ -237,7 +243,13 @@ class FasterQwen3TTS:
     def _prepare_clone(self, text, ref_audio, ref_text, language, xvec_only,
                        non_streaming_mode, append_silence, instruct):
         """(talker_input_embeds, trailing, tts_pad_embed, ref_codes or None),
-        host numpy float32: the loops upload them."""
+        host numpy float32: the loops upload them.  The ``prompt`` span."""
+        with TRACE.span("prompt"):
+            return self._clone_prompt(text, ref_audio, ref_text, language, xvec_only,
+                                      non_streaming_mode, append_silence, instruct)
+
+    def _clone_prompt(self, text, ref_audio, ref_text, language, xvec_only,
+                      non_streaming_mode, append_silence, instruct):
         input_ids = self.tokenizer.build_assistant_ids(text)
         instruct_ids = self.tokenizer.build_instruct_ids(instruct) if instruct else None
         vcp = self._voice_prompt(ref_audio, ref_text, xvec_only, append_silence)
@@ -254,11 +266,12 @@ class FasterQwen3TTS:
         return embeds, trailing, tpe, (vcp["ref_code"] if not xvec_only else None)
 
     def _prepare_custom(self, text, language, speaker, instruct):
-        input_ids = self.tokenizer.build_assistant_ids(text)
-        instruct_ids = self.tokenizer.build_instruct_ids(instruct) if instruct else None
-        return self.prompt_builder.build(
-            input_ids=input_ids, language=language, speaker=speaker,
-            non_streaming_mode=False, instruct_ids=instruct_ids)
+        with TRACE.span("prompt"):
+            input_ids = self.tokenizer.build_assistant_ids(text)
+            instruct_ids = self.tokenizer.build_instruct_ids(instruct) if instruct else None
+            return self.prompt_builder.build(
+                input_ids=input_ids, language=language, speaker=speaker,
+                non_streaming_mode=False, instruct_ids=instruct_ids)
 
     def _policies(self, temperature, top_k, top_p, do_sample, repetition_penalty,
                   min_new_tokens):
@@ -273,19 +286,21 @@ class FasterQwen3TTS:
     def _warmup(self, prefill_len: int, tth_len: int, policy, pred_policy,
                 chunk_sizes=(8, 16)):
         """Capture the engine's chunk graphs before its first generation."""
-        if self.engine.warmed_up:
-            return
-        logger.info("Capturing the decode chunks as CUDA graphs (one-time)...")
-        self.engine.warmup(prefill_len, tth_len, policy, pred_policy, chunk_sizes,
-                           vocoder=self.vocoder)
+        with TRACE.span("warmup"):
+            if self.engine.warmed_up:
+                return
+            logger.info("Capturing the decode chunks as CUDA graphs (one-time)...")
+            self.engine.warmup(prefill_len, tth_len, policy, pred_policy, chunk_sizes,
+                               vocoder=self.vocoder)
 
     def warmup_all(self, chunk_sizes=(8, 16), max_prefill: Optional[int] = None) -> float:
         """Capture every (trailing-text bucket x chunk size) chunk graph,
         with and without the vocoder, so that no request captures
         mid-stream (servers call this at startup).  Returns seconds."""
         pol, ppol = self._policies(0.9, 50, 1.0, True, 1.05, 2)
-        dt = self.engine.warmup_all(pol, ppol, chunk_sizes, max_prefill=max_prefill,
-                                    vocoder=self.vocoder)
+        with TRACE.span("warmup"):
+            dt = self.engine.warmup_all(pol, ppol, chunk_sizes, max_prefill=max_prefill,
+                                        vocoder=self.vocoder)
         logger.info("warmup_all finished in %.1fs", dt)
         return dt
 
@@ -306,16 +321,21 @@ class FasterQwen3TTS:
         if codec_ids is None:
             logger.warning("Generation returned no tokens")
             return [np.zeros(1, np.float32)], self.sample_rate
-        if ref_codes is not None and len(ref_codes):
-            wav = self.vocoder.decode(np.concatenate([np.asarray(ref_codes), codec_ids]))
-            wav = wav[len(ref_codes) * self.vocoder.spf:]
-        else:
-            wav = self.vocoder.decode(codec_ids)
+        with TRACE.span("vocode"):
+            wav = self._decode(codec_ids, ref_codes)
         dur = timing["steps"] / self.cfg.codec.frame_rate
         total = timing["prefill_ms"] / 1000 + timing["decode_s"]
         logger.info("Generated %.2fs audio in %.2fs (%.1fms/step, RTF: %.2f)", dur, total,
                     timing["ms_per_step"], dur / total if total > 0 else 0.0)
         return [wav], self.sample_rate
+
+    def _decode(self, codec_ids: np.ndarray, ref_codes) -> np.ndarray:
+        """The waveform of ``codec_ids``; after an ICL prompt the decode of
+        reference + generated frames, the reference's samples cut off."""
+        if ref_codes is not None and len(ref_codes):
+            wav = self.vocoder.decode(np.concatenate([np.asarray(ref_codes), codec_ids]))
+            return wav[len(ref_codes) * self.vocoder.spf:]
+        return self.vocoder.decode(codec_ids)
 
     def _generate(self, embeds, trailing, tpe, ref_codes, pol, ppol, max_new_tokens,
                   parity_mode: bool = False):
@@ -333,6 +353,7 @@ class FasterQwen3TTS:
                                     pred_policy=ppol)
         return self._finish_audio(codec_ids, ref_codes, timing)
 
+    @one_request
     def generate_voice_clone(
         self,
         text: str,
@@ -380,26 +401,28 @@ class FasterQwen3TTS:
         at their common bucket width: (embeds [B, T, H] left-padded, trailing
         [B, Tt, H] padded with each row's tts_pad embedding, tpe [B, 1, H],
         pads [B], tth_lens [B], the reference's codes or None)."""
-        rows = [self._prepare_clone(t, ref_audio, ref_text, language, xvec_only,
-                                    non_streaming_mode, append_silence, instruct)
-                for t in texts]
-        B, H = len(rows), self.cfg.talker.hidden_size
-        T = bucket_for(max(r[0].shape[1] for r in rows))
-        Tt = max(max(r[1].shape[1] for r in rows), 1)
-        embeds = np.zeros((B, T, H), np.float32)
-        trailing = np.zeros((B, Tt, H), np.float32)
-        tpe = np.zeros((B, 1, H), np.float32)
-        pads = np.zeros((B,), np.int64)
-        tth_lens = np.zeros((B,), np.int64)
-        for b, (e, t, p, _) in enumerate(rows):
-            pads[b] = T - e.shape[1]
-            embeds[b, pads[b]:] = e[0]
-            trailing[b, : t.shape[1]] = t[0]
-            trailing[b, t.shape[1]:] = p[0]
-            tth_lens[b] = t.shape[1]
-            tpe[b] = p[0]
-        return embeds, trailing, tpe, pads, tth_lens, rows[0][3]
+        with TRACE.span("prompt"):
+            rows = [self._clone_prompt(t, ref_audio, ref_text, language, xvec_only,
+                                       non_streaming_mode, append_silence, instruct)
+                    for t in texts]
+            B, H = len(rows), self.cfg.talker.hidden_size
+            T = bucket_for(max(r[0].shape[1] for r in rows))
+            Tt = max(max(r[1].shape[1] for r in rows), 1)
+            embeds = np.zeros((B, T, H), np.float32)
+            trailing = np.zeros((B, Tt, H), np.float32)
+            tpe = np.zeros((B, 1, H), np.float32)
+            pads = np.zeros((B,), np.int64)
+            tth_lens = np.zeros((B,), np.int64)
+            for b, (e, t, p, _) in enumerate(rows):
+                pads[b] = T - e.shape[1]
+                embeds[b, pads[b]:] = e[0]
+                trailing[b, : t.shape[1]] = t[0]
+                trailing[b, t.shape[1]:] = p[0]
+                tth_lens[b] = t.shape[1]
+                tpe[b] = p[0]
+            return embeds, trailing, tpe, pads, tth_lens, rows[0][3]
 
+    @one_request
     def generate_voice_clone_batch(
         self,
         texts: list,
@@ -439,17 +462,16 @@ class FasterQwen3TTS:
         for ids in ids_rows:
             if ids.shape[0] == 0:
                 wavs.append(np.zeros(1, np.float32))
-            elif ref_codes is not None and len(ref_codes):
-                wav = self.vocoder.decode(np.concatenate([np.asarray(ref_codes), ids]))
-                wavs.append(wav[len(ref_codes) * self.vocoder.spf:])
-            else:
-                wavs.append(self.vocoder.decode(ids))
+                continue
+            with TRACE.span("vocode"):
+                wavs.append(self._decode(ids, ref_codes))
         audio_s = sum(len(w) for w in wavs) / self.sample_rate
         wall = timing["prefill_ms"] / 1000 + timing["decode_s"]
         logger.info("Batch %d: %.2fs audio in %.2fs (throughput RTF %.2f)", len(texts), audio_s,
                     wall, audio_s / wall if wall else 0.0)
         return wavs, self.sample_rate
 
+    @one_request
     def generate_voice_clone_streaming(
         self,
         text: str,
@@ -565,6 +587,7 @@ class FasterQwen3TTS:
         self._validate_languages([language])
         return self._prepare_custom(text, language, None, instruct)
 
+    @one_request
     def generate_custom_voice(
         self,
         text: str,
@@ -585,6 +608,7 @@ class FasterQwen3TTS:
                                    repetition_penalty, min_new_tokens)
         return self._generate(*prompt, None, pol, ppol, max_new_tokens)
 
+    @one_request
     def generate_custom_voice_streaming(
         self,
         text: str,
@@ -605,6 +629,7 @@ class FasterQwen3TTS:
                                    repetition_penalty, min_new_tokens)
         yield from self._stream_audio(*prompt, None, pol, ppol, max_new_tokens, chunk_size)
 
+    @one_request
     def generate_voice_design(
         self,
         text: str,
@@ -624,6 +649,7 @@ class FasterQwen3TTS:
                                    repetition_penalty, min_new_tokens)
         return self._generate(*prompt, None, pol, ppol, max_new_tokens)
 
+    @one_request
     def generate_voice_design_streaming(
         self,
         text: str,

@@ -10,7 +10,11 @@ N`` serves them through one N-row ``ContinuousBatcher`` on the card, where
 concurrent requests join the running batch, stream independently and retire
 at their own EOS; ``--replicas R`` puts one batcher on each of R cards
 (``ReplicaPool``).  The model takes the card unless ``--device cpu`` asks
-for the CPU; with no card and no ``--device`` it raises.
+for the CPU; with no card and no ``--device`` it raises.  ``--trace`` turns
+the port's tracer on (``utils/timing.py:TRACE``): ``/health`` then shows
+the last minute's spans by name (count, median, largest and total ms: the
+prompt builds, the batcher's set-ups, joins, dispatches, fetches and emits,
+the loops' chunks) and the tracer's counters.
 
     python -m qwen3tts_tpu_torch.apps.openai_server --model random:qwen3-tts-0.6b \
         --continuous-batching 4
@@ -22,6 +26,7 @@ import json
 import logging
 import sys
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Dict, Optional
@@ -31,10 +36,12 @@ import numpy as np
 from ..audio import mp3
 from ..audio.wav import to_pcm16, wav_header
 from ..ops.quant import MODES as QUANT_MODES
+from ..utils.timing import TRACE
 
 logger = logging.getLogger("qwen3tts_tpu_torch.openai_server")
 
 MAX_INPUT_CHARS = 4096
+TRACE_WINDOW_S = 60.0  # the spans /health summarises, while tracing
 
 
 class VoiceRegistry:
@@ -120,6 +127,8 @@ def make_handler(state: TTSState):
                 }
                 if state.batcher is not None:
                     payload["scheduler"] = state.batcher.stats
+                if TRACE.on:
+                    payload["trace"] = TRACE.summary(lo=time.perf_counter() - TRACE_WINDOW_S)
                 body = json.dumps(payload).encode()
                 self.send_response(200)
                 self.send_header("Content-Type", "application/json")
@@ -309,7 +318,12 @@ def main(argv=None):
                    help="comma-separated prefill buckets the batched engine "
                         "warms at startup (continuous-batching mode); cover "
                         "your real prompt sizes")
+    p.add_argument("--trace", action="store_true",
+                   help="record the tracer's spans; /health shows the last "
+                        "minute's by name")
     args = p.parse_args(argv)
+    if args.trace:
+        TRACE.enable()
 
     from ..api.model import FasterQwen3TTS
 

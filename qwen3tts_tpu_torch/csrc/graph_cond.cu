@@ -15,7 +15,13 @@
 //
 // qwen3tts_graph_kernels counts the kernel nodes of a graph by the name of
 // their kernel (what a replay of the graph launches), so that a caller can
-// walk a captured graph and the bodies of its conditional nodes.
+// walk a captured graph and the bodies of its conditional nodes.  It skips
+// the stamp kernel, so that a graph counts the same with stamps or without.
+//
+// qwen3tts_stamp launches one thread that writes the device's global
+// nanosecond timer (%globaltimer) into *slot, on `stream` (captured into a
+// graph when the stream captures); qwen3tts_stamp_clear zeroes `bytes` of a
+// stamp buffer with a memset (a memset node, not a kernel, in a graph).
 //
 // Returns 0 or a cudaError_t; -1 when `parent` is not capturing; 10000 plus
 // a CUresult when the driver fails on a graph; 20000 plus the number of a
@@ -33,7 +39,26 @@ __global__ void set_condition(cudaGraphConditionalHandle handle, const bool* pre
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
 }
 
+// its name is what the graph walk skips (kStampKernel)
+__global__ void qwen3tts_stamp_kernel(unsigned long long* slot) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  *slot = t;
+}
+
+constexpr const char* kStampKernel = "qwen3tts_stamp_kernel";
+
 }  // namespace
+
+extern "C" int qwen3tts_stamp(void* stream, void* slot) {
+  qwen3tts_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(slot));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qwen3tts_stamp_clear(void* stream, void* buf, size_t bytes) {
+  return static_cast<int>(cudaMemsetAsync(buf, 0, bytes, static_cast<cudaStream_t>(stream)));
+}
 
 extern "C" int qwen3tts_cond_stream(void** out) {
   cudaStream_t s = nullptr;
@@ -153,6 +178,7 @@ int walk(CUgraph graph, const char* const* needles, int n_needles, long long* co
       const char* name = nullptr;
       if (r == CUDA_SUCCESS) r = p.func ? d.func_name(&name, p.func) : d.kernel_name(&name, p.kern);
       if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
+      if (std::strstr(name, kStampKernel) != nullptr) continue;
       ++counts[n_needles];
       for (int i = 0; i < n_needles; ++i) {
         if (std::strstr(name, needles[i]) != nullptr) {
@@ -167,7 +193,8 @@ int walk(CUgraph graph, const char* const* needles, int n_needles, long long* co
 
 }  // namespace
 
-// Counts the kernel nodes of `graph`, its child graphs' included: counts[i]
+// Counts the kernel nodes of `graph`, its child graphs' included, but the
+// stamp kernel's: counts[i]
 // those whose kernel's (mangled) name contains needles[i], the first that
 // matches; counts[n_needles] all of them.  The graph's conditional nodes,
 // whose bodies are not walked, go to `conds` (at most *n_conds of them);

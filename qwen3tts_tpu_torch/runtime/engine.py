@@ -282,6 +282,7 @@ class Engine:
         self._kv_lock = threading.Lock()
         self.warmed_up = False
         self._eager_depth = 0  # > 0 inside eager(): no chunk is replayed
+        self._stamps = None  # a recording capture's stamp buffer while it captures
 
     @contextlib.contextmanager
     def eager(self):
@@ -295,6 +296,19 @@ class Engine:
             yield self
         finally:
             self._eager_depth -= 1
+
+    @contextlib.contextmanager
+    def _part(self, name: str):
+        """The step part ``name``: a ``record_function`` range and, while a
+        recording ``ChunkGraphs`` captures, a device timestamp at each end
+        that its layout keeps (``runtime/graphs.py:_Stamps``)."""
+        stamps = self._stamps
+        with record_function(name):
+            if stamps is not None:
+                stamps.mark(name, 0)
+            yield
+            if stamps is not None:
+                stamps.mark(name, 1)
 
     def _has_graphs(self, kv) -> bool:
         return self.graphs is not None and self.graphs.has_graphs(kv)
@@ -402,7 +416,7 @@ class Engine:
 
         tok_embed = talker_lib.embed_codec(self.talker_params, token, self.group)[:, None, :]
         pred_input = torch.cat([state["past_hidden"], tok_embed], dim=1)
-        with record_function("predictor_frame"):
+        with self._part("predictor_frame"):
             cb_tokens, cb_embed_sum = predictor_lib.predict_frame(
                 self.predictor_params, self.pred_cfg, pred_input, gen,
                 state["pred_policy"].static, layers=self._pred_layers,
@@ -418,7 +432,7 @@ class Engine:
         row_tth = tth[torch.arange(B, device=self.device), idx][:, None, :]
         x = x + torch.where((gs < tth_len)[:, None, None], row_tth, tpe)
 
-        with record_function("talker_step"):
+        with self._part("talker_step"):
             hidden, _ = talker_lib.decode_step(
                 self.talker_params, tcfg, x, state["pos"], state["pad_count"],
                 state["kv"], use_flash=self.use_flash_decode, layers=self._talker_layers,
@@ -547,7 +561,7 @@ class Engine:
         """Row 0's frames [1, n, 16] (every row's with ``full_batch``)
         through the streaming codec: (audio [n*spf] ([B, n*spf]), float32
         or with ``pcm16`` int16 PCM, voc_state')."""
-        with record_function("codec_stream"):
+        with self._part("codec_stream"):
             audio, voc_state = codec_lib.decode_stream(
                 vocoder.params, vocoder.cfg, voc_state, frames if full_batch else frames[:1])
         if not full_batch:

@@ -48,7 +48,18 @@ build its nodes raises: no chunk is captured without them.
 ``ChunkGraphs(engine, record=True)`` is for measurement: its graphs keep
 their ``cudaGraph_t`` and the bodies of their conditional nodes, so that
 ``kernel_nodes`` can walk what a replay launches, and ``log`` takes every
-replay (its graph, a copy of its ``n``, CUDA events around it).
+replay (its graph, a copy of its ``n``, CUDA events around it).  It turns
+the tracer on (``utils/timing.py:TRACE``), and its captured steps carry
+device timestamps: a one-thread kernel
+(``csrc/graph_cond.cu:qwen3tts_stamp``) writes ``%globaltimer`` into a slot
+of the graph's stamp buffer where the predictor frame starts, where the
+talker step starts and ends and where the step ends, inside the step's
+conditional body, and around the codec in the graphs that have it
+(``Engine._part`` places them).  The buffer is zeroed in the graph's
+preamble, so a step that did not run reads 0; after each replay a device
+copy of it goes to the tracer with the replay's ``n``.  The kernel walk skips the stamps, so a
+graph counts the same nodes with them or without.  An unrecorded graph has
+no stamps.
 
 Sampling draws from a generator the graphs are registered with; each replay
 takes the request's generator's seed and offset and hands the advanced
@@ -64,12 +75,14 @@ import contextlib
 import ctypes
 import functools
 import gc
+import time
 import weakref
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops import cuda_build
+from ..utils.timing import TRACE, stamp_slot, stamp_slots
 from .engine import STATE_TENSORS
 
 
@@ -94,14 +107,63 @@ def _cond_lib() -> ctypes.CDLL:
     lib.qwen3tts_cond_begin.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.POINTER(ctypes.c_void_p)] * 2
     lib.qwen3tts_cond_end.argtypes = [ctypes.c_void_p]
+    lib.qwen3tts_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.qwen3tts_stamp_clear.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t]
     lib.qwen3tts_graph_kernels.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_size_t)]
     for fn in (lib.qwen3tts_cond_stream, lib.qwen3tts_cond_begin, lib.qwen3tts_cond_end,
-               lib.qwen3tts_graph_kernels):
+               lib.qwen3tts_graph_kernels, lib.qwen3tts_stamp, lib.qwen3tts_stamp_clear):
         fn.restype = ctypes.c_int
     return lib
+
+
+def _stamp(slot_ptr: int, device: torch.device) -> None:
+    """``%globaltimer`` into the int64 at ``slot_ptr``, on the current stream."""
+    _check(_cond_lib().qwen3tts_stamp(torch.cuda.current_stream(device).cuda_stream, slot_ptr),
+           "launch a stamp")
+
+
+class _DeviceClock:
+    """The device timer read against ``time.perf_counter``: a stamp
+    between two synchronises, placed at the middle of the host's two
+    readings."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.buf = torch.zeros((1,), dtype=torch.int64, device=device)
+
+    def __call__(self) -> Tuple[float, int]:
+        torch.cuda.synchronize(self.device)
+        h0 = time.perf_counter()
+        _stamp(self.buf.data_ptr(), self.device)
+        torch.cuda.synchronize(self.device)
+        h1 = time.perf_counter()
+        return (h0 + h1) / 2, int(self.buf.item())
+
+
+class _Stamps:
+    """A recording capture's stamp buffer, in the tracer's layout
+    (``utils/timing.py:STEP_STAMPS``).  ``mark(part, edge)`` captures a
+    stamp for the ``edge`` (0 start, 1 end) of ``part`` in step ``step``
+    where the layout has one, and nothing elsewhere."""
+
+    def __init__(self, chunk: int, codec: bool, device: torch.device):
+        self.chunk, self.device = chunk, device
+        self.buf = torch.zeros((stamp_slots(chunk, codec),), dtype=torch.int64, device=device)
+        self.step = 0
+
+    def clear(self) -> None:
+        _check(_cond_lib().qwen3tts_stamp_clear(
+            torch.cuda.current_stream(self.device).cuda_stream, self.buf.data_ptr(),
+            self.buf.numel() * self.buf.element_size()), "clear the stamps")
+
+    def mark(self, part: str, edge: int) -> None:
+        slot = stamp_slot(part, edge, self.step, self.chunk)
+        if slot is None:
+            return
+        _stamp(self.buf.data_ptr() + slot * self.buf.element_size(), self.device)
 
 
 def graph_kernels(graph: int, needles: Sequence[str]) -> Tuple[List[int], List[int]]:
@@ -185,6 +247,7 @@ class _Graph(NamedTuple):
     done: torch.Tensor
     audio: Optional[torch.Tensor]
     bodies: Tuple = ()  # (IF node, its body graph) a step, with record=True
+    stamps: Optional[_Stamps] = None  # with record=True
 
 
 class _Slot:
@@ -207,6 +270,8 @@ class ChunkGraphs:
         self.record = record
         self.log: List[tuple] = []  # with record: (_Graph, n, start, end) a replay
         dev = engine.device
+        if record:
+            TRACE.enable(_DeviceClock(dev))
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(dev)
         self.generator = torch.Generator(device=dev)
@@ -289,8 +354,9 @@ class ChunkGraphs:
                id(vocoder) if vocoder is not None else None, pcm16, full_batch)
         g = slot.graphs.get(key)
         if g is None:
-            g = slot.graphs[key] = self._capture(slot, state, tth_s, tth_len_s, tpe_s,
-                                                 chunk, vocoder, voc_s, pcm16, full_batch)
+            with TRACE.span("capture"):
+                g = slot.graphs[key] = self._capture(slot, state, tth_s, tth_len_s, tpe_s,
+                                                     chunk, vocoder, voc_s, pcm16, full_batch)
         src = state["generator"] if state["generator"] is not None else self._default_gen
         self.generator.set_state(src.get_state())
         if self.record:
@@ -298,7 +364,10 @@ class ChunkGraphs:
             start.record()
             g.graph.replay()
             end.record()
-            self.log.append((g, g.n.clone(), start, end))
+            n = g.n.clone()
+            self.log.append((g, n, start, end))
+            if g.stamps is not None:
+                TRACE.device_replay(g.stamps.buf.clone(), n, chunk, vocoder is not None)
         else:
             g.graph.replay()
         src.set_state(self.generator.get_state())
@@ -335,8 +404,11 @@ class ChunkGraphs:
         static = {**state, "generator": self.generator}
         limit = eng.max_seq_len - 1
         bodies = [] if self.record else None
+        stamps = _Stamps(chunk, vocoder is not None, dev) if self.record else None
 
         def body():
+            if stamps is not None:
+                stamps.clear()
             frames.zero_()
             n.zero_()
             lens.zero_()
@@ -344,7 +416,11 @@ class ChunkGraphs:
                 # the JAX loop's cond, on the device: some row live, room left
                 live = (~static["done"]).any() & (static["pos"][0] < limit)
                 with if_node(live, bodies):
+                    if stamps is not None:
+                        stamps.step = i
                     eng._chunk_step(static, tth, tth_len, tpe, frames, lens, n, i)
+                    if stamps is not None:
+                        stamps.mark("step", 1)
             done.copy_(static["done"])
             if vocoder is not None:
                 a, new = eng._vocode(vocoder, voc, frames, pcm16, full_batch)
@@ -355,13 +431,17 @@ class ChunkGraphs:
         graph.register_generator_state(self.generator)
         # thread-local capture: another thread's CUDA calls (a server's
         # speaker encoder) neither break nor are refused by this capture
-        with _no_gc(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                        capture_error_mode="thread_local"):
-            body()
+        eng._stamps = stamps
+        try:
+            with _no_gc(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                            capture_error_mode="thread_local"):
+                body()
+        finally:
+            eng._stamps = None
         if self.record:
             graph.instantiate()
         self.captures += 1
-        return _Graph(graph, frames, n, lens, done, audio, tuple(bodies or ()))
+        return _Graph(graph, frames, n, lens, done, audio, tuple(bodies or ()), stamps)
 
     def kernel_nodes(self, g: _Graph, needles: Sequence[str]
                      ) -> Tuple[List[int], List[List[int]]]:

@@ -24,10 +24,13 @@ when a streaming generator is closed early.  Timings bracket work that ends
 in a device synchronize, so they are wall times of finished work, except
 the audio stream's ``prefill_ms``, which is the host's dispatch of the
 prompt (its device time lands in the first chunk, as in the JAX loop).
+They are ``time.perf_counter`` intervals, and while the tracer is on
+(``utils/timing.py:TRACE``) the same intervals are its spans: ``prefill``,
+``decode`` (a streaming chunk, or the whole chunk loop), and inside it
+``dispatch`` (a chunk enqueued) and ``read_wait`` (``HostCopy.get``).
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import Dict, Generator, Optional, Tuple
 
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from ..models.predictor import SamplingPolicy
+from ..utils.timing import TRACE
 from .engine import TTH_BUCKETS, Engine, GenerationPolicy, bucket_for, upload
 
 Frames = np.ndarray  # [steps, 16] int32
@@ -81,9 +85,10 @@ class HostCopy:
             self.event.record()
 
     def get(self):
-        if self.event is not None:
-            self.event.synchronize()
-        return [h.numpy() for h in self.host]
+        with TRACE.span("read_wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return [h.numpy() for h in self.host]
 
 
 def _chunk_iter(engine: Engine, state: Dict, tth, tth_len, tpe, chunk_size: int,
@@ -104,15 +109,16 @@ def _chunk_iter(engine: Engine, state: Dict, tth, tth_len, tpe, chunk_size: int,
 
     def dispatch():
         nonlocal planned, voc_state
-        size = sizes[min(len(q) + n_read, len(sizes) - 1)]
-        before = state["pos_host"]
-        if vocoder is None:
-            _, *outs = engine.decode_chunk(state, tth, tth_len, tpe, size)
-        else:
-            chunk = engine.chunk_vocode_batched if full_batch else engine.chunk_vocode
-            _, *outs, voc_state = chunk(vocoder, state, tth, tth_len, tpe, size, voc_state)
-        q.append(HostCopy(outs))
-        planned += state["pos_host"] - before
+        with TRACE.span("dispatch"):
+            size = sizes[min(len(q) + n_read, len(sizes) - 1)]
+            before = state["pos_host"]
+            if vocoder is None:
+                _, *outs = engine.decode_chunk(state, tth, tth_len, tpe, size)
+            else:
+                chunk = engine.chunk_vocode_batched if full_batch else engine.chunk_vocode
+                _, *outs, voc_state = chunk(vocoder, state, tth, tth_len, tpe, size, voc_state)
+            q.append(HostCopy(outs))
+            planned += state["pos_host"] - before
 
     n_read = emitted = 0
     try:
@@ -165,17 +171,17 @@ def fast_generate(
     bucketed: bool = True,
 ) -> Tuple[Optional[Frames], Dict]:
     """Non-streaming generation.  Returns ([steps,16] codec ids, timing)."""
-    t0 = time.time()
-    tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
-    tth, tth_len = _pad_tth(tth, tpe, bucketed)
-    state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
-    _sync(engine.device)
-    t_prefill = time.time() - t0
+    with TRACE.timed("prefill") as prefill:
+        tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+        tth, tth_len = _pad_tth(tth, tpe, bucketed)
+        state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
+        _sync(engine.device)
+    t_prefill = prefill.seconds
 
-    t1 = time.time()
-    chunks = [f for f, _, _ in _row0(_chunk_iter(engine, state, tth, tth_len, tpe,
-                                                 device_chunk, max_new_tokens), 0) if len(f)]
-    t_decode = time.time() - t1
+    with TRACE.timed("decode") as decode:
+        chunks = [f for f, _, _ in _row0(_chunk_iter(engine, state, tth, tth_len, tpe,
+                                                     device_chunk, max_new_tokens), 0) if len(f)]
+    t_decode = decode.seconds
     steps = sum(c.shape[0] for c in chunks)
     timing = {
         "prefill_ms": t_prefill * 1000,
@@ -206,24 +212,30 @@ def fast_generate_streaming(
     """Streaming generation of codec frames: yields ([chunk_steps, 16],
     timing) per chunk, chunk k+1 running on the device while the caller
     handles chunk k."""
-    t0 = time.time()
-    tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
-    tth, tth_len = _pad_tth(tth, tpe, bucketed)
-    state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
-    _sync(engine.device)
-    t_prefill = time.time() - t0
+    with TRACE.timed("prefill") as prefill:
+        tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+        tth, tth_len = _pad_tth(tth, tpe, bucketed)
+        state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
+        _sync(engine.device)
     yield from _timed(_row0(_chunk_iter(engine, state, tth, tth_len, tpe, chunk_size,
                                         max_new_tokens, first_chunks), 0),
-                      t_prefill, audio=False)
+                      prefill.seconds, audio=False)
 
 
 def _timed(chunks, t_prefill: float, audio: bool):
-    """The chunks with the JAX loops' timing dicts; closes ``chunks`` (and
-    so releases its cache) when it stops."""
+    """The chunks with the JAX loops' timing dicts (a chunk's ``decode_ms``
+    is its ``decode`` span: from the request for it to its arrival); closes
+    ``chunks`` (and so releases its cache) when it stops."""
     emitted = chunk_count = 0
-    chunk_start = time.time()
     try:
-        for frames, wav, finished in chunks:
+        while True:
+            with TRACE.timed("decode") as decode:
+                item = next(chunks, None)
+                if item is None:
+                    decode.discard()  # the stream ended: no chunk came
+            if item is None:
+                break
+            frames, wav, finished = item
             n = frames.shape[0]
             if n == 0:
                 break
@@ -232,13 +244,12 @@ def _timed(chunks, t_prefill: float, audio: bool):
                 "chunk_index": chunk_count,
                 "chunk_steps": n,
                 "prefill_ms": t_prefill * 1000 if chunk_count == 0 else 0,
-                "decode_ms": (time.time() - chunk_start) * 1000,
+                "decode_ms": decode.seconds * 1000,
                 "total_steps_so_far": emitted,
                 "is_final": finished,
             }
             yield (frames, wav, timing) if audio else (frames, timing)
             chunk_count += 1
-            chunk_start = time.time()
     finally:
         chunks.close()
 
@@ -270,18 +281,17 @@ def fast_generate_streaming_audio(
     into the first chunk, so ``prefill_ms`` is the host's dispatch time.
     The KV cache goes back to the engine when the stream ends, also when the
     generator is closed early."""
-    t0 = time.time()
-    tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
-    tth, tth_len = _pad_tth(tth, tpe, bucketed)
-    state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
-    t_prefill = time.time() - t0
+    with TRACE.timed("prefill") as prefill:
+        tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+        tth, tth_len = _pad_tth(tth, tpe, bucketed)
+        state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
     voc_state = vocoder.stream_state()
     if ref_codes is not None and len(ref_codes):
         voc_state = engine.vocode_prime(vocoder, voc_state, ref_codes)
     yield from _timed(_row0(_chunk_iter(
         engine, state, tth, tth_len, tpe, chunk_size, max_new_tokens, first_chunks,
         depth=PIPELINE_DEPTH if pipeline_depth is None else max(1, pipeline_depth),
-        vocoder=vocoder, voc_state=voc_state), vocoder.spf), t_prefill, audio=True)
+        vocoder=vocoder, voc_state=voc_state), vocoder.spf), prefill.seconds, audio=True)
 
 
 def fast_generate_batch(
@@ -306,24 +316,24 @@ def fast_generate_batch(
     B = talker_input_embeds.shape[0]
     if engine.batch != B:
         raise ValueError(f"Engine(batch={engine.batch}) got {B} rows")
-    t0 = time.time()
-    tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
-    tth, tth_len = _pad_tth(tth, tpe, bucketed=True)
-    if tth_lens is not None:
-        tth_len = upload(np.asarray(tth_lens), engine.device, torch.int64)
-    state = engine.prefill(talker_input_embeds, generator, policy, pred_policy,
-                           pad_count=pad_count)
-    _sync(engine.device)
-    t_prefill = time.time() - t0
+    with TRACE.timed("prefill") as prefill:
+        tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+        tth, tth_len = _pad_tth(tth, tpe, bucketed=True)
+        if tth_lens is not None:
+            tth_len = upload(np.asarray(tth_lens), engine.device, torch.int64)
+        state = engine.prefill(talker_input_embeds, generator, policy, pred_policy,
+                               pad_count=pad_count)
+        _sync(engine.device)
+    t_prefill = prefill.seconds
 
-    t1 = time.time()
     rows = [[] for _ in range(B)]
-    for frames, lens, _, _ in _chunk_iter(engine, state, tth, tth_len, tpe, device_chunk,
-                                          max_new_tokens):
-        for b in range(B):
-            if lens[b]:
-                rows[b].append(frames[b, : lens[b]])
-    t_decode = time.time() - t1
+    with TRACE.timed("decode") as decode:
+        for frames, lens, _, _ in _chunk_iter(engine, state, tth, tth_len, tpe, device_chunk,
+                                              max_new_tokens):
+            for b in range(B):
+                if lens[b]:
+                    rows[b].append(frames[b, : lens[b]])
+    t_decode = decode.seconds
     out = [np.concatenate(r, axis=0) if r else np.zeros((0, 16), np.int32) for r in rows]
     steps = sum(o.shape[0] for o in out)
     timing = {
@@ -343,18 +353,22 @@ def _parity_steps(engine: Engine, talker_input_embeds, trailing_text_hiddens,
     and their steps: yields (prefill seconds), then per step (frame [1, 16]
     int32, done), ``done`` once the step leaves an EOS token or a full cache
     behind, or the budget is spent.  Releases the cache when it stops."""
-    t0 = time.time()
-    tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
-    tth, tth_len = _pad_tth(tth, tpe, bucketed=False)
-    state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
+    with TRACE.timed("prefill") as prefill:
+        tth, tpe = _to_device(engine, trailing_text_hiddens, tts_pad_embed)
+        tth, tth_len = _pad_tth(tth, tpe, bucketed=False)
+        state = engine.prefill(talker_input_embeds, generator, policy, pred_policy)
+        try:
+            _sync(engine.device)
+        except BaseException:
+            engine.release(state)
+            raise
 
     def stop() -> bool:
         return (int(state["token"][0]) == engine.eos_id
                 or state["pos_host"] >= engine.max_seq_len - 1)
 
     try:
-        _sync(engine.device)
-        yield time.time() - t0
+        yield prefill.seconds
         for step in range(max_new_tokens):
             if stop():
                 return
@@ -382,9 +396,9 @@ def parity_generate(
     steps_iter = _parity_steps(engine, talker_input_embeds, trailing_text_hiddens,
                                tts_pad_embed, generator, max_new_tokens, policy, pred_policy)
     t_prefill = next(steps_iter)
-    t1 = time.time()
-    frames = [f for f, _ in steps_iter]
-    t_decode = time.time() - t1
+    with TRACE.timed("decode") as decode:
+        frames = [f for f, _ in steps_iter]
+    t_decode = decode.seconds
     steps = len(frames)
     timing = {
         "prefill_ms": t_prefill * 1000,

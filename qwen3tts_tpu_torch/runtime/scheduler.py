@@ -30,6 +30,20 @@ batcher; the batcher samples from its own generator, seeded from the
 model's.  Per-request texts, voices, prompt lengths and EOS times are
 independent.  Joins are eager, so no join waits for a program to be built
 (the JAX batcher's background join compiles have no counterpart).
+
+A request's clock (``time.perf_counter``) starts when ``submit`` is entered,
+before its prompt is built, so ``queue_ms`` and ``ttfa_ms`` count the
+prompt.  While the tracer is on (``utils/timing.py:TRACE``) a served
+request's spans carry its own request id: ``prompt`` (in ``submit``) and
+``join`` (a mid-batch admission); a batch's carry the batch's:
+``batch_setup`` (children ``embeds``, ``prefill``, ``tth``, ``vocinit``,
+``prime``), and per chunk ``dispatch``, ``fetch`` (the read of the oldest
+chunk in flight) and ``emit`` (its audio handed to the rows' queues, the
+retirements and the admissions decided).  ``stats`` counts the joins into
+running batches (``joined_mid_batch``) and gives the batch's shared cache
+position through the last chunk read (``batch_pos``) and the furthest any
+batch got (``max_batch_pos``): at ``max_seq_len - 1`` a batch ends with its
+rows cut short.
 """
 from __future__ import annotations
 
@@ -48,13 +62,11 @@ import numpy as np
 import torch
 
 from ..models.predictor import SamplingPolicy
+from ..utils.timing import TRACE
 from .engine import PREFILL_BUCKETS, TTH_BUCKETS, Engine, GenerationPolicy, bucket_for, upload
 from .loops import HostCopy
 
 logger = logging.getLogger(__name__)
-
-# per-chunk serving-loop timing trace (join / dispatch / fetch split)
-_TRACE = os.environ.get("QWEN3TTS_BATCH_TRACE", "0") == "1"
 
 _SENTINEL = object()
 
@@ -101,8 +113,9 @@ class _Request:
     max_new_tokens: int
     out_q: "queue.Queue" = field(
         default_factory=lambda: queue.Queue(maxsize=OUT_QUEUE_SIZE))
-    submitted_at: float = field(default_factory=time.time)
+    submitted_at: float = field(default_factory=time.perf_counter)  # submit entered
     started_at: float = 0.0
+    rid: Optional[int] = None  # the tracer's request id
     steps: int = 0
     chunk_index: int = 0
     cancelled: bool = False
@@ -192,7 +205,7 @@ class ContinuousBatcher:
         self._stop = threading.Event()
         self._stats = {"served": 0, "joined_mid_batch": 0, "batches": 0,
                        "cancelled": 0, "active_rows": 0,
-                       "retired_predictively": 0}
+                       "retired_predictively": 0, "batch_pos": 0, "max_batch_pos": 0}
         # arrivals advertised via ``arriving()`` but not yet submitted
         self._incoming = 0
         self._incoming_lock = threading.Lock()
@@ -237,15 +250,18 @@ class ContinuousBatcher:
         instruct: Optional[str] = None,
         max_new_tokens: Optional[int] = None,
     ) -> StreamHandle:
+        submitted_at = time.perf_counter()
         if self._stop.is_set():
             raise RuntimeError("batcher is closed")
         if not self._worker.is_alive():
             # the worker died (logged by _run): nothing would ever drain
             # _pending again (ReplicaPool routes around a dead batcher)
             raise RuntimeError("batcher worker is dead (see earlier log)")
-        embeds, trailing, tpe, ref_codes = self.model._prepare_clone(
-            text, ref_audio, ref_text, language, xvec_only,
-            non_streaming_mode, append_silence, instruct)
+        rid = TRACE.new_request()
+        with TRACE.scope(rid):
+            embeds, trailing, tpe, ref_codes = self.model._prepare_clone(
+                text, ref_audio, ref_text, language, xvec_only,
+                non_streaming_mode, append_silence, instruct)
         req = _Request(
             embeds=np.asarray(embeds, np.float32),
             trailing=np.asarray(trailing, np.float32),
@@ -253,6 +269,7 @@ class ContinuousBatcher:
             ref_codes=np.asarray(ref_codes) if ref_codes is not None and len(ref_codes) else None,
             max_new_tokens=min(max_new_tokens or self.max_new_tokens,
                                self.max_new_tokens),
+            submitted_at=submitted_at, rid=rid,
         )
         self._pending.put(req)
         if not self._worker.is_alive():
@@ -301,7 +318,7 @@ class ContinuousBatcher:
         possible.  The window refreshes on each arrival, scales with the
         number waiting and is capped overall; a lone request with nothing
         advertised starts with no added latency."""
-        deadline = time.time() + START_WINDOW_CAP_S
+        deadline = time.perf_counter() + START_WINDOW_CAP_S
         while len(self._waiting) < self.B and not self._stop.is_set():
             try:
                 nxt = self._pending.get_nowait()
@@ -310,13 +327,13 @@ class ContinuousBatcher:
                 if not burst or START_WINDOW_S <= 0:
                     return
                 wait = min(START_WINDOW_S * (len(self._waiting) + 1),
-                           deadline - time.time())
+                           deadline - time.perf_counter())
                 if wait <= 0:
                     return
                 try:
                     nxt = self._pending.get(timeout=wait)
                 except queue.Empty:
-                    if self._incoming > 0 and time.time() < deadline:
+                    if self._incoming > 0 and time.perf_counter() < deadline:
                         continue  # advertised arrivals still preparing
                     return  # no new arrival inside the refresh window
             if nxt is _SENTINEL:
@@ -386,88 +403,92 @@ class ContinuousBatcher:
                            initial: List[_Request],
                            admitted: List[_Request]):
         eng, B = self.engine, self.B
-        dev, dt = eng.device, eng.dtype
         H = self.model.cfg.talker.hidden_size
         self._stats["batches"] += 1
-        t_batch0 = time.time()
+        state = None
+        with TRACE.scope(TRACE.new_request()):
+            try:
+                with TRACE.span("batch_setup"):
+                    # --- stacked initial prefill: rows left-padded on the host
+                    #     to the bucket with their own pad counts; unused rows
+                    #     are fully padded and marked done.  When requests are
+                    #     already waiting, the position starts at the largest
+                    #     bucket they need, so that each can join the moment a
+                    #     row frees.
+                    with TRACE.span("embeds"):
+                        T = max(r.embeds.shape[1] for r in initial)
+                        self._drain_arrivals()
+                        need = max((bucket_for(r.embeds.shape[1]) for r in self._waiting),
+                                   default=0)
+                        Tb = max(bucket_for(T), need)
+                        self._check_warmed(Tb)
+                        embeds = np.zeros((B, Tb, H), np.float32)
+                        pads = np.full((B,), Tb, np.int64)
+                        for i, req in enumerate(initial):
+                            L = req.embeds.shape[1]
+                            pads[i] = Tb - L
+                            embeds[i, Tb - L:] = req.embeds[0]
+                    with TRACE.span("prefill"):
+                        state = eng.prefill(embeds, self.generator, self.policy,
+                                            self.pred_policy, pad_count=pads,
+                                            pos_floor=need if need else None)
+                    batch = self._batch_inputs(state, initial)
+                self._serve_rows(state, rows, admitted, *batch)
+            finally:
+                if state is not None:
+                    eng.release(state)  # its cache keeps the graphs for the next batch
+                self._stats["active_rows"] = 0
+                self._stats["batch_pos"] = 0
 
-        # --- stacked initial prefill: rows left-padded on the host to the
-        #     bucket with their own pad counts; unused rows are fully padded
-        #     and marked done.  When requests are already waiting, the
-        #     position starts at the largest bucket they need, so that each
-        #     can join the moment a row frees.
-        T = max(r.embeds.shape[1] for r in initial)
-        self._drain_arrivals()
-        need = max((bucket_for(r.embeds.shape[1]) for r in self._waiting), default=0)
-        Tb = max(bucket_for(T), need)
-        self._check_warmed(Tb)
-        embeds = np.zeros((B, Tb, H), np.float32)
-        pads = np.full((B,), Tb, np.int64)
-        for i, req in enumerate(initial):
-            L = req.embeds.shape[1]
-            pads[i] = Tb - L
-            embeds[i, Tb - L:] = req.embeds[0]
-        t_embeds = time.time()
-        state = eng.prefill(embeds, self.generator, self.policy, self.pred_policy,
-                            pad_count=pads, pos_floor=need if need else None)
-        try:
-            self._serve_rows(state, rows, initial, admitted, t_batch0, t_embeds)
-        finally:
-            eng.release(state)  # its cache keeps the graphs for the next batch
-            self._stats["active_rows"] = 0
-
-    def _serve_rows(self, state: Dict, rows: List[Optional[_Request]],
-                    initial: List[_Request], admitted: List[_Request],
-                    t_batch0: float, t_embeds: float):
+    def _batch_inputs(self, state: Dict, initial: List[_Request]):
+        """The batch's trailing text [B, W, H], tts_pad embeddings and
+        trailing-text lengths on the card, and its codec stream state with
+        each initial row primed.  The width starts at the warmed floor, so a
+        joiner inside it is a row write into the same tensor (the graphs see
+        it by its version counter) and replays a warmed graph."""
         eng, B = self.engine, self.B
         dev, dt = eng.device, eng.dtype
         H = self.model.cfg.talker.hidden_size
-        t_prefill = time.time()
-        pos = state["pos_host"]
         if len(initial) < B:
             with torch.inference_mode():
                 state["done"][len(initial):] = True
-
-        # --- the batch's trailing text [B, W, H], tts_pad embeddings and
-        #     trailing-text lengths on the card.  The width starts at the
-        #     warmed floor, so a joiner inside it is a row write into the
-        #     same tensor (the graphs see it by its version counter) and
-        #     replays a warmed graph.
-        tth_w = max(bucket_for(max(max(r.trailing.shape[1] for r in initial), 1), TTH_BUCKETS),
-                    self._tth_floor)
-        tth = np.zeros((B, tth_w, H), np.float32)
-        tth_lens = np.zeros((B,), np.int64)
-        tpe = np.zeros((B, 1, H), np.float32)
-        for i, req in enumerate(initial):
-            L = req.trailing.shape[1]
-            tth[i, :L] = req.trailing[0]
-            tth[i, L:] = req.tpe[0]
-            tth_lens[i] = L
-            tpe[i] = req.tpe[0]
-        tth_dev = upload(tth, dev, dt)
-        tpe_dev = upload(tpe, dev, dt)
-        tth_lens_dev = upload(tth_lens, dev, torch.int64)
-
-        # --- one batched codec stream state for the whole batch: each row's
-        #     chunk is vocoded in the chunk's graph; an admission copies a
-        #     primed single-row state into its row
+        with TRACE.span("tth"):
+            tth_w = max(bucket_for(max(max(r.trailing.shape[1] for r in initial), 1),
+                                   TTH_BUCKETS), self._tth_floor)
+            tth = np.zeros((B, tth_w, H), np.float32)
+            tth_lens = np.zeros((B,), np.int64)
+            tpe = np.zeros((B, 1, H), np.float32)
+            for i, req in enumerate(initial):
+                L = req.trailing.shape[1]
+                tth[i, :L] = req.trailing[0]
+                tth[i, L:] = req.tpe[0]
+                tth_lens[i] = L
+                tpe[i] = req.tpe[0]
+            tth_dev = upload(tth, dev, dt)
+            tpe_dev = upload(tpe, dev, dt)
+            tth_lens_dev = upload(tth_lens, dev, torch.int64)
+        # one batched codec stream state for the whole batch: each row's
+        # chunk is vocoded in the chunk's graph; an admission copies a primed
+        # single-row state into its row
         voc = self.model.vocoder
-        spf = voc.spf
-        t_tth = time.time()
-        voc_state = voc.stream_state_batched(B)
-        t_vocinit = time.time()
-        for i, req in enumerate(initial):
-            voc_state = voc.scatter_stream_row(voc_state, self._primed_state(req), i)
-        t_prime = time.time()
-
+        with TRACE.span("vocinit"):
+            voc_state = voc.stream_state_batched(B)
+        with TRACE.span("prime"):
+            for i, req in enumerate(initial):
+                voc_state = voc.scatter_stream_row(voc_state, self._primed_state(req), i)
         for req in initial:
             self._start_request(req)
-        if _TRACE:
-            logger.info(
-                "batch setup split: embeds=%.1fms prefill=%.1f tth=%.1f "
-                "vocinit=%.1f prime=%.1f", (t_embeds - t_batch0) * 1e3,
-                (t_prefill - t_embeds) * 1e3, (t_tth - t_prefill) * 1e3,
-                (t_vocinit - t_tth) * 1e3, (t_prime - t_vocinit) * 1e3)
+        return tth_dev, tpe_dev, tth_lens_dev, voc_state
+
+    def _serve_rows(self, state: Dict, rows: List[Optional[_Request]],
+                    admitted: List[_Request], tth_dev: torch.Tensor, tpe_dev: torch.Tensor,
+                    tth_lens_dev: torch.Tensor, voc_state):
+        eng, B = self.engine, self.B
+        dev, dt = eng.device, eng.dtype
+        H = self.model.cfg.talker.hidden_size
+        pos = state["pos_host"]
+        voc = self.model.vocoder
+        spf = voc.spf
 
         # --- pipelined chunk loop.  Up to ``depth`` chunks are in flight;
         # each one's outputs start their copy to pinned host memory right
@@ -497,10 +518,12 @@ class ContinuousBatcher:
             nonlocal cur_voc, activations, captures
             size = ramp.pop(0) if ramp else self.chunk_size
             before = state["pos_host"]
-            _, _frames, n, lens, done, audio, cur_voc = eng.chunk_vocode_batched(
-                voc, state, tth_dev, tth_lens_dev, tpe_dev, size, cur_voc, pcm16=self._pcm16)
+            with TRACE.span("dispatch"):
+                _, _frames, n, lens, done, audio, cur_voc = eng.chunk_vocode_batched(
+                    voc, state, tth_dev, tth_lens_dev, tpe_dev, size, cur_voc,
+                    pcm16=self._pcm16)
+                q.append((HostCopy([n, lens, audio, done]), activations))
             booked = state["pos_host"] - before
-            q.append((HostCopy([n, lens, audio, done]), activations))
             activations = []
             if eng.graphs is not None and eng.graphs.captures != captures:
                 captures = eng.graphs.captures
@@ -527,10 +550,6 @@ class ContinuousBatcher:
                     self._stats["retired_predictively"] += 1
 
         dispatch_one()
-        t_chunk = time.time()
-        if _TRACE:
-            logger.info("batch start: rows=%d setup=%.1fms (prefill+prime+first dispatch)",
-                        len(initial), (t_chunk - t_batch0) * 1e3)
         while True:
             # --- mutations decided at the previous read, into the live
             # state.  Force-done lands before joins, so a join into a row
@@ -541,39 +560,33 @@ class ContinuousBatcher:
                         state["done"][int(fb)] = True
                 pending_force[:] = False
             for b, req in deferred_joins:
-                t_j0 = time.time()
-                eng.join_row(state, b, req.embeds_dev, policy=self.policy,
-                             pred_policy=self.pred_policy, pos_hint=pos_lb,
-                             pad_inner=req.join_pad)
-                req.embeds_dev = None
-                t_j1 = time.time()
-                L = req.trailing.shape[1]
-                if L > tth_dev.shape[1]:  # widen the batch's trailing text
-                    new_w = bucket_for(L, TTH_BUCKETS)
-                    tth_dev = torch.cat(
-                        [tth_dev, tpe_dev.expand(B, new_w - tth_dev.shape[1], H)], dim=1)
-                # the pre-uploaded row fits unless a join widened the batch since
-                if req.tth_row_dev is None or req.tth_row_dev.shape[0] != tth_dev.shape[1]:
-                    req.tth_row_dev = upload(self._tth_row(req, tth_dev.shape[1]), dev, dt)
-                tth_dev[b].copy_(req.tth_row_dev)
-                req.tth_row_dev = None
-                tpe_dev[b].copy_(upload(req.tpe[0], dev, dt))
-                tth_lens_dev[b] = L
-                # reset and prime the row's slice of the batch's codec stream
-                # (its first frames come in the chunk dispatched next)
-                cur_voc = voc.scatter_stream_row(cur_voc, self._primed_state(req), b)
+                with TRACE.span("join", rid=req.rid):
+                    eng.join_row(state, b, req.embeds_dev, policy=self.policy,
+                                 pred_policy=self.pred_policy, pos_hint=pos_lb,
+                                 pad_inner=req.join_pad)
+                    req.embeds_dev = None
+                    L = req.trailing.shape[1]
+                    if L > tth_dev.shape[1]:  # widen the batch's trailing text
+                        new_w = bucket_for(L, TTH_BUCKETS)
+                        tth_dev = torch.cat(
+                            [tth_dev, tpe_dev.expand(B, new_w - tth_dev.shape[1], H)], dim=1)
+                    # the pre-uploaded row fits unless a join widened the batch since
+                    if req.tth_row_dev is None or req.tth_row_dev.shape[0] != tth_dev.shape[1]:
+                        req.tth_row_dev = upload(self._tth_row(req, tth_dev.shape[1]), dev, dt)
+                    tth_dev[b].copy_(req.tth_row_dev)
+                    req.tth_row_dev = None
+                    tpe_dev[b].copy_(upload(req.tpe[0], dev, dt))
+                    tth_lens_dev[b] = L
+                    # reset and prime the row's slice of the batch's codec
+                    # stream (its first frames come in the chunk dispatched next)
+                    cur_voc = voc.scatter_stream_row(cur_voc, self._primed_state(req), b)
                 row_owner[b] = req
                 activations.append((b, req))
                 self._stats["joined_mid_batch"] += 1
                 self._start_request(req)
-                if _TRACE:
-                    logger.info("join row=%d bucket=%d join_row=%.1fms tth+scatter=%.1fms", b,
-                                bucket_for(req.embeds.shape[1]), (t_j1 - t_j0) * 1e3,
-                                (time.time() - t_j1) * 1e3)
             if deferred_joins and self._ramp_after_join([req for _, req in deferred_joins]):
                 ramp[:] = self.first_chunks  # joiner TTFA: run the ramp again
             deferred_joins = []
-            t_join_done = time.time()
 
             # --- keep the pipeline full.  Growth is bounded per iteration so
             # that the oldest chunk's read (someone's TTFA) is not starved
@@ -584,93 +597,80 @@ class ContinuousBatcher:
                    and any(r is not None for r in row_owner)):
                 dispatch_one()
                 grown += 1
-            t_dispatch_done = time.time()
             if not q:
                 break  # nothing in flight, nothing live to dispatch
 
             # --- read the oldest chunk in flight
-            copy, acts = q.popleft()
-            for b, req in acts:  # joins visible from this chunk on
-                rows[b] = req
-                admitted.remove(req)
-            n_val, lens_np, audio_np, row_done = copy.get()
-            n_val = int(n_val)
-            eng.settle(state, n_val)
-            pos_lb += n_val
-            if _TRACE:
-                now = time.time()
-                logger.info(
-                    "chunk wall=%.1fms join=%.1f dispatch=%.1f fetch=%.1f "
-                    "q=%d joins=%d live=%d pos=%d",
-                    (now - t_chunk) * 1e3, (t_join_done - t_chunk) * 1e3,
-                    (t_dispatch_done - t_join_done) * 1e3,
-                    (now - t_dispatch_done) * 1e3, len(q), len(acts),
-                    sum(r is not None for r in rows), pos_lb)
-                t_chunk = now
+            with TRACE.span("fetch"):
+                copy, acts = q.popleft()
+                for b, req in acts:  # joins visible from this chunk on
+                    rows[b] = req
+                    admitted.remove(req)
+                n_val, lens_np, audio_np, row_done = copy.get()
+                n_val = int(n_val)
+                eng.settle(state, n_val)
+                pos_lb += n_val
+            self._stats["batch_pos"] = pos_lb
+            self._stats["max_batch_pos"] = max(self._stats["max_batch_pos"], pos_lb)
 
-            # --- emit each row's audio; retire rows at EOS / budget.  Row
-            # b's valid samples are the prefix ``lens[b] * spf`` (the codec
-            # is causal).
-            retires: List[int] = []
-            for b in range(B):
-                req = rows[b]
-                if req is None:
-                    continue
-                valid = int(lens_np[b])
-                if req.cancelled:
-                    valid = 0
-                take = min(valid, req.max_new_tokens - req.steps)
-                if take > 0:
-                    req.steps += take  # counted at decode time (budget)
-                    # pcm16 buffers go out as int16 and become float32 on
-                    # the consumer's thread (StreamHandle.chunks)
-                    self._deliver(req, audio_np[b, : take * spf], take)
-                over_budget = req.steps >= req.max_new_tokens
-                if bool(row_done[b]) or over_budget or req.cancelled:
+            with TRACE.span("emit"):
+                # --- emit each row's audio; retire rows at EOS / budget.  Row
+                # b's valid samples are the prefix ``lens[b] * spf`` (the codec
+                # is causal).
+                retires: List[int] = []
+                for b in range(B):
+                    req = rows[b]
+                    if req is None:
+                        continue
+                    valid = int(lens_np[b])
                     if req.cancelled:
-                        self._stats["cancelled"] += 1
-                    if not bool(row_done[b]) and not req.retiring:
-                        # over budget or cancelled: mark it done on the card
-                        # too, before the next dispatch.  A predictively
-                        # retired row was forced when its slot was freed;
-                        # forcing again could kill the slot's new occupant.
-                        pending_force[b] = True
-                    retires.append(b)
-            for b in retires:
-                req = rows[b]
-                self._finish_request(req)
-                rows[b] = None
-                if row_owner[b] is req:
-                    row_owner[b] = None  # slot reusable at the tail
-                # else: predictive retirement freed the slot at dispatch and
-                # a new request may own it already
+                        valid = 0
+                    take = min(valid, req.max_new_tokens - req.steps)
+                    if take > 0:
+                        req.steps += take  # counted at decode time (budget)
+                        # pcm16 buffers go out as int16 and become float32 on
+                        # the consumer's thread (StreamHandle.chunks)
+                        self._deliver(req, audio_np[b, : take * spf], take)
+                    over_budget = req.steps >= req.max_new_tokens
+                    if bool(row_done[b]) or over_budget or req.cancelled:
+                        if req.cancelled:
+                            self._stats["cancelled"] += 1
+                        if not bool(row_done[b]) and not req.retiring:
+                            # over budget or cancelled: mark it done on the card
+                            # too, before the next dispatch.  A predictively
+                            # retired row was forced when its slot was freed;
+                            # forcing again could kill the slot's new occupant.
+                            pending_force[b] = True
+                        retires.append(b)
+                for b in retires:
+                    req = rows[b]
+                    self._finish_request(req)
+                    rows[b] = None
+                    if row_owner[b] is req:
+                        row_owner[b] = None  # slot reusable at the tail
+                    # else: predictive retirement freed the slot at dispatch and
+                    # a new request may own it already
 
-            # --- decide admissions; they join before the next dispatch
-            for b in range(B):
-                if row_owner[b] is not None or any(jb == b for jb, _ in deferred_joins):
-                    continue
-                req = self._peek_admissible(pos_lb, state["pos_host"], limit)
-                if req is None:
-                    break
-                # start the joiner's uploads now (pinned, asynchronous): the
-                # prompt padded on the host to its bucket, the trailing-text
-                # row at the batch's width
-                Lp = req.embeds.shape[1]
-                req.join_pad = bucket_for(Lp) - Lp
-                padded = np.concatenate(
-                    [np.zeros((1, req.join_pad, H), np.float32), req.embeds],
-                    axis=1) if req.join_pad else req.embeds
-                req.embeds_dev = upload(padded, dev, dt)
-                if req.trailing.shape[1] <= tth_dev.shape[1]:
-                    req.tth_row_dev = upload(self._tth_row(req, tth_dev.shape[1]), dev, dt)
-                deferred_joins.append((b, req))
-                admitted.append(req)
-
-            if _TRACE:
-                t_tail = time.time()
-                if t_tail - t_chunk > 0.005:
-                    logger.info("emit+admit tail=%.1fms retires=%d admits=%d",
-                                (t_tail - t_chunk) * 1e3, len(retires), len(deferred_joins))
+                # --- decide admissions; they join before the next dispatch
+                for b in range(B):
+                    if row_owner[b] is not None or any(jb == b for jb, _ in deferred_joins):
+                        continue
+                    req = self._peek_admissible(pos_lb, state["pos_host"], limit)
+                    if req is None:
+                        break
+                    # start the joiner's uploads now (pinned, asynchronous): the
+                    # prompt padded on the host to its bucket, the trailing-text
+                    # row at the batch's width
+                    Lp = req.embeds.shape[1]
+                    req.join_pad = bucket_for(Lp) - Lp
+                    padded = np.concatenate(
+                        [np.zeros((1, req.join_pad, H), np.float32), req.embeds],
+                        axis=1) if req.join_pad else req.embeds
+                    req.embeds_dev = upload(padded, dev, dt)
+                    if req.trailing.shape[1] <= tth_dev.shape[1]:
+                        req.tth_row_dev = upload(self._tth_row(req, tth_dev.shape[1]), dev, dt)
+                    deferred_joins.append((b, req))
+                    admitted.append(req)
             self._stats["active_rows"] = sum(r is not None for r in rows)
             if not any(r is not None for r in row_owner) \
                     and not any(r is not None for r in rows) \
@@ -705,7 +705,7 @@ class ContinuousBatcher:
         return row
 
     def _start_request(self, req: _Request):
-        req.started_at = time.time()
+        req.started_at = time.perf_counter()
 
     def _ramp_after_join(self, joined: List[_Request]) -> bool:
         """Run the TTFA ramp again only when some joiner is
@@ -745,7 +745,7 @@ class ContinuousBatcher:
             "queue_ms": (req.started_at - req.submitted_at) * 1000.0,
         }
         if req.chunk_index == 0:
-            timing["ttfa_ms"] = (time.time() - req.submitted_at) * 1000.0
+            timing["ttfa_ms"] = (time.perf_counter() - req.submitted_at) * 1000.0
         req.chunk_index += 1
         try:
             req.out_q.put((audio, timing), timeout=EMIT_TIMEOUT_S)
@@ -843,7 +843,7 @@ class ContinuousBatcher:
         underflowing join would send flash-decode out of bounds).  Serving
         starts its trailing text at the widest warmed width.  Returns
         seconds."""
-        t0 = time.time()
+        t0 = time.perf_counter()
         self._warmed_buckets |= set(prefill_buckets)
         eng, B = self.engine, self.B
         H = self.model.cfg.talker.hidden_size
@@ -885,6 +885,6 @@ class ContinuousBatcher:
         finally:
             if state is not None:
                 eng.release(state)
-        dt = time.time() - t0
+        dt = time.perf_counter() - t0
         logger.info("batcher warmup: %.1fs", dt)
         return dt

@@ -5,14 +5,15 @@ openai_server.py``) over real HTTP sockets on the CPU, with the JAX
 ``audio/mp3.py``.
 
 - The openai-server part of ``tests/test_servers.py`` that is not slow:
-  ``/health``, the 400s, ``/health``'s scheduler stats on a batched server,
-  a client that disconnects mid-stream has its batch row cancelled and the
+  ``/health``, the 400s, ``/health``'s scheduler stats on a batched server
+  (and the tracer's summary while it is on), a client that disconnects mid-stream has its batch row cancelled and the
   row serves the next request.
 - Streamed wav (whole codec frames), pcm and mp3 (or its 501) through the
   one-at-a-time server and through the batched one; the lock server's
   audio equals the API's streamed request under the same seed.
 - ``main`` with no card raises and names ``device="cpu"``.
-- ``Stopwatch``, ``device_memory_stats``, ``QWEN3TTS_PROFILE_DIR``.
+- the tracer's spans (``TRACE``, which replaced the stopwatch), ``device_memory_stats``,
+  ``QWEN3TTS_PROFILE_DIR``.
 - The mp3 round trip of ``tests/test_mp3.py`` on the port's copy (skipped
   without libmp3lame / libmpg123).
 """
@@ -41,7 +42,7 @@ from qwen3tts_tpu_torch.core.loader import bundle_from_jax_numpy  # noqa: E402
 from qwen3tts_tpu_torch.core.presets import get_preset  # noqa: E402
 from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy  # noqa: E402
 from qwen3tts_tpu_torch.runtime.scheduler import ContinuousBatcher  # noqa: E402
-from qwen3tts_tpu_torch.utils.timing import Stopwatch, device_memory_stats  # noqa: E402
+from qwen3tts_tpu_torch.utils.timing import TRACE, Tracer, device_memory_stats  # noqa: E402
 
 SR = 24_000
 STEPS = 16
@@ -175,6 +176,29 @@ def test_health_exposes_scheduler_stats(oai_server_batched):
         assert key in sched, key
 
 
+def test_health_exposes_the_trace_summary(oai_server_batched):
+    """While the tracer is on, /health summarises the batcher's spans by
+    name; while it is off, it shows none."""
+    url, _ = oai_server_batched
+    TRACE.clear()
+    TRACE.enable()
+    try:
+        _speech(url, "pcm")
+        with urllib.request.urlopen(url + "/health") as r:
+            trace = json.loads(r.read())["trace"]
+    finally:
+        TRACE.disable()
+        TRACE.clear()
+    spans = trace["spans"]
+    for name in ("prompt", "batch_setup", "dispatch", "fetch", "emit", "read_wait"):
+        assert spans[name]["n"] >= 1, name
+        assert 0 <= spans[name]["p50_ms"] <= spans[name]["max_ms"] <= spans[name]["total_ms"]
+    assert spans["batch_setup"]["n"] == 1 and trace["device"] == {}
+    assert trace["counters"] == dict(TRACE.counters)
+    with urllib.request.urlopen(url + "/health") as r:
+        assert "trace" not in json.loads(r.read())
+
+
 def test_client_disconnect_cancels_batched_row(port_tts, voice):
     """A client that disconnects mid-stream has its batch row cancelled, and
     the batcher serves the next request."""
@@ -218,13 +242,20 @@ def test_main_without_a_card_names_the_cpu(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_stopwatch_and_device_memory_stats(monkeypatch):
-    sw = Stopwatch()
-    time.sleep(0.01)
-    assert sw.lap("a") >= 0.01
-    sw.lap("b")
-    sw.lap("a")
-    assert set(sw.laps) == {"a", "b"} and sw.laps["a"] >= 0.01
-    assert sw.summary().startswith("a=") and "total=" in sw.summary()
+    # the tracer in the stopwatch's place: timed spans, by name and time range
+    tr = Tracer()
+    tr.enable()
+    with tr.timed("a") as a:
+        time.sleep(0.01)
+    with tr.span("b"):
+        pass
+    with tr.timed("a"):
+        pass
+    assert a.seconds >= 0.01
+    got = tr.spans("a")
+    assert len(got) == 2 and got[0].end - got[0].start == a.seconds
+    assert {s.name for s in tr.spans()} == {"a", "b"}
+    assert tr.spans("a", lo=got[1].start) == got[1:]
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert device_memory_stats() == {}

@@ -253,7 +253,7 @@ def test_package_runs_without_jax(tmp_path):
         from qwen3tts_tpu_torch.runtime import replicas, scheduler
         from qwen3tts_tpu_torch.utils import timing
         assert callable(m.replicate_to) and callable(openai_server.serve)
-        assert scheduler.ContinuousBatcher and replicas.ReplicaPool and timing.Stopwatch
+        assert scheduler.ContinuousBatcher and replicas.ReplicaPool and timing.TRACE
         assert isinstance(mp3.is_available(), bool)
         m.save_pretrained(sys.argv[1] + ".ckpt")  # the port's own safetensors code
         again = FasterQwen3TTS.from_pretrained(sys.argv[1] + ".ckpt", device="cpu")
