@@ -80,8 +80,9 @@ Phases, in order; any failure raises and exits non-zero:
    recording every w8a8 product's input on both and quantizing it with the
    plain version), that rounding off by one.
 7. slice-graph — the main path: the API's captured chunks (CUDA graphs,
-   runtime/graphs.py) on the 0.6B at full width, on three paths (bf16; bf16
-   with use_micro_kernel=True; int8 weights + int8 KV cache +
+   runtime/graphs.py) on the 0.6B at full width, on three paths (bf16 with
+   use_micro_kernel=False, the eager block chain; bf16 as the API runs it,
+   the micro-step kernel; int8 weights + int8 KV cache +
    use_fused_kernels=True), each eager and captured: warm-up seconds
    (capture), a non-streamed (chunk 16) and a streamed (chunk 8) request
    (96 steps captured, 32 eager): ms/step, RTF, TTFA, prefill ms, graph
@@ -114,8 +115,9 @@ Phases, in order; any failure raises and exits non-zero:
 9. slice-batch — batched generation on the 0.6B: the bf16 and the int8 +
    kv_quant + fused paths at B 4 and B 16 (warm-up, a 96-step request over
    rows of different prompt lengths: ms/step, frames/s, throughput RTF; a
-   16-step request: launches counted as above, flash-decode 28 a step and
-   the fused kernels 98 calls each, fused_o_mlp a launch per 4 rows, and
+   16-step request: launches counted as above, flash-decode 28 a step, on
+   bf16 the micro-step kernel 14 (one launch for all rows), on int8 the
+   fused kernels 98 calls each, fused_o_mlp a launch per 4 rows, and
    the busy share); a B 4 batch in which an
    EOS ends one row early (the other rows' frames unchanged, the chunks
    stop with the longest row); join_row into a running B 4 batch;
@@ -148,7 +150,8 @@ Phases, in order; any failure raises and exits non-zero:
    random:qwen3-tts-0.6b-custom (a named speaker) and
    random:qwen3-tts-1.7b-design (instruct): load and warm-up seconds,
    non-streamed and streamed 48-step requests (ms/step, RTF, TTFA), and a
-   counted streamed request (flash-decode 28 a step); the 1.7B again with
+   counted streamed request (flash-decode 28 and the micro-step 14 a step,
+   the API's default on the card); the 1.7B again with
    use_micro_kernel=True, a counted 48-step request (flash-decode 28 and the
    micro-step 14 a step).
 12. slice-checkpoint — checkpoints and the command line on the bf16 0.6B
@@ -1579,9 +1582,11 @@ COUNTED_STEPS = {"captured": 16, "eager": 8}  # streamed requests whose kernels 
 # predictor layers x 14 micro-steps)
 KERNELS = ("flash_decode", "fused_norm_matmul", "fused_o_mlp", "fused_micro_step",
            "quantize_act", "w8a8_gemv")
+# the API's default bf16 path on the card: flash-decode and the micro-step kernel
+DEFAULT_WANT = {"flash_decode": 28, "fused_micro_step": 14}
 GRAPH_PATHS = {  # path -> (model, Engine keywords, launches a step by kernel)
-    "bf16": ("bf16", {}, {"flash_decode": 28}),
-    "micro": ("bf16", {"use_micro_kernel": True}, {"flash_decode": 28, "fused_micro_step": 14}),
+    "bf16": ("bf16", {"use_micro_kernel": False}, {"flash_decode": 28}),  # the eager chain
+    "micro": ("bf16", {}, DEFAULT_WANT),  # the default: the micro kernel
     "int8_fused": ("int8", {"use_fused_kernels": True, "kv_quant": True},
                    {"flash_decode": 28, "fused_norm_matmul": 98, "fused_o_mlp": 98}),
 }
@@ -2319,7 +2324,7 @@ BATCH_STEPS = 96  # slice-batch's timed requests, pinned by min_new_tokens
 BATCH_TRACED = 16  # ... and its counted ones (one chunk of 16)
 BATCH_SIZES = (4, 16)
 BATCH_PATHS = {  # path -> (model, Engine keywords, launches a step by kernel)
-    "bf16": ("bf16", {}, {"flash_decode": 28}),
+    "bf16": ("bf16", {}, DEFAULT_WANT),
     "int8_fused": ("int8", {"use_fused_kernels": True, "kv_quant": True},
                    {"flash_decode": 28, "fused_norm_matmul": 98, "fused_o_mlp": 98}),
 }
@@ -3107,7 +3112,7 @@ def slice_voices_phase(card: str, models: dict) -> dict:
         out = {"load_s": m.load_s, "speaker_or_instruct": args[1]}
         out["default"] = _voice_requests(
             card, m, prompt, lambda **k: call(*args, **k), lambda **k: stream(*args, **k),
-            f"{name} ({preset})", {"flash_decode": 28}, 16)
+            f"{name} ({preset})", DEFAULT_WANT, 16)
         if name == "design":
             m.engine = _engine(m, use_micro_kernel=True)
             out["micro"] = _voice_requests(
@@ -3333,7 +3338,7 @@ def slice_checkpoint_phase(card: str) -> dict:
         res["counted_request"] = _held_request(loaded.engine, lambda: list(
             loaded.generate_voice_clone_streaming(
                 text=TEXT_A, language="English", ref_audio=ref, ref_text="", chunk_size=CHUNK,
-                max_new_tokens=16, min_new_tokens=16)), {"flash_decode": 28}, 16,
+                max_new_tokens=16, min_new_tokens=16)), DEFAULT_WANT, 16,
             "from_pretrained(<dir>) bf16")
 
         fx, bad = os.path.join(tmp, "fx.npz"), os.path.join(tmp, "bad.npz")

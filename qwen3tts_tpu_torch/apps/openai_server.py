@@ -14,7 +14,9 @@ for the CPU; with no card and no ``--device`` it raises.  ``--trace`` turns
 the port's tracer on (``utils/timing.py:TRACE``): ``/health`` then shows
 the last minute's spans by name (count, median, largest and total ms: the
 prompt builds, the batcher's set-ups, joins, dispatches, fetches and emits,
-the loops' chunks) and the tracer's counters.
+the loops' chunks) and the tracer's counters.  ``/health`` always shows
+``predictor_frames``: the frame steps dispatched through the predictor's
+whole-micro-step kernel (``kernel``) and its eager block chain (``eager``).
 
     python -m qwen3tts_tpu_torch.apps.openai_server --model random:qwen3-tts-0.6b \
         --continuous-batching 4
@@ -127,6 +129,10 @@ def make_handler(state: TTSState):
                 }
                 if state.batcher is not None:
                     payload["scheduler"] = state.batcher.stats
+                # frame steps by predictor path (kept whether tracing or not)
+                payload["predictor_frames"] = {
+                    k.split(".", 1)[1]: v for k, v in TRACE.counters.items()
+                    if k.startswith("predictor_frames.")}
                 if TRACE.on:
                     payload["trace"] = TRACE.summary(lo=time.perf_counter() - TRACE_WINDOW_S)
                 body = json.dumps(payload).encode()

@@ -330,7 +330,8 @@ struct Job {
   int nt;
   int seg;
   int k_lo, k_hi;
-  int cb;  // 16: bulk copies; 8 where an offset is not a multiple of 16: cp.async
+  int cb;     // 16: bulk copies; 8 where an offset is not a multiple of 16: cp.async
+  int align;  // a stage's rows, where it holds more: a multiple of this
 };
 
 template <typename W>
@@ -348,6 +349,7 @@ __device__ __forceinline__ Job make_job(const W* w, int ld, int col0, int col1, 
   const size_t bits = (size_t)j.w | j.ld | (size_t)j.col[0] | (size_t)(nt == 2 ? j.col[1] : 0) |
                       (size_t)j.seg;
   j.cb = (bits & 15) == 0 ? 16 : 8;
+  j.align = 1;
   return j;
 }
 
@@ -360,7 +362,8 @@ __device__ __forceinline__ Job empty_job() {
 }
 
 __device__ __forceinline__ int rows_per_stage(const Job& j, int stage_bytes) {
-  return stage_bytes / (j.nt * j.seg);
+  const int r = stage_bytes / (j.nt * j.seg);
+  return j.align > 1 && r > j.align ? r - r % j.align : r;
 }
 
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {

@@ -8,9 +8,11 @@ package, which passes it no flash context.  With ``fused`` the 14
 single-token micro-steps run each block through the fused kernels; the
 2-token prefill does not.  With ``micro_kernel`` each micro-step is one
 launch of ``ops/predictor_step.py:fused_micro_step`` (proj + every block +
-final norm), gated as in the JAX package: batch 1, no sliding window,
-unquantized blocks.  The blocks may be int8 weight-only or w8a8, the
-lm_heads int8 weight-only (``ops/quant.py:quantize_bundle``).
+final norm) for all the frame's rows; ``micro_kernel_misfit`` is its one
+gate (the JAX package takes it at batch 1 only, and off by default; the
+engine here takes it by default wherever the gate lets it).  The blocks may
+be int8 weight-only or w8a8, the lm_heads int8 weight-only
+(``ops/quant.py:quantize_bundle``).
 ``predict_frame_teacher`` runs the frame on given tokens and returns every
 head's logits: the quantization quality gate's path (``utils/quality.py``).
 
@@ -38,6 +40,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core.config import PredictorConfig
+from ..ops import cuda_build
+from ..ops import predictor_step as micro_step
 from ..ops.predictor_step import fused_micro_step, micro_step_weights
 from ..ops.quant import is_quantized
 from ..ops.rope import mrope_cos_sin
@@ -151,6 +155,43 @@ def _rope(cfg: PredictorConfig, pos_1d: torch.Tensor):
     return mrope_cos_sin(pos_1d, cfg.head_dim, cfg.rope_theta, None)
 
 
+def micro_kernel_misfit(params: Params, cfg: PredictorConfig, rows: int,
+                        device: Optional[torch.device] = None, group=None) -> Optional[str]:
+    """The whole-micro-step kernel's one gate: why it cannot run the
+    micro-steps of a frame of ``rows`` rows, or None where it can.  It takes
+    plain (not int8 or w8a8) predictor blocks, full attention (no sliding
+    window) and no tp ``group`` (it runs what the row-parallel all-reduce
+    must split).  With a ``device`` it also asks what the card's kernel
+    needs: CUDA tensors, at most ``MAX_ROWS`` rows and an instance for the
+    shapes; without one, the micro-step's plain version, which any device
+    and row count runs, is asked about."""
+    blocks = params["blocks"]
+    why = []
+    if any(is_quantized(blocks[k]) for k in ("qkv_proj", "o_proj", "gateup_proj",
+                                             "down_proj")):
+        why.append("the predictor's blocks are quantized")
+    if cfg.sliding_window is not None:
+        why.append(f"a sliding window of {cfg.sliding_window}")
+    if group is not None:
+        why.append("a tp group (a mesh): the row-parallel all-reduce would fall inside the "
+                   "kernel")
+    if device is not None:
+        if rows > micro_step.MAX_ROWS:
+            why.append(f"{rows} rows (at most {micro_step.MAX_ROWS})")
+        if device.type != "cuda":
+            why.append(f"the tensors are on {device.type}, and the kernel runs on CUDA")
+        elif not why:
+            w = params["small_to_mtp"]["w"]
+            dims = (w.shape[0], cfg.hidden_size, cfg.num_attention_heads,
+                    cfg.num_key_value_heads, cfg.head_dim, cfg.intermediate_size,
+                    cfg.num_hidden_layers, cfg.max_seq)
+            try:
+                micro_step.instance(dims, rows, w.dtype, cuda_build.sm_count(device))
+            except ValueError as e:
+                why.append(str(e))
+    return "; ".join(why) or None
+
+
 def frame_scratch(cfg: PredictorConfig, batch: int, dtype, device, tp: int = 1) -> Dict:
     """What every frame of one batch size reuses: the 17-slot cache (of one
     rank's kv heads at ``tp``) and, per micro-step, its slot ``pos`` (int32
@@ -192,15 +233,20 @@ def predict_frame(
     ``frame_scratch`` for this batch, dtype, device and tp (made here when
     it is not given).  With a tp ``group`` neither ``fused`` nor
     ``micro_kernel`` may be set: both kernels run what the row-parallel
-    all-reduce must split."""
+    all-reduce must split.  ``micro_kernel`` raises where
+    ``micro_kernel_misfit`` refuses the frame."""
     if group is not None and (fused or micro_kernel):
         raise ValueError("predict_frame with a tp group runs neither the fused kernels "
                          "nor the micro-step kernel")
+    B = pred_input.shape[0]
+    if micro_kernel:
+        misfit = micro_kernel_misfit(params, cfg, B)
+        if misfit:
+            raise ValueError(f"predict_frame(micro_kernel=True): {misfit}")
     if isinstance(policy, SamplingPolicy):
         temperature = policy.temperature if temperature is None else temperature
         top_p = policy.top_p if top_p is None else top_p
         policy = policy.static
-    B = pred_input.shape[0]
     dev = pred_input.device
     tp = size(group)
     spec = block_spec(cfg, tp)
@@ -223,19 +269,16 @@ def predict_frame(
     tok = sample(_lm_logits(params, 0, h[:, -1, :], group))
     toks = [tok]
 
-    # the whole-micro-step kernel masks idx <= pos and nothing else, and
-    # reads plain weights: the JAX package's gate (predictor.py:180-181)
-    if (micro_kernel and B == 1 and cfg.sliding_window is None
-            and not is_quantized(params["blocks"]["qkv_proj"])):
+    if micro_kernel:
         w = micro_weights if micro_weights is not None else micro_step_weights(params)
-        kk, vv = kv["k"][:, 0], kv["v"][:, 0]  # [L, S, KVH, D] views, written in place
+        kk, vv = kv["k"], kv["v"]  # [L, B, S, KVH, D], written in place
         for cb, st in enumerate(scratch["steps"], start=1):
             h, kk, vv = fused_micro_step(w, codec_rows(params, cb - 1, tok),
                                          st["cos"][0, 0], st["sin"][0, 0], kk, vv, st["pos"],
                                          eps=cfg.rms_norm_eps)
             tok = sample(_lm_logits(params, cb, h))
             toks.append(tok)
-        tokens = torch.stack(toks, dim=1)  # [1, 15]
+        tokens = torch.stack(toks, dim=1)  # [B, 15]
         return tokens, embed_sum_for(params, tokens, pred_input.dtype)
 
     for cb, st in enumerate(scratch["steps"], start=1):

@@ -26,13 +26,16 @@ masked to slots ``<= pos``; the probabilities are not rounded; the final
 norm is cast to the dtype.  In bf16 this rounds at other places than the
 default path.
 
-Batch 1, plain (unquantized) weights of the activations' dtype, full
-attention (no sliding window): ``models/predictor.py:predict_frame`` gates
-it exactly as the JAX package does.  The cache ``[L, S, KVH, D]`` (the
-batch axis of ``[L, 1, S, KVH, D]`` dropped) is written in place at slot
-``pos`` and returned, as the Pallas call's aliased outputs are.  ``pos`` is
-an int32 device tensor and ``cos``/``sin`` are device tensors, so a frame
-never waits for the host.
+Rows: 1 to ``MAX_ROWS`` rows at one ``pos`` (a frame's rows are all at the
+same codebook), each streamed weight tile used by every row.  One row runs
+the kernel ``micro_step_kernel`` as it was designed for batch 1; 2 to 16
+rows run ``micro_rows_kernel`` (the source note says what changes with the
+rows).  Plain (unquantized) weights of the activations' dtype, full
+attention (no sliding window): ``models/predictor.py:micro_kernel_misfit``
+is the one gate.  The cache ``[L, R, S, KVH, D]`` (the engine's layout) is
+written in place at slot ``pos`` and returned, as the Pallas call's aliased
+outputs are.  ``pos`` is an int32 device tensor and ``cos``/``sin`` are
+device tensors, so a frame never waits for the host.
 
 The Pallas kernel's head-major relayout, rotate-half matrix and scalar
 prefetch schedule exist because Mosaic cannot reshape lanes; the CUDA
@@ -58,6 +61,15 @@ MAX_HP = 2048  # widest residual the kernel keeps in shared memory
 MAX_S = 64  # most cache slots
 MAX_ITEM_COLS = 2048  # most outputs of one item (gate and up columns together)
 KV_BYTES = 24576  # shared memory for the cache rows an o-phase item's attention reads
+MAX_ROWS = 16  # most rows of one launch (the mma's rows)
+ROW_BLOCK = 4  # rows a float32 consumer thread multiplies at once
+ACT_BYTES = 67584  # the rows' activations over an item's row split, and its fold
+RES_FLOATS = 2048  # an item's outputs, 16 rows x columns
+OWN_FLOATS = 1024  # an owner's residual columns, rows x columns
+MAX_TILES = 8  # 8-column tiles of a bfloat16 item's outputs
+ATTN_WARPS = 8  # warps that take attention (row, head) pairs
+CONSUMERS = 256  # consumer threads of a CTA (csrc/wstream.cuh kThreads)
+WARPS = CONSUMERS // 32
 PHASES = ("proj", "qkv", "o", "gu", "down")  # the kernel's phase kinds, in its order
 _MATRICES = ("proj_w", "qkv", "o", "gu", "dn")
 _workspace: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -92,11 +104,19 @@ def micro_step_weights(params: Dict) -> Weights:
     }
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """A cache as [L, R, S, KVH, D]; one row's [L, S, KVH, D] gains its row
+    axis (a view: writes reach the caller's tensor)."""
+    if t.dim() not in (4, 5):
+        raise ValueError(f"the cache must be [L, R, S, KVH, D] or one row's [L, S, KVH, D], "
+                         f"got {tuple(t.shape)}")
+    return t.unsqueeze(1) if t.dim() == 4 else t
+
+
 def _geometry(w: Weights, kv_k: torch.Tensor) -> Tuple[int, ...]:
-    """(Ht, Hp, NH, KVH, D, I, L, S), checked against every weight."""
-    if kv_k.dim() != 4:
-        raise ValueError(f"kv_k must be [L, S, KVH, D], got {tuple(kv_k.shape)}")
-    L, S, KVH, D = kv_k.shape
+    """(Ht, Hp, NH, KVH, D, I, L, S) of a cache [L, R, S, KVH, D] or [L, S,
+    KVH, D], checked against every weight."""
+    L, _, S, KVH, D = _rows(kv_k).shape
     Ht, Hp = w["proj_w"].shape
     QT = w["qkv"].shape[-1]
     NH = QT // D - 2 * KVH
@@ -107,7 +127,7 @@ def _geometry(w: Weights, kv_k: torch.Tensor) -> Tuple[int, ...]:
     for name, shape in want.items():
         if tuple(w[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(w[name].shape)}, want {shape} for "
-                             f"a [{L}, {S}, {KVH}, {D}] cache")
+                             f"a [{L}, R, {S}, {KVH}, {D}] cache")
     if NH < 1 or NH % KVH:
         raise ValueError(f"{NH} query heads do not group over {KVH} kv heads")
     return Ht, Hp, NH, KVH, D, I, L, S
@@ -128,11 +148,24 @@ def fused_micro_step_plain(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor,
                            pos: torch.Tensor, eps: float = 1e-6,
                            geo: Optional[Dict[str, wstream.Geo]] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The micro-step in PyTorch ops, with the kernel's arithmetic.  Writes
-    slot ``pos`` of the cache in place; returns (h [1, Hp], kv_k, kv_v).
-    With ``geo`` (``phase_geometry``) every product is summed over its row
-    splits in split order, as the kernel's readers sum them."""
-    Ht, Hp, NH, KVH, D, I, L, S = _geometry(w, kv_k)
+    """The micro-step in PyTorch ops, with the kernel's arithmetic, row by
+    row (the rows meet only in ``pos``).  Writes slot ``pos`` of the cache
+    [L, R, S, KVH, D] (or one row's [L, S, KVH, D]) in place; returns (h
+    [R, Hp], kv_k, kv_v).  With ``geo`` (``phase_geometry``) every product
+    is summed over its row splits in split order, as the kernel's readers
+    sum them."""
+    k5, v5 = _rows(kv_k), _rows(kv_v)
+    _geometry(w, kv_k)
+    h = [_plain_row(w, x_emb[r:r + 1], cos, sin, k5[:, r], v5[:, r], pos, eps, geo)
+         for r in range(x_emb.shape[0])]
+    return torch.cat(h), kv_k, kv_v
+
+
+def _plain_row(w: Weights, x_emb, cos, sin, kv_k, kv_v, pos, eps, geo):
+    """One row: x_emb [1, Ht], the row's cache [L, S, KVH, D] -> h [1, Hp]."""
+    L, S, KVH, D = kv_k.shape
+    NH = w["qkv"].shape[-1] // D - 2 * KVH
+    I = w["dn"].shape[1]
     dt = x_emb.dtype
     G = NH // KVH
 
@@ -170,7 +203,7 @@ def fused_micro_step_plain(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor,
         gu = mv(_rms_f32(xp, w["post_norm"][l], eps), w["gu"][l], "gu")
         g, u = gu[:, :I], gu[:, I:]
         xp = xp + mv(g * torch.sigmoid(g) * u, w["dn"][l], "down")
-    return _rms_f32(xp, w["final_norm"], eps).to(dt), kv_k, kv_v
+    return _rms_f32(xp, w["final_norm"], eps).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -223,14 +256,90 @@ def cta_jobs(dims, geo: Dict[str, wstream.Geo], cta: int, elt_size: int):
     return jobs
 
 
+def instance(dims, R: int, dtype: torch.dtype, grid: int):
+    """(geometry, rows) of a launch of R rows of these dims on a grid of
+    ``grid`` CTAs: ``phase_geometry`` and the kernel's rows argument (R,
+    owners, own_cols, workers).  At R > 1, CTA c < owners keeps the
+    residual's columns [c own_cols, (c + 1) own_cols), and (row, head)
+    attention pair i goes to CTA i % workers; both deal among the CTAs that
+    run (every CTA with an item, or the whole grid with barriers).  Raises
+    ValueError naming what has no kernel instance (the kernel's own check is
+    csrc/predictor_step.cu:fits)."""
+    Ht, Hp, NH, KVH, D, I, L, S = dims
+    why = []
+    if dtype not in _DTYPE_CODE:
+        why.append(f"{dtype} (bfloat16 or float32)")
+    if (D not in HEAD_DIMS or S > MAX_S or max(Ht, NH * D, I) > MAX_K or Hp > MAX_HP
+            or any(n % wstream.VEC for n in (Ht, Hp, I))):
+        why.append(f"Ht {Ht}, Hp {Hp}, {NH}/{KVH} heads of {D}, I {I}, {S} slots (needs "
+                   f"head_dim in {HEAD_DIMS}, widths <= {MAX_K}, Hp <= {MAX_HP}, Ht, Hp and "
+                   f"I multiples of {wstream.VEC}, <= {MAX_S} slots)")
+    if not 1 <= R <= MAX_ROWS:
+        why.append(f"{R} rows (1 to {MAX_ROWS})")
+    if why:
+        raise ValueError("fused_micro_step has no kernel instance for " + "; ".join(why))
+    elt = torch.empty((), dtype=dtype).element_size()
+    geo = phase_geometry(dims, grid)
+    if 2 * geo["gu"].cols > MAX_ITEM_COLS:
+        why.append(f"I {I} on this grid")
+    if R == 1:
+        if 2 * attention_kv_heads(dims, geo["o"]) * S * D * elt > KV_BYTES:
+            why.append(f"{S} slots of {KVH} kv heads of {D}: an item's cache rows exceed "
+                       f"{KV_BYTES} bytes of shared memory")
+        return _checked(geo, (1, 0, 0, 0), why)
+    workers = _workers(dims, geo, grid)
+    own_cols = _own_cols(dims, geo, workers)
+    RP = ROW_BLOCK * -(-R // ROW_BLOCK)
+    pairs_per_cta = -(-R * NH // workers)
+    stride = max(g.chunk for g in geo.values()) + 16 // elt
+    if R > workers:
+        why.append(f"{R} rows on {workers} CTAs")
+    if own_cols > 32 or R * own_cols > OWN_FLOATS:
+        why.append(f"{own_cols} residual columns an owner at {R} rows")
+    if pairs_per_cta > ATTN_WARPS or 2 * pairs_per_cta * S * D * elt > KV_BYTES:
+        why.append(f"{pairs_per_cta} attention pairs a CTA over {S} slots of {D} (at most "
+                   f"{ATTN_WARPS}, {KV_BYTES} bytes of cache rows)")
+    if MAX_ROWS * stride * elt > ACT_BYTES:
+        why.append(f"row splits of {stride - 16 // elt} in {ACT_BYTES} bytes at {elt} a value")
+    for kind, g in geo.items():
+        cols = (2 if kind == "gu" else 1) * g.cols
+        threads = cols // wstream.VEC * (RP // ROW_BLOCK)
+        if elt == 2:
+            bad = cols % 16 or cols // 8 > MAX_TILES or WARPS * MAX_ROWS * cols * 4 > ACT_BYTES
+        else:
+            bad = threads > CONSUMERS or CONSUMERS // threads * (RP * cols + 4) * 4 > ACT_BYTES
+        if bad or MAX_ROWS * cols > RES_FLOATS:
+            why.append(f"the {kind} phase's items ({g.chunk} rows x {cols} columns) at {R} rows")
+    return _checked(geo, (R, -(-Hp // own_cols), own_cols, workers), why)
+
+
+def _workers(dims, geo: Dict[str, wstream.Geo], grid: int) -> int:
+    """The CTAs that run a launch of R > 1 rows: every CTA with an item, or
+    the whole grid where the phases meet at barriers."""
+    Hp = dims[1]
+    return grid if needs_barriers(dims, geo) else wstream.num_items(Hp, Hp, geo["proj"])
+
+
+def _own_cols(dims, geo: Dict[str, wstream.Geo], workers: int) -> int:
+    """The residual's columns one owner CTA keeps (a multiple of 8)."""
+    Hp = dims[1]
+    return wstream.VEC * -(-Hp // (wstream.VEC * workers))
+
+
+def _checked(geo, rows, why):
+    if why:
+        raise ValueError("fused_micro_step has no kernel instance for " + "; ".join(why))
+    return geo, rows
+
+
 def bind(lib: ctypes.CDLL):
     """(micro_step, micro_step_grid, grid_barriers) of a built library."""
     step = lib.qwen3tts_micro_step
-    step.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_float,
+    step.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_float,
                                                               ctypes.c_void_p]
     step.restype = ctypes.c_int
     grid = lib.qwen3tts_micro_step_grid
-    grid.argtypes = [ctypes.c_int, ctypes.c_int]
+    grid.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     grid.restype = ctypes.c_int
     barriers = lib.qwen3tts_grid_barriers
     barriers.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -253,16 +362,19 @@ def needs_barriers(dims, geo: Dict[str, wstream.Geo]) -> bool:
                 for kind, kn in phase_dims(dims).items()}) > 1
 
 
-def _workspace_for(device, dims, geo: Dict[str, wstream.Geo]):
+def _workspace_for(device, dims, geo: Dict[str, wstream.Geo], rows: Tuple[int, ...]):
     """What crosses the grid between phases, as 8-byte tagged words (proj /
-    down, qkv and o partial sums: one row per row split; the activation),
-    zeroed once, and the sync words {grid barrier, next launch's tags, CTAs
-    done}, allocated once per shape (never during CUDA-graph capture).
-    Launches are ordered on the stream, so one set serves them all."""
+    down, qkv and o partial sums: one row per row split and row; the
+    activation; at R > 1 also the owners' residual, their sums of squares
+    and the attention's output), zeroed once, and the sync words
+    {grid barrier, next launch's tags, CTAs done}, allocated once per shape
+    (never during CUDA-graph capture).  ``rows`` is ``instance``'s.  Launches
+    are ordered on the stream, so one set serves them all."""
     Ht, Hp, NH, KVH, D, I, L, S = dims
     QT = (NH + 2 * KVH) * D
-    n = (max(geo["proj"].splits, geo["down"].splits) * Hp + geo["qkv"].splits * QT
-         + geo["o"].splits * Hp + I)
+    R, owners = rows[0], rows[1]
+    n = R * (max(geo["proj"].splits, geo["down"].splits) * Hp + geo["qkv"].splits * QT
+             + geo["o"].splits * Hp + I + (Hp + owners + NH * D if R > 1 else 0))
     key = (device, n)
     ws = _workspace.get(key)
     if ws is None:
@@ -278,8 +390,9 @@ def _check(w: Weights, x_emb, cos, sin, kv_k, kv_v, pos, dims):
     """Shapes and dtypes, on every device: the matrices, x_emb and the cache
     in one dtype, everything else float32 except the int32 pos."""
     Ht, Hp, NH, KVH, D, I, L, S = dims
-    if x_emb.shape != (1, Ht) or kv_v.shape != kv_k.shape:
-        raise ValueError(f"x_emb [1, {Ht}] and kv_v {tuple(kv_k.shape)} wanted; got "
+    R = kv_k.shape[1]
+    if x_emb.shape != (R, Ht) or kv_v.shape != kv_k.shape:
+        raise ValueError(f"x_emb [{R}, {Ht}] and kv_v {tuple(kv_k.shape)} wanted; got "
                          f"{tuple(x_emb.shape)}, {tuple(kv_v.shape)}")
     if cos.shape != (D,) or sin.shape != (D,) or pos.numel() != 1:
         raise ValueError(f"cos/sin [{D}] and a one-element pos wanted; got "
@@ -297,8 +410,7 @@ def _check(w: Weights, x_emb, cos, sin, kv_k, kv_v, pos, dims):
     return tensors
 
 
-def _check_cuda(tensors: Dict, x_emb: torch.Tensor, dims):
-    Ht, Hp, NH, KVH, D, I, L, S = dims
+def _check_cuda(tensors: Dict, x_emb: torch.Tensor):
     if x_emb.device.type != "cuda":
         raise ValueError(f"fused_micro_step runs on cpu or cuda, not {x_emb.device}")
     if x_emb.dtype not in _DTYPE_CODE:
@@ -310,39 +422,31 @@ def _check_cuda(tensors: Dict, x_emb: torch.Tensor, dims):
             raise ValueError(f"{name} must be contiguous")
         if name in _MATRICES + ("kv_k", "kv_v") and t.data_ptr() % 16:  # 16-byte loads
             raise ValueError(f"{name} must be 16-byte aligned")
-    if (D not in HEAD_DIMS or S > MAX_S or max(Ht, NH * D, I) > MAX_K or Hp > MAX_HP
-            or any(n % wstream.VEC for n in (Ht, Hp, I))):
-        raise ValueError(f"fused_micro_step has no kernel instance for Ht {Ht}, Hp {Hp}, "
-                         f"{NH}/{KVH} heads of {D}, I {I}, {S} slots (needs head_dim in "
-                         f"{HEAD_DIMS}, widths <= {MAX_K}, Hp <= {MAX_HP}, Ht, Hp and I "
-                         f"multiples of {wstream.VEC}, <= {MAX_S} slots)")
 
 
 def fused_micro_step(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                      kv_k: torch.Tensor, kv_v: torch.Tensor, pos: torch.Tensor,
                      eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One predictor micro-step: x_emb [1, Ht] (a codec embedding in talker
-    space) -> (h [1, Hp], kv_k, kv_v), the cache [L, S, KVH, D] written in
-    place at slot ``pos`` (int32, one element).  ``w`` comes from
-    ``micro_step_weights``; ``cos``/``sin`` are the float32 rope rows [D]
-    for ``pos``.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (or raise)."""
-    dims = _geometry(w, kv_k)
+    """One predictor micro-step of R rows: x_emb [R, Ht] (codec embeddings
+    in talker space) -> (h [R, Hp], kv_k, kv_v), the cache [L, R, S, KVH, D]
+    (or one row's [L, S, KVH, D]) written in place at slot ``pos`` (int32,
+    one element, every row's).
+    ``w`` comes from ``micro_step_weights``; ``cos``/``sin`` are the float32
+    rope rows [D] for ``pos``.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    k5, v5 = _rows(kv_k), _rows(kv_v)
+    dims = _geometry(w, k5)
     Ht, Hp, NH, KVH, D, I, L, S = dims
-    tensors = _check(w, x_emb, cos, sin, kv_k, kv_v, pos, dims)
+    R = k5.shape[1]
+    tensors = _check(w, x_emb, cos, sin, k5, v5, pos, dims)
     if x_emb.device.type == "cpu":
         return fused_micro_step_plain(w, x_emb, cos, sin, kv_k, kv_v, pos, eps)
-    _check_cuda(tensors, x_emb, dims)
+    _check_cuda(tensors, x_emb)
     step, _, _ = _kernel_fns()
-    geo = phase_geometry(dims, kernel_grid(x_emb.dtype, D))
-    if 2 * geo["gu"].cols > MAX_ITEM_COLS:
-        raise ValueError(f"fused_micro_step has no kernel instance for I {I} on this grid")
-    if 2 * attention_kv_heads(dims, geo["o"]) * S * D * x_emb.element_size() > KV_BYTES:
-        raise ValueError(f"fused_micro_step has no kernel instance for {S} slots of "
-                         f"{KVH} kv heads of {D}: an item's cache rows exceed {KV_BYTES} "
-                         f"bytes of shared memory")
-    out = torch.empty((1, Hp), dtype=x_emb.dtype, device=x_emb.device)
-    ws, sync = _workspace_for(x_emb.device, dims, geo)
+    grid = kernel_grid(x_emb.dtype, D, R > 1)
+    geo, rows = instance(dims, R, x_emb.dtype, grid)
+    out = torch.empty((R, Hp), dtype=x_emb.dtype, device=x_emb.device)
+    ws, sync = _workspace_for(x_emb.device, dims, geo, rows)
     ptrs = (ctypes.c_void_p * 20)(*(t.data_ptr() for t in (
         x_emb, w["proj_w"], w["proj_b"], w["in_norm"], w["post_norm"], w["q_norm"],
         w["k_norm"], w["final_norm"], w["qkv"], w["o"], w["gu"], w["dn"], cos, sin,
@@ -350,9 +454,10 @@ def fused_micro_step(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor, sin: to
     dims_c = (ctypes.c_int * 8)(*dims)
     geo_c = (ctypes.c_int * 16)(*(v for kind in PHASES for v in geo[kind]),
                                 int(needs_barriers(dims, geo)))
+    rows_c = (ctypes.c_int * 4)(*rows)
     with torch.cuda.device(x_emb.device):
-        rc = step(_DTYPE_CODE[x_emb.dtype], ptrs, dims_c, geo_c, float(eps), float(D ** -0.5),
-                  torch.cuda.current_stream(x_emb.device).cuda_stream)
+        rc = step(_DTYPE_CODE[x_emb.dtype], ptrs, dims_c, geo_c, rows_c, float(eps),
+                  float(D ** -0.5), torch.cuda.current_stream(x_emb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_micro_step kernel launch failed: cudaError {rc}")
     cuda_build.count_launches(fused_micro_step)
@@ -363,10 +468,11 @@ fused_micro_step.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_grid(dtype: torch.dtype, head_dim: int) -> int:
-    """CTAs of one micro-step launch on the current card (one per SM)."""
+def kernel_grid(dtype: torch.dtype, head_dim: int, rows: bool = False) -> int:
+    """CTAs of one micro-step launch on the current card (one per SM), of
+    one row or (``rows``) of 2 to 16."""
     _, grid, _ = _kernel_fns()
-    n = grid(_DTYPE_CODE[dtype], head_dim)
+    n = grid(_DTYPE_CODE[dtype], head_dim, 2 if rows else 1)
     if n <= 0:
         raise RuntimeError(f"no co-resident grid for the micro-step kernel: cudaError {-n}")
     return n

@@ -61,10 +61,14 @@ Options as in the JAX engine: ``batch`` (rows per step); ``use_flash_decode``
 (default on; ``False`` runs the plain masked attention, for debugging);
 ``use_fused_kernels`` (default off) runs the talker's decode step and the
 predictor's 14 micro-steps through the fused block kernels
-(``ops/fused_block.py``); ``use_micro_kernel`` (default off, batch 1 only)
-runs each predictor micro-step as one launch of
-``ops/predictor_step.py:fused_micro_step`` where ``predict_frame``'s gate
-lets it (quantized predictor blocks, int8 or w8a8, keep the other paths);
+(``ops/fused_block.py``); ``use_micro_kernel`` runs each predictor
+micro-step as one launch of ``ops/predictor_step.py:fused_micro_step`` for
+all the rows: by default (None) wherever its one gate,
+``models/predictor.py:micro_kernel_misfit``, lets it (CUDA tensors, at most
+16 rows, plain predictor blocks, no sliding window, no mesh), the eager
+block chain elsewhere; True raises where the gate refuses; False always
+runs the eager chain (the JAX engine's default, kept by profilers that time
+the chain's products);
 ``kv_quant`` keeps the talker's KV cache in int8 with f32 per-(slot, head)
 scales, read by the int8-KV flash-decode kernel.
 
@@ -76,7 +80,7 @@ rank-local geometry (``BlockSpec.shard``), the caches split by kv head
 model's collectives go over ``mesh.tp_group``.  ``join_row``, the chunks,
 ``prefill`` and ``release`` need nothing else: their writes land on the
 batch and slot axes, never on kv heads.  With a mesh the fused kernels,
-the micro-step kernel and quantized weights raise (each runs, inside one
+an asked-for micro-step kernel and quantized weights raise (each runs, inside one
 kernel or one product, what the row-parallel all-reduce must split), and
 so do captured chunks on a gloo group, which CUDA graphs cannot hold, and
 on NCCL unless ``NCCL_GRAPH_MIXING_SUPPORT=0`` was set before the group
@@ -105,6 +109,7 @@ from ..models.layers import unstack_layers
 from ..models.predictor import SamplingPolicy
 from ..ops.predictor_step import micro_step_weights
 from ..ops.quant import is_quantized
+from ..utils.timing import TRACE
 from ..ops.sampling import apply_repetition_penalty, build_suppress_mask, sample_logits
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
@@ -226,7 +231,7 @@ class Engine:
         batch: int = 1,
         use_flash_decode: Optional[bool] = None,
         use_fused_kernels: Optional[bool] = None,
-        use_micro_kernel: bool = False,
+        use_micro_kernel: Optional[bool] = None,
         use_cuda_graphs: Optional[bool] = None,
         kv_quant: bool = False,
         mesh=None,
@@ -239,9 +244,6 @@ class Engine:
         self.max_seq_len = max_seq_len
         if batch < 1:
             raise ValueError(f"batch must be at least 1, got {batch}")
-        if use_micro_kernel and batch > 1:
-            raise ValueError("use_micro_kernel=True runs fused_micro_step, which takes batch 1 "
-                             f"only (as on the TPU); got batch {batch}")
         self.batch = batch
         emb = talker_params["codec_embedding"]
         self.device = emb.device
@@ -253,17 +255,23 @@ class Engine:
         self.use_flash_decode = use_flash_decode is not False
         # off unless asked for, as in the JAX engine (engine.py:142-153)
         self.use_fused_kernels = bool(use_fused_kernels)
-        self.use_micro_kernel = bool(use_micro_kernel)
         if use_cuda_graphs is None:
             use_cuda_graphs = self.device.type == "cuda"
         self.group = None if mesh is None else mesh.tp_group
         self.tp = 1 if mesh is None else mesh.shape["tp"]
         if mesh is not None:
             _check_mesh(mesh, talker_params, predictor_params, self.use_fused_kernels,
-                        self.use_micro_kernel, use_cuda_graphs)
-        self._micro_weights = None
-        if self.use_micro_kernel and not is_quantized(predictor_params["blocks"]["qkv_proj"]):
-            self._micro_weights = micro_step_weights(predictor_params)
+                        bool(use_micro_kernel), use_cuda_graphs)
+        misfit = predictor_lib.micro_kernel_misfit(predictor_params, cfg.predictor, batch,
+                                                   self.device, self.group)
+        if use_micro_kernel and misfit:
+            raise ValueError(f"use_micro_kernel=True: {misfit}")
+        self.use_micro_kernel = misfit is None and use_micro_kernel is not False
+        # which path each dispatched frame step takes (TRACE's counters)
+        self._frames_counter = ("predictor_frames.kernel" if self.use_micro_kernel
+                                else "predictor_frames.eager")
+        self._micro_weights = (micro_step_weights(predictor_params) if self.use_micro_kernel
+                               else None)
         self.kv_quant = kv_quant
         self._talker_layers = unstack_layers(talker_params["blocks"])
         self._pred_layers = unstack_layers(predictor_params["blocks"])
@@ -505,6 +513,7 @@ class Engine:
         (state, frame [B, 16])."""
         self._own(state)
         frame = self._one_step(state, self._tth(tth, tpe), tth_len, tpe)
+        TRACE.count(self._frames_counter)
         state["pos_host"] += 1
         return state, frame
 
@@ -529,6 +538,7 @@ class Engine:
                     audio, voc_state = self._vocode(vocoder, voc_state, out[0][:, :steps],
                                                     pcm16, full_batch)
                 out = (*out, audio, voc_state)
+        TRACE.count(self._frames_counter, steps)
         state["pos_host"] += steps
         state["planned"].append(steps)
         return (state, *out)

@@ -1,6 +1,6 @@
 """Measure the design choices behind the port's CUDA kernels on the card.
 
-    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm|intmm|w8a8]
+    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm|intmm|w8a8|rows]
 
 ``stream`` (fused_o_mlp and fused_micro_step, csrc/wstream.cuh) builds the
 two sources once more per variant with a ``-DQWEN3TTS_...`` flag and, at the
@@ -90,6 +90,15 @@ cluster), its floor: launch, barriers, one round trip; and, at 1 and 16
 rows, from a copy built with QWEN3TTS_STAMPS (%globaltimer at each phase
 of a CTA), when the CTAs reached each phase of one call (median and last
 CTA, us from the first CTA's entry).
+
+``rows`` (fused_micro_step at R rows, csrc/predictor_step.cu) prints nvcc's
+register, spill and shared-memory report of the predictor step's instances,
+then at the 0.6B predictor's shapes in bf16 (proj input 1024, and 2048 as in
+the 1.7B), for R 1, 2, 4, 8 and 16 rows: the time a micro-step in a CUDA graph
+of a frame's 14 (each checked against the plain version and run twice for
+the same bits first), beside R one-row launches a step (R caches), the
+plain version on the card, and the bound (the weights' bytes over 3.35
+TB/s).
 """
 from __future__ import annotations
 
@@ -726,6 +735,82 @@ def main():
         intmm_probe()
     if which in ("all", "w8a8"):
         w8a8_probe()
+    if which in ("all", "rows"):
+        rows_probe()
+
+
+def rows_probe():
+    """See the module docstring (``rows``)."""
+    from ..core.presets import get_preset
+    from ..models import predictor as predictor_lib
+    from ..ops import predictor_step as ps
+
+    cuda_build.load_all()
+    libs, _ = _build_variants(({k: STREAM_VARIANTS[k] for k in
+                                ("stamped", "stream alone (no products)")}, ("predictor_step",)))
+    for line in cuda_build.build_log.get("predictor_step", "").splitlines():
+        if re.search(r"registers|spill|Compiling entry", line):
+            print("  " + line.strip())
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    pcfg = get_preset("qwen3-tts-0.6b").predictor
+    Lp, S, KVH, D = (pcfg.num_hidden_layers, pcfg.max_seq, pcfg.num_key_value_heads,
+                     pcfg.head_dim)
+    steps = pcfg.num_codebooks - 1
+    poss = [torch.full((1,), 2 + i, dtype=torch.int32, device=dev) for i in range(steps)]
+    ropes = [tuple(t[0, 0] for t in predictor_lib._rope(pcfg, p.reshape(1, 1))) for p in poss]
+    for Ht in (1024, 2048):
+        wts = ps.micro_step_weights(predictor_lib.init_params(g, pcfg, Ht, torch.bfloat16, dev))
+        nbytes = sum(t.numel() * t.element_size() for t in wts.values())
+        bound = nbytes / 3.35e12 * 1e6
+        print(f"fused_micro_step bf16, Ht {Ht}: {nbytes / 1e6:.1f} MB of weights, bound "
+              f"{bound:.2f} us a micro-step")
+        for R in (1, 2, 4, 8, 16):
+            kk, vv = (torch.randn((Lp, R, S, KVH, D), generator=g, device=dev).bfloat16()
+                      for _ in range(2))
+            xs = [(0.5 * torch.randn((R, Ht), generator=g, device=dev)).bfloat16()
+                  for _ in range(steps)]
+
+            def step(i, fn=ps.fused_micro_step, k=kk, v=vv, x=None):
+                return fn(wts, xs[i] if x is None else x, *ropes[i], k, v, poss[i],
+                          pcfg.rms_norm_eps)
+
+            k0, v0 = kk.clone(), vv.clone()
+            outs = []
+            for _ in range(2):
+                kk.copy_(k0)
+                vv.copy_(v0)
+                outs.append([step(i)[0].clone() for i in range(steps)] + [kk.clone(), vv.clone()])
+            same = all(torch.equal(a, b) for a, b in zip(*outs))
+            kp, vp = k0.clone(), v0.clone()
+            err = max((step(i, ps.fused_micro_step_plain, kp, vp)[0].float()
+                       - outs[0][i].float()).abs().max().item() for i in range(steps))
+            t_k = graph_us(step, steps)
+            singles = [tuple(t[:, r].contiguous() for t in (kk, vv)) for r in range(R)]
+            t_1 = graph_us(lambda i: [step(i, k=a, v=b, x=xs[i][r:r + 1])
+                                      for r, (a, b) in enumerate(singles)], steps)
+            t_p = graph_us(lambda i: step(i, ps.fused_micro_step_plain), steps, replays=3)
+            print(f"  R {R:2d}: kernel {t_k:.2f} us ({bound / t_k:.1%} of the bound), "
+                  f"{R} one-row launches {t_1:.2f}, plain {t_p:.2f}; max |kernel - plain| "
+                  f"{err:.3g} (chained), two runs the same bits: {same}")
+            if Ht == 2048 or R not in (2, 16):
+                continue
+            shipped = ps._kernel_fns
+            try:
+                _with_lib(ps, libs[("stream alone (no products)", "predictor_step")])
+                t_s = graph_us(step, steps)
+                _with_lib(ps, libs[("stamped", "predictor_step")])
+                for i in range(steps):
+                    step(i)
+                rel = _read_stamps(libs[("stamped", "predictor_step")], 132)
+            finally:
+                ps._kernel_fns = shipped
+            print(f"    the stream alone (no products) {t_s:.2f} us; phases of the last step, us "
+                  "from the first CTA's entry, median over CTAs (a phase's end: its outputs "
+                  "written; the step after it ends where the next phase starts):")
+            kinds = ["proj"] + ["qkv", "o", "gate|up", "down"] * Lp
+            names = ["entry"] + [f"{i} {k}" for i, k in enumerate(kinds)] + ["final norm"]
+            print("\n".join(_phase_lines(rel, names)))
 
 
 def intmm_probe():

@@ -19,7 +19,11 @@ inputs from numpy seeds, greedy talker and predictor).
 - ``generate_voice_clone_batch``: the stacked prompt within 1e-5 of JAX's,
   greedy batch tokens from it equal JAX's, B waveforms of the budget's
   length (x-vector and ICL).
-- ``Engine(batch=2, use_micro_kernel=True)`` raises.
+- The micro-step kernel's one gate (``micro_kernel_misfit``): on the CPU,
+  above 16 rows, with quantized blocks or a tp group the default engine runs
+  the eager chain and ``use_micro_kernel=True`` raises; where the gate lets
+  it, the default takes the kernel and ``False`` keeps the chain.  The
+  ``predictor_frames.kernel`` / ``.eager`` counters add each dispatched step.
 """
 import numpy as np
 import pytest
@@ -41,9 +45,13 @@ from qwen3tts_tpu_torch import FasterQwen3TTS  # noqa: E402
 from qwen3tts_tpu_torch.audio.vocoder import Vocoder  # noqa: E402
 from qwen3tts_tpu_torch.core.loader import bundle_from_jax_numpy  # noqa: E402
 from qwen3tts_tpu_torch.core.presets import get_preset  # noqa: E402
+from qwen3tts_tpu_torch.models import predictor as TP  # noqa: E402
 from qwen3tts_tpu_torch.models.predictor import SamplingPolicy  # noqa: E402
+from qwen3tts_tpu_torch.ops.quant import quantize_bundle  # noqa: E402
 from qwen3tts_tpu_torch.runtime import loops  # noqa: E402
+from qwen3tts_tpu_torch.runtime import engine as engine_lib  # noqa: E402
 from qwen3tts_tpu_torch.runtime.engine import Engine, GenerationPolicy  # noqa: E402
+from qwen3tts_tpu_torch.utils.timing import TRACE  # noqa: E402
 
 LENGTHS = (6, 10, 8)
 STEPS, CHUNK, MAX_SEQ = 8, 4, 128
@@ -452,11 +460,61 @@ def test_voice_clone_batch_api_equals_jax(setup, ref_wav, monkeypatch):
     assert tm.generate_voice_clone_batch([], "english", ref_wav, "ref") == ([], 24_000)
 
 
-def test_micro_kernel_is_batch_1_only(setup):
-    with pytest.raises(ValueError, match="batch 1"):
-        _engine(setup, batch=2, use_micro_kernel=True)
+def test_micro_kernel_is_batch_1_only(setup, monkeypatch):
+    """One gate decides the path, at any batch up to 16.  On the CPU the
+    default is the eager chain and True raises, naming every reason (above
+    16 rows, quantized blocks); False is the chain.  Where the gate lets it
+    (patched to, as on the card), the default and True take the kernel at
+    any batch up to 16 and False keeps the chain."""
     with pytest.raises(ValueError, match="at least 1"):
         _engine(setup, batch=0)
     eng = _engine(setup, batch=2)
+    assert not eng.use_micro_kernel and eng._micro_weights is None
     with pytest.raises(ValueError, match="batch 2"):
         eng.prefill(setup["embeds"][0], None, *_policies())
+    with pytest.raises(ValueError, match="use_micro_kernel=True: the tensors are on cpu"):
+        _engine(setup, batch=2, use_micro_kernel=True)
+    with pytest.raises(ValueError, match="17 rows"):
+        _engine(setup, batch=17, use_micro_kernel=True)
+    tm = setup["tm"]
+    q = quantize_bundle(tm.params, "int8-predictor")
+    with pytest.raises(ValueError, match="quantized"):
+        Engine(q["talker"], q["predictor"], tm.cfg, max_seq_len=MAX_SEQ, use_micro_kernel=True)
+    assert not Engine(q["talker"], q["predictor"], tm.cfg, max_seq_len=MAX_SEQ).use_micro_kernel
+    assert "tp group" in TP.micro_kernel_misfit(tm.params["predictor"], tm.cfg.predictor, 2,
+                                                torch.device("cpu"), object())
+    assert not _engine(setup, batch=2, use_micro_kernel=False).use_micro_kernel
+
+    real = TP.micro_kernel_misfit
+    monkeypatch.setattr(engine_lib.predictor_lib, "micro_kernel_misfit",
+                        lambda p, c, rows, device=None, group=None: real(p, c, rows, None, group))
+    for batch in (1, 2, 16):
+        assert _engine(setup, batch=batch).use_micro_kernel
+        assert _engine(setup, batch=batch, use_micro_kernel=True)._micro_weights is not None
+        assert not _engine(setup, batch=batch, use_micro_kernel=False).use_micro_kernel
+    assert not Engine(q["talker"], q["predictor"], tm.cfg, max_seq_len=MAX_SEQ).use_micro_kernel
+
+
+@pytest.mark.parametrize("path", ["eager", "kernel"])
+def test_predictor_frame_counters_add_dispatched_steps(setup, monkeypatch, path):
+    """Each dispatched frame step adds one to its engine's path counter: a
+    chunk of n steps n (an eager engine here; a captured chunk books the
+    same n), ``decode_step`` one.  The kernel path on the CPU runs the
+    micro-step's plain version (the gate patched to let it)."""
+    if path == "kernel":
+        real = TP.micro_kernel_misfit
+        monkeypatch.setattr(engine_lib.predictor_lib, "micro_kernel_misfit",
+                            lambda p, c, rows, device=None, group=None: real(p, c, rows, None, group))
+    eng = _engine(setup, batch=3)
+    assert eng.use_micro_kernel == (path == "kernel")
+    pol, ppol = _policies()
+    state = eng.prefill(setup["batch"], None, pol, ppol, pad_count=setup["pads"])
+    tth, tpe = (torch.from_numpy(setup[k]) for k in ("tth", "tpe"))
+    before = dict(TRACE.counters)
+    state, frames, n, lens, done = eng.decode_chunk(state, tth, 4, tpe, 3)
+    state, _ = eng.decode_step(state, tth, 4, tpe)
+    got = {k: TRACE.counters.get(k, 0) - before.get(k, 0)
+           for k in ("predictor_frames.kernel", "predictor_frames.eager")}
+    other = "eager" if path == "kernel" else "kernel"
+    assert got == {f"predictor_frames.{path}": 4, f"predictor_frames.{other}": 0}
+    assert frames.shape == (3, 3, 16) and int(n) == 3

@@ -8,6 +8,7 @@ has no JAX, so this file imports none and runs without tests/conftest.py:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -551,19 +552,25 @@ def test_micro_step_kernel_matches_plain(dtype):
     _micro_chain(w, pcfg, Ht, dt, pcfg.num_hidden_layers, tol, dtype == "float32")
 
 
-def _micro_chain(w, pcfg, Ht, dt, L, tol, free_running):
+def _micro_chain(w, pcfg, Ht, dt, L, tol, free_running, rows=None):
     """Kernel micro-steps, each against the plain version on the kernel's
-    cache; with ``free_running`` the plain chain also runs on its own."""
+    cache; with ``free_running`` the plain chain also runs on its own.  With
+    ``rows`` the cache is [L, rows, S, KVH, D] and x [rows, Ht]; without,
+    one row's [L, S, KVH, D] and x [1, Ht]."""
     from qwen3tts_tpu_torch.models import predictor as P
 
     atol, rtol = tol
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    shape = (L, pcfg.max_seq, pcfg.num_key_value_heads, pcfg.head_dim)
+    lead = (L,) if rows is None else (L, rows)
+    slot = len(lead)  # the cache's slot axis
+    shape = lead + (pcfg.max_seq, pcfg.num_key_value_heads, pcfg.head_dim)
     k0, v0 = (torch.zeros(shape, device=dev, dtype=dt) for _ in range(2))
-    k0[:, :2] = torch.randn(k0[:, :2].shape, generator=g, device=dev).to(dt)
-    v0[:, :2] = torch.randn(v0[:, :2].shape, generator=g, device=dev).to(dt)
-    xs = [(0.5 * torch.randn((1, Ht), generator=g, device=dev)).to(dt) for _ in range(4)]
+    for t in (k0, v0):
+        t.narrow(slot, 0, 2).copy_(torch.randn(t.narrow(slot, 0, 2).shape, generator=g,
+                                               device=dev))
+    R = rows or 1
+    xs = [(0.5 * torch.randn((R, Ht), generator=g, device=dev)).to(dt) for _ in range(4)]
 
     def step(fn, i, kk, vv):
         pos = torch.full((1,), 2 + i, dtype=torch.int32, device=dev)
@@ -583,12 +590,14 @@ def _micro_chain(w, pcfg, Ht, dt, L, tol, free_running):
             assert ps.fused_micro_step.launches == before + 1
             hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
             torch.cuda.synchronize()
-            assert h.dtype == dt and h.shape == (1, pcfg.hidden_size)
+            assert h.dtype == dt and h.shape == (R, pcfg.hidden_size)
             close(h, hp)
             close(kk, kp)
             close(vv, vp)
             hs.append(h)
-        assert not kk[:, 2 + len(xs):].any() and not vv[:, 2 + len(xs):].any()
+        n = pcfg.max_seq - 2 - len(xs)
+        assert not kk.narrow(slot, 2 + len(xs), n).any()
+        assert not vv.narrow(slot, 2 + len(xs), n).any()
         runs.append(hs + [kk, vv])
     for a, b in zip(*runs):
         assert torch.equal(a, b)  # no float atomics: the same bits every run
@@ -599,6 +608,85 @@ def _micro_chain(w, pcfg, Ht, dt, L, tol, free_running):
             close(runs[0][i], hp)
         close(runs[0][-2], kp)
         close(runs[0][-1], vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rows", [("bfloat16", 1), ("bfloat16", 2), ("bfloat16", 4),
+                                        ("bfloat16", 16), ("float32", 4), ("float32", 16)])
+@pytest.mark.parametrize("talker_hidden", [1024, 2048])
+def test_micro_step_rows_match_plain(dtype, rows, talker_hidden):
+    """The kernel at R rows of one ``pos`` (a cache [L, R, S, KVH, D]; R 1
+    runs micro_step_kernel, 2-16 micro_rows_kernel) at the 0.6B predictor's
+    shapes, its proj input 1024 (0.6B) or 2048 wide (1.7B): four chained
+    steps against the plain version, one launch a step, two runs the same
+    bits; bf16 held to MICRO_BF16_TOL, float32 also free-running."""
+    _need_card()
+    from qwen3tts_tpu_torch.core.presets import get_preset
+
+    dt = getattr(torch, dtype)
+    pcfg = get_preset("qwen3-tts-0.6b").predictor
+    w = ps.micro_step_weights(_predictor_params(dt, pcfg, talker_hidden, seed=5))
+    tol = MICRO_BF16_TOL if dtype == "bfloat16" else TOL[dtype]
+    _micro_chain(w, pcfg, talker_hidden, dt, pcfg.num_hidden_layers, tol, dtype == "float32",
+                 rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_micro_step_rows_small_widths(dtype):
+    """3 rows of a predictor of small widths (hidden 128, 2/1 heads of 64, I
+    192, 5 layers): phases of unequal item counts meet at grid barriers, and
+    the rows are not a multiple of 4."""
+    _need_card()
+    from qwen3tts_tpu_torch.core.presets import get_preset
+
+    dt = getattr(torch, dtype)
+    pcfg = dataclasses.replace(get_preset("tiny").predictor, hidden_size=128,
+                               num_attention_heads=2, num_key_value_heads=1, head_dim=64,
+                               intermediate_size=192, num_hidden_layers=5)
+    w = ps.micro_step_weights(_predictor_params(dt, pcfg, 64, seed=9))
+    tol = MICRO_BF16_TOL if dtype == "bfloat16" else TOL[dtype]
+    _micro_chain(w, pcfg, 64, dt, 5, tol, dtype == "float32", rows=3)
+
+
+@pytest.mark.cuda
+def test_micro_step_rows_graph_replays_after_inputs_change():
+    """One captured graph of a 16-row micro-step at the 0.6B shapes (bf16),
+    replayed after x, the rope rows, pos and the cache were rewritten: every
+    replay equals the plain version on the same inputs, h and the cache."""
+    _need_card()
+    from qwen3tts_tpu_torch.core.presets import get_preset
+    from qwen3tts_tpu_torch.models import predictor as P
+
+    dt, R = torch.bfloat16, 16
+    atol, rtol = MICRO_BF16_TOL
+    cfg = get_preset("qwen3-tts-0.6b")
+    pcfg, Ht = cfg.predictor, cfg.talker.hidden_size
+    w = ps.micro_step_weights(_predictor_params(dt, pcfg, Ht, seed=5))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    shape = (pcfg.num_hidden_layers, R, pcfg.max_seq, pcfg.num_key_value_heads, pcfg.head_dim)
+    kk, vv = (torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(2))
+    x = torch.zeros((R, Ht), device=dev, dtype=dt)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    cos, sin = (torch.zeros((pcfg.head_dim,), device=dev) for _ in range(2))
+    before = ps.fused_micro_step.launches
+    graph, (h, _, _) = _graph_of(lambda: ps.fused_micro_step(w, x, cos, sin, kk, vv, pos,
+                                                             pcfg.rms_norm_eps))
+    assert ps.fused_micro_step.launches == before + 1  # the warm-up; the capture launches none
+    for p in (2, 9, 16, 5):
+        x.copy_(0.5 * torch.randn((R, Ht), generator=g, device=dev))
+        pos.fill_(p)
+        c, s_ = P._rope(pcfg, pos.reshape(1, 1))
+        cos.copy_(c[0, 0])
+        sin.copy_(s_[0, 0])
+        kp, vp = kk.clone(), vv.clone()
+        graph.replay()
+        hp, kp, vp = ps.fused_micro_step_plain(w, x, cos, sin, kp, vp, pos, pcfg.rms_norm_eps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h.float(), hp.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(kk.float(), kp.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(vv.float(), vp.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -821,6 +909,46 @@ def test_captured_chunks_equal_eager_tokens(mode, no_tf32):
     assert eng[False].graphs is None and eng[True].graphs.replays == 3
     assert eng[True].graphs.captures == 1
     torch.testing.assert_close(captured, eager, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_default_engines_take_the_micro_kernel(no_tf32):
+    """A default FasterQwen3TTS takes the whole-micro-step kernel at B 1 and
+    in its B 16 batch engine: their dispatched frame steps count only under
+    ``predictor_frames.kernel``, an eager step launches the kernel 14 times,
+    and a captured chunk gives the eager chunk's greedy tokens."""
+    _need_card()
+    from qwen3tts_tpu_torch.api.model import FasterQwen3TTS
+    from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
+    from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
+    from qwen3tts_tpu_torch.utils.timing import TRACE
+
+    params, cfg, _ = _graph_model("bf16")
+    model = FasterQwen3TTS(cfg, params, max_seq_len=128)
+    H = cfg.talker.hidden_size
+    for B in (1, 16):
+        eng = model._batch_engine(B)
+        assert eng.use_micro_kernel and eng.batch == B
+        g = torch.Generator().manual_seed(B)
+        embeds, tth, tpe = (torch.randn(s, generator=g) * 0.1 for s in
+                            ((B, 12, H), (B, 16, H), (B, 1, H)))
+        tth, tpe = tth.to("cuda", eng.dtype), tpe.to("cuda", eng.dtype)
+        pol = GenerationPolicy(do_sample=False, min_new_tokens=99)
+        frames = {}
+        for graphs in (False, True):
+            before = dict(TRACE.counters)
+            launches = ps.fused_micro_step.launches
+            state = eng.prefill(embeds, None, pol, SamplingPolicy(do_sample=False))
+            with (eng.eager() if not graphs else contextlib.nullcontext()):
+                _, f, n, lens, _ = eng.decode_chunk(state, tth, 5, tpe, 8)
+            frames[graphs] = f[:, : int(n)].cpu()
+            eng.release(state)
+            got = {k: TRACE.counters.get(k, 0) - before.get(k, 0)
+                   for k in ("predictor_frames.kernel", "predictor_frames.eager")}
+            assert got == {"predictor_frames.kernel": 8, "predictor_frames.eager": 0}
+            if not graphs:
+                assert ps.fused_micro_step.launches - launches == 14 * 8
+        torch.testing.assert_close(frames[True], frames[False], atol=0, rtol=0)
 
 
 @pytest.mark.cuda

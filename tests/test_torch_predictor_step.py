@@ -246,9 +246,10 @@ def test_greedy_frame_tokens_equal_jax(tiny_cfg, frame_setup):
 
 @pytest.mark.parametrize("case", ["batch2", "sliding", "int8", "taken"])
 def test_frame_gates_micro_kernel_like_jax(frame_setup, monkeypatch, case):
-    """Batch > 1, a sliding window or int8 blocks take the default path, as
-    in the JAX package; batch 1 with plain weights takes the micro-step 14
-    times.  On the CPU no kernel launches: the launch counter stays 0."""
+    """The one gate (``micro_kernel_misfit``): batch 1 and batch 2 with plain
+    weights take the micro-step 14 times, for all rows at once; a sliding
+    window or int8 blocks make ``micro_kernel=True`` raise, naming why.  On
+    the CPU no kernel launches: the launch counter stays 0."""
     _, tparams, pin = frame_setup
     pcfg = get_preset("tiny").predictor
     x = torch.from_numpy(pin)
@@ -262,11 +263,97 @@ def test_frame_gates_micro_kernel_like_jax(frame_setup, monkeypatch, case):
     monkeypatch.setattr(TP, "fused_micro_step",
                         lambda *a, **k: calls.append(a[1].shape) or TS.fused_micro_step(*a, **k))
     before = TS.fused_micro_step.launches
-    toks, emb = TP.predict_frame(tparams, pcfg, x, None, TP.SamplingPolicy(do_sample=False),
-                                 micro_kernel=True)
-    assert toks.shape == (x.shape[0], 15) and emb.shape == (x.shape[0], 1, x.shape[2])
-    assert len(calls) == (14 if case == "taken" else 0)
+
+    def frame():
+        return TP.predict_frame(tparams, pcfg, x, None, TP.SamplingPolicy(do_sample=False),
+                                micro_kernel=True)
+
+    if case in ("sliding", "int8"):
+        with pytest.raises(ValueError, match="sliding window" if case == "sliding"
+                           else "quantized"):
+            frame()
+        assert not calls
+    else:
+        toks, emb = frame()
+        assert toks.shape == (x.shape[0], 15) and emb.shape == (x.shape[0], 1, x.shape[2])
+        assert calls == [(x.shape[0], x.shape[2])] * 14
     assert TS.fused_micro_step.launches == before == 0
+
+
+@pytest.mark.parametrize("rows", [2, 4, 16])
+def test_plain_micro_step_rows_equal_single_rows(tiny_cfg, rows):
+    """The plain micro-step of R rows (a cache [L, R, S, KVH, D]) equals R
+    one-row calls bit for bit in float32, h and every row's cache."""
+    pcfg = tiny_cfg.predictor
+    w, _, cos, sin, _, _, pos = _tiny_step_inputs(tiny_cfg)
+    g = torch.Generator().manual_seed(rows)
+    L, S, KVH, D = (pcfg.num_hidden_layers, pcfg.max_seq, pcfg.num_key_value_heads,
+                    pcfg.head_dim)
+    k, v = (torch.zeros((L, rows, S, KVH, D)) for _ in range(2))
+    k[:, :, :2], v[:, :, :2] = (torch.randn((L, rows, 2, KVH, D), generator=g)
+                                for _ in range(2))
+    x = torch.randn((rows, w["proj_w"].shape[0]), generator=g)
+    k1, v1 = k.clone(), v.clone()
+    h, kk, vv = TS.fused_micro_step(w, x, cos, sin, k, v, pos)
+    assert kk is k and vv is v and h.shape == (rows, w["proj_w"].shape[1])
+    for r in range(rows):
+        kr, vr = k1[:, r].clone(), v1[:, r].clone()
+        hr, _, _ = TS.fused_micro_step_plain(w, x[r:r + 1], cos, sin, kr, vr, pos)
+        assert torch.equal(h[r:r + 1], hr)
+        assert torch.equal(k[:, r], kr) and torch.equal(v[:, r], vr)
+    assert not torch.equal(h[0], h[1])  # the rows are not one row repeated
+
+
+@pytest.mark.parametrize("batch", [2, 3, 4])
+def test_greedy_micro_frame_rows_equal_their_batch_1_frames(tiny_cfg, frame_setup, batch):
+    """Greedy predict_frame(micro_kernel=True) at B 2-4 gives each row the
+    tokens of its own B 1 micro frame and of the JAX package's B 1 micro
+    frame (Pallas kernel in interpret mode) for that row's input."""
+    jparams, tparams, pin = frame_setup
+    pcfg_t = get_preset("tiny").predictor
+    rng = np.random.default_rng(batch)
+    pins = np.concatenate(
+        [pin] + [rng.standard_normal(pin.shape).astype(np.float32) for _ in range(batch - 1)])
+    greedy = TP.SamplingPolicy(do_sample=False)
+    toks, emb = TP.predict_frame(tparams, pcfg_t, torch.from_numpy(pins), None, greedy,
+                                 micro_kernel=True)
+    assert toks.shape == (batch, 15)
+    for r in range(batch):
+        one, one_emb = TP.predict_frame(tparams, pcfg_t, torch.from_numpy(pins[r:r + 1]), None,
+                                        greedy, micro_kernel=True)
+        np.testing.assert_array_equal(toks[r:r + 1].numpy(), one.numpy(), err_msg=f"row {r}")
+        assert torch.equal(emb[r:r + 1], one_emb)
+        jt, _ = JP.predict_frame(jparams, tiny_cfg.predictor, jnp.asarray(pins[r:r + 1]),
+                                 jax.random.PRNGKey(0), JP.SamplingPolicy(do_sample=False),
+                                 micro_kernel=True)
+        np.testing.assert_array_equal(toks[r:r + 1].numpy(), np.asarray(jt),
+                                      err_msg=f"row {r} against JAX")
+    assert len({tuple(t) for t in toks.tolist()}) > 1  # the rows differ
+
+
+@pytest.mark.parametrize("case", ["cpu", "rows", "int8", "sliding", "group", "ok"])
+def test_micro_kernel_misfit_is_the_one_gate(frame_setup, case):
+    """``micro_kernel_misfit``: with a device it refuses CPU tensors and more
+    than 16 rows; with or without one, quantized blocks, a sliding window
+    and a tp group; a plain frame of at most 16 rows asked about without a
+    device fits."""
+    _, tparams, _ = frame_setup
+    pcfg = get_preset("tiny").predictor
+    rows, device, group = 4, None, None
+    if case == "cpu":
+        device = torch.device("cpu")
+    elif case == "rows":
+        rows, device = 17, torch.device("cpu")
+    elif case == "int8":
+        tparams = quantize_bundle({"predictor": tparams}, "int8-predictor")["predictor"]
+    elif case == "sliding":
+        pcfg = dataclasses.replace(pcfg, sliding_window=4)
+    elif case == "group":
+        group = object()
+    why = TP.micro_kernel_misfit(tparams, pcfg, rows, device, group)
+    want = {"cpu": "on cpu", "rows": "17 rows (at most 16)", "int8": "quantized", "sliding": "sliding window",
+            "group": "tp group", "ok": None}[case]
+    assert why == want if want is None else want in why
 
 
 def _tiny_step_inputs(tiny_cfg):

@@ -5,7 +5,8 @@ openai_server.py``) over real HTTP sockets on the CPU, with the JAX
 ``audio/mp3.py``.
 
 - The openai-server part of ``tests/test_servers.py`` that is not slow:
-  ``/health``, the 400s, ``/health``'s scheduler stats on a batched server
+  ``/health`` (with the predictor's frame steps by path), the 400s,
+  ``/health``'s scheduler stats on a batched server
   (and the tracer's summary while it is on), a client that disconnects mid-stream has its batch row cancelled and the
   row serves the next request.
 - Streamed wav (whole codec frames), pcm and mp3 (or its 501) through the
@@ -197,6 +198,22 @@ def test_health_exposes_the_trace_summary(oai_server_batched):
     assert trace["counters"] == dict(TRACE.counters)
     with urllib.request.urlopen(url + "/health") as r:
         assert "trace" not in json.loads(r.read())
+
+
+def test_health_counts_predictor_frames(oai_server_batched):
+    """/health shows the frame steps dispatched on each predictor path,
+    tracing or not: a request on the CPU adds to the eager chain's only."""
+    url, _ = oai_server_batched
+
+    def frames():
+        with urllib.request.urlopen(url + "/health") as r:
+            return json.loads(r.read())["predictor_frames"]
+
+    before = frames()
+    _speech(url, "pcm")
+    after = frames()
+    assert after.get("eager", 0) > before.get("eager", 0)
+    assert after.get("kernel", 0) == before.get("kernel", 0)
 
 
 def test_client_disconnect_cancels_batched_row(port_tts, voice):
