@@ -24,9 +24,10 @@ Phases, in order; any failure raises and exits non-zero:
    the same two at the 1.7B talker's shapes (H 2048, qkv N 4096, I 6144)
    at one row;
    fused_micro_step at the 0.6B predictor's shapes, then with the 1.7B's
-   2048-wide input projection, over a frame's 14 chained micro-steps, the
-   cache slot by slot, two runs bit-equal, one captured graph replayed
-   after x, pos, the rope rows and the cache were rewritten;
+   2048-wide input projection, at 1, 4 and 16 rows (MICRO_ROWS), over a
+   frame's 14 chained micro-steps, the cache slot by slot, two runs
+   bit-equal, one captured graph replayed after x, pos, the rope rows and
+   the cache were rewritten;
    matvec and matvec_kt at the probe's default (K 1024, N 65536) and the
    talker's qkv shape (1024 x 4096), then the probe's 20-call run;
    w8a8_gemv (csrc/w8a8.cu: the activation quantize fused into the GEMV)
@@ -45,8 +46,9 @@ Phases, in order; any failure raises and exits non-zero:
    version and, where one PyTorch call computes the same function, that
    call (CUDA graphs, CUDA events): SDPA for flash-decode (at pos 300 with
    one cache stack, warm in L2, and over two stacks, cold), torch.matmul
-   for the matvecs; the micro-step also beside the per-layer paths and its
-   grid barriers alone.
+   for the matvecs; the micro-step at each row count beside its bound and
+   the one-row launches it replaces, at one row also beside the per-layer
+   paths and its grid barriers alone.
 3. slice  — FasterQwen3TTS("random:qwen3-tts-0.6b", bf16) on the card,
    its engine rebuilt with use_cuda_graphs=False (eager chunks), answers
    three requests through the public API (non-streaming, then two
@@ -139,7 +141,8 @@ Phases, in order; any failure raises and exits non-zero:
    (EOS suppressed) serving 8 requests of 96 steps, once untimed, then at
    pipeline depths 1, 3, 3, 1: served frames/s, throughput RTF, TTFA, the launches each
    replay's graph holds over the steps its ``n`` says ran (flash-decode 28
-   a step, read by the graph walk), the busy share, no capture after its
+   and the micro-step 14 a step, read by the graph walk), the busy share,
+   no capture after its
    warm-up; raw fast_generate_batch at B 4 (chunk 8 and 16) beside it; one
    request through a server on the int8 + kv_quant model (int8
    flash-decode).  Then a small float32 model, TF32 off: a greedy 2-row
@@ -163,7 +166,8 @@ Phases, in order; any failure raises and exits non-zero:
    CLI's ``clone --model <dir>`` non-streamed and streamed at chunk 8 (48
    steps, seed 0): whole codec frames, the same samples as the source
    model's API call with the same seed and arguments, the CLI's printed RTF
-   and TTFA; the loaded model's counted request (flash-decode 28 a step);
+   and TTFA; the loaded model's counted request (flash-decode 28 and the
+   micro-step 14 a step);
    the CLI's export-fixture (24 steps) and check-fixture (exit 0; exit 1 on
    a copy with one token changed); and a request traced with
    QWEN3TTS_PROFILE_DIR on the captured engine (it runs eagerly: no replay
@@ -189,7 +193,8 @@ Phases, in order; any failure raises and exits non-zero:
    client's ms to the first chunk event, rtf, total_audio_s and the event
    count, the events chunk ... done, every chunk whole codec frames of
    finite audio; a counted request (the demo model's engine recording:
-   flash-decode 28 a step, read from each replay's graph, capturing then
+   flash-decode 28 and the micro-step 14 a step, read from each replay's
+   graph, capturing then
    replaying); a non-streamed /generate; MODEL_CACHE_SIZE 2, /load
    random:tiny then random:qwen3-tts-0.6b-custom, which evicts the 0.6B: the
    release under the generation lock must give back at least 90 % of the
@@ -866,155 +871,190 @@ def _permuted(w, g):
     }, {"in": pt, "out": torch.argsort(ph)}
 
 
+# the rows micro_kernel_phase runs at: batch 1 (micro_step_kernel), and the
+# batcher's default 4 and batch16's 16 rows (micro_step_kernel_rows)
+MICRO_ROWS = (1, 4, 16)
+
+
 def micro_kernel_phase(card: str, preset: str = "qwen3-tts-0.6b"):
     """fused_micro_step against its plain version at ``preset``'s predictor
     shapes (the 1.7B's projects its input from 2048 wide, the 0.6B's from
-    1024), random weights of all 5 layers: 14 chained micro-steps (pos
-    2..15, a frame's), h at every step and the cache slot by slot after.
-    Each step's plain version runs on the kernel's cache as it stood before
-    the step.  float32 (F32_TOL) also runs the plain chain on its own; bf16
-    is held to MICRO_BF16_TOL, beside the plain version's own spread: the
-    plain version again with the hidden and intermediate units permuted
-    (the same function, summed in another order).  Two kernel chains give
-    the same bits.  Timing (bf16): a
-    CUDA graph of one 14-step frame, per micro-step, beside the plain
-    version and the per-layer paths on the same weights (proj +
-    stack_forward + final norm, eager ops and fused=True), and the grid
-    barriers alone."""
+    1024), random weights of all 5 layers, at each of MICRO_ROWS rows
+    (cache [L, R, S, KVH, D], every row at one pos): 14 chained micro-steps
+    (pos 2..15, a frame's), h at every step and the cache slot by slot
+    after.  Each step's plain version runs on the kernel's cache as it
+    stood before the step.  float32 (F32_TOL) also runs the plain chain on
+    its own; bf16 is held to MICRO_BF16_TOL, beside the plain version's own
+    spread: the plain version again with the hidden and intermediate units
+    permuted (the same function, summed in another order).  Two kernel
+    chains give the same bits; a captured step replays right after its
+    inputs and cache were rewritten.  Timing (bf16), per R: a CUDA graph of
+    one 14-step frame, per micro-step, beside the plain version, the R
+    one-row launches a step would take instead (R > 1) and the bound; at
+    one row also the per-layer paths on the same weights (proj +
+    stack_forward + final norm, eager ops and fused=True) and the grid
+    barriers alone.  Returns (max_abs_err by dtype, one row's timing with
+    ``rows``: each R's)."""
     from qwen3tts_tpu_torch.models import predictor as predictor_lib
     from qwen3tts_tpu_torch.models.layers import decode_mask, rms_norm, stack_forward, \
         unstack_layers
     from qwen3tts_tpu_torch.ops import predictor_step as ps
 
     dev = torch.device("cuda")
-    max_err, out = {}, {}
+    max_err, out, rows_out = {}, {}, {}
     for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         cfg, params = _predictor_weights(dt, seed=10, preset=preset)
         pcfg, Ht = cfg.predictor, cfg.talker.hidden_size
         w = ps.micro_step_weights(params)
-        g = torch.Generator(device=dev).manual_seed(11)
         L, S, KVH, D = (pcfg.num_hidden_layers, pcfg.max_seq, pcfg.num_key_value_heads,
                         pcfg.head_dim)
-        k0, v0 = (torch.zeros((L, S, KVH, D), device=dev, dtype=dt) for _ in range(2))
-        k0[:, :2] = torch.randn((L, 2, KVH, D), generator=g, device=dev).to(dt)
-        v0[:, :2] = torch.randn((L, 2, KVH, D), generator=g, device=dev).to(dt)
         steps = pcfg.num_codebooks - 1
-        xs = [(0.5 * torch.randn((1, Ht), generator=g, device=dev)).to(dt)
-              for _ in range(steps)]
-        poss = [torch.full((1,), 2 + i, dtype=torch.int32, device=dev) for i in range(steps)]
-        cs = [predictor_lib._rope(pcfg, p.reshape(1, 1)) for p in poss]  # [1, 1, D] each
-        ropes = [(c[0, 0], s[0, 0]) for c, s in cs]
-
-        def step(fn, i, kk, vv, ww=w, x=None):
-            x = xs[i] if x is None else x
-            return fn(ww, x, *ropes[i], kk, vv, poss[i], pcfg.rms_norm_eps)
-
-        # the kernel's chain, each step held against the plain version (and
-        # the plain version in another summation order) on the kernel's cache
         tol = MICRO_BF16_TOL if dname == "bf16" else F32_TOL
-        wperm, unperm = _permuted(w, g)
-        kk, vv = k0.clone(), v0.clone()
-        ref_k, ref_v, run0, err, spread = k0.clone(), v0.clone(), [], 0.0, 0.0
-        for i in range(steps):
-            kp, vp, kq, vq = kk.clone(), vv.clone(), kk.clone(), vv.clone()
-            h, kk, vv = step(ps.fused_micro_step, i, kk, vv)
-            hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
-            hq = step(ps.fused_micro_step_plain, i, kq, vq, wperm, xs[i][:, unperm["in"]])[0]
-            spread = max(spread, (hq[:, unperm["out"]].float() - hp.float()).abs().max().item())
-            err = max(err, _held("fused_micro_step", h, hp, tol,
-                                 f"x={dname} step {i} pos={2 + i} h"))
-            ref_k[:, 2 + i], ref_v[:, 2 + i] = kp[:, 2 + i], vp[:, 2 + i]
-            run0.append(h)
-        for slot in range(S):
-            for name, a, b in (("k", kk, ref_k), ("v", vv, ref_v)):
-                e = (a[:, slot].float() - b[:, slot].float()).abs()
-                if (e - tol[0] - tol[1] * b[:, slot].float().abs()).max().item() > 0:
-                    raise AssertionError(f"fused_micro_step cache {name} slot {slot} "
-                                         f"disagrees ({dname}): {e.max().item()}")
-                err = max(err, e.max().item())
-        if kk[:, 2 + steps:].any() or vv[:, 2 + steps:].any():
-            raise AssertionError("fused_micro_step wrote past its slots")
-        run0 += [kk, vv]
-        kk, vv, run1 = k0.clone(), v0.clone(), []
-        for i in range(steps):
-            h, kk, vv = step(ps.fused_micro_step, i, kk, vv)
-            run1.append(h)
-        if not all(torch.equal(a, b) for a, b in zip(run0, run1 + [kk, vv])):
-            raise AssertionError(f"fused_micro_step is not deterministic ({dname})")
-        # one captured graph of a step, replayed after x, the rope rows, pos
-        # and the cache were rewritten: each replay against the plain version
-        xg, pg = xs[0].clone(), poss[0].clone()
-        cg_, sg_ = ropes[0][0].clone(), ropes[0][1].clone()
-        kg, vg = k0.clone(), v0.clone()
-        graph, (hg, _, _) = _captured(lambda: ps.fused_micro_step(
-            w, xg, cg_, sg_, kg, vg, pg, pcfg.rms_norm_eps))
-        kg.copy_(k0)
-        vg.copy_(v0)
-        for i in (0, 5, steps - 1):
-            xg.copy_(xs[i])
-            pg.copy_(poss[i])
-            cg_.copy_(ropes[i][0])
-            sg_.copy_(ropes[i][1])
-            kp, vp = kg.clone(), vg.clone()
-            graph.replay()
-            hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
-            err = max(err, _held("fused_micro_step graph replay", hg, hp, tol,
-                                 f"x={dname} step {i} pos={2 + i} h"))
-            for name, a, b in (("k", kg, kp), ("v", vg, vp)):
-                err = max(err, _held("fused_micro_step graph replay", a[:, 2 + i], b[:, 2 + i],
-                                     tol, f"x={dname} cache {name} slot {2 + i}"))
-        del graph
-        if dname == "f32":
-            kp, vp = k0.clone(), v0.clone()
+        for R in MICRO_ROWS:
+            g = torch.Generator(device=dev).manual_seed(11 + R)
+            k0, v0 = (torch.zeros((L, R, S, KVH, D), device=dev, dtype=dt) for _ in range(2))
+            k0[:, :, :2] = torch.randn((L, R, 2, KVH, D), generator=g, device=dev).to(dt)
+            v0[:, :, :2] = torch.randn((L, R, 2, KVH, D), generator=g, device=dev).to(dt)
+            xs = [(0.5 * torch.randn((R, Ht), generator=g, device=dev)).to(dt)
+                  for _ in range(steps)]
+            poss = [torch.full((1,), 2 + i, dtype=torch.int32, device=dev)
+                    for i in range(steps)]
+            cs = [predictor_lib._rope(pcfg, p.reshape(1, 1)) for p in poss]  # [1, 1, D] each
+            ropes = [(c[0, 0], s_[0, 0]) for c, s_ in cs]
+
+            def step(fn, i, kk, vv, ww=w, x=None):
+                x = xs[i] if x is None else x
+                return fn(ww, x, *ropes[i], kk, vv, poss[i], pcfg.rms_norm_eps)
+
+            # the kernel's chain, each step held against the plain version (and
+            # the plain version in another summation order) on the kernel's cache
+            wperm, unperm = _permuted(w, g)
+            kk, vv = k0.clone(), v0.clone()
+            ref_k, ref_v, run0, err, spread = k0.clone(), v0.clone(), [], 0.0, 0.0
             for i in range(steps):
+                kp, vp, kq, vq = kk.clone(), vv.clone(), kk.clone(), vv.clone()
+                h, kk, vv = step(ps.fused_micro_step, i, kk, vv)
                 hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
-                err = max(err, _held("fused_micro_step", run0[i], hp, tol,
-                                     f"x=f32 free-running chain step {i}"))
-            for a, b in ((run0[-2], kp), (run0[-1], vp)):
-                err = max(err, _held("fused_micro_step", a, b, tol, "x=f32 chain cache"))
-        log(f"  fused_micro_step {preset} x={dname}: {steps} chained steps and the cache slot "
-            f"by slot within {tol}, two runs bit-equal; max_abs_err={err:.3e}; the plain version "
-            f"against itself summed in another order: max_abs {spread:.3e}")
-        max_err[dname] = err
-        if dname != "bf16":
-            del params, w
-            continue
+                hq = step(ps.fused_micro_step_plain, i, kq, vq, wperm,
+                          xs[i][:, unperm["in"]])[0]
+                spread = max(spread,
+                             (hq[:, unperm["out"]].float() - hp.float()).abs().max().item())
+                err = max(err, _held("fused_micro_step", h, hp, tol,
+                                     f"x={dname} R={R} step {i} pos={2 + i} h"))
+                ref_k[:, :, 2 + i], ref_v[:, :, 2 + i] = kp[:, :, 2 + i], vp[:, :, 2 + i]
+                run0.append(h)
+            for slot in range(S):
+                for name, a, b in (("k", kk, ref_k), ("v", vv, ref_v)):
+                    e = (a[:, :, slot].float() - b[:, :, slot].float()).abs()
+                    if (e - tol[0] - tol[1] * b[:, :, slot].float().abs()).max().item() > 0:
+                        raise AssertionError(f"fused_micro_step cache {name} slot {slot} "
+                                             f"disagrees ({dname}, R={R}): {e.max().item()}")
+                    err = max(err, e.max().item())
+            if kk[:, :, 2 + steps:].any() or vv[:, :, 2 + steps:].any():
+                raise AssertionError(f"fused_micro_step wrote past its slots (R={R})")
+            run0 += [kk, vv]
+            kk, vv, run1 = k0.clone(), v0.clone(), []
+            for i in range(steps):
+                h, kk, vv = step(ps.fused_micro_step, i, kk, vv)
+                run1.append(h)
+            if not all(torch.equal(a, b) for a, b in zip(run0, run1 + [kk, vv])):
+                raise AssertionError(f"fused_micro_step is not deterministic ({dname}, R={R})")
+            # one captured graph of a step, replayed after x, the rope rows, pos
+            # and the cache were rewritten: each replay against the plain version
+            xg, pg = xs[0].clone(), poss[0].clone()
+            cg_, sg_ = ropes[0][0].clone(), ropes[0][1].clone()
+            kg, vg = k0.clone(), v0.clone()
+            graph, (hg, _, _) = _captured(lambda: ps.fused_micro_step(
+                w, xg, cg_, sg_, kg, vg, pg, pcfg.rms_norm_eps))
+            kg.copy_(k0)
+            vg.copy_(v0)
+            for i in (0, 5, steps - 1):
+                xg.copy_(xs[i])
+                pg.copy_(poss[i])
+                cg_.copy_(ropes[i][0])
+                sg_.copy_(ropes[i][1])
+                kp, vp = kg.clone(), vg.clone()
+                graph.replay()
+                hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
+                err = max(err, _held("fused_micro_step graph replay", hg, hp, tol,
+                                     f"x={dname} R={R} step {i} pos={2 + i} h"))
+                for name, a, b in (("k", kg, kp), ("v", vg, vp)):
+                    err = max(err, _held("fused_micro_step graph replay", a[:, :, 2 + i],
+                                         b[:, :, 2 + i], tol,
+                                         f"x={dname} R={R} cache {name} slot {2 + i}"))
+            del graph
+            if dname == "f32":
+                kp, vp = k0.clone(), v0.clone()
+                for i in range(steps):
+                    hp, kp, vp = step(ps.fused_micro_step_plain, i, kp, vp)
+                    err = max(err, _held("fused_micro_step", run0[i], hp, tol,
+                                         f"x=f32 R={R} free-running chain step {i}"))
+                for a, b in ((run0[-2], kp), (run0[-1], vp)):
+                    err = max(err, _held("fused_micro_step", a, b, tol,
+                                         f"x=f32 R={R} chain cache"))
+            log(f"  fused_micro_step {preset} x={dname} R={R}: {steps} chained steps and the "
+                f"cache slot by slot within {tol}, two runs bit-equal, a captured step "
+                f"replayed; max_abs_err={err:.3e}; the plain version against itself summed in "
+                f"another order: max_abs {spread:.3e}")
+            max_err[dname] = max(max_err.get(dname, 0.0), err)
+            if dname != "bf16":
+                continue
 
-        # timing: one frame's 14 micro-steps in a CUDA graph
-        kk, vv = k0.clone(), v0.clone()
-        spec = predictor_lib.block_spec(pcfg)
-        layers = unstack_layers(params["blocks"])
-        kv = {"k": k0.clone()[:, None], "v": v0.clone()[:, None]}
-        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-        masks = [decode_mask(S, p, zero) for p in poss]
+            # timing: one frame's 14 micro-steps in a CUDA graph
+            kk, vv = k0.clone(), v0.clone()
+            t = {"kernel": graph_ms(lambda i: step(ps.fused_micro_step, i, kk, vv), steps),
+                 "plain": graph_ms(lambda i: step(ps.fused_micro_step_plain, i, kk, vv), steps,
+                                   replays=20 if R == 1 else 3)}
+            if R > 1:
+                ones = [(k0[:, r].clone(), v0[:, r].clone()) for r in range(R)]
+                t["one_row_launches"] = graph_ms(
+                    lambda i: [ps.fused_micro_step(w, xs[i][r:r + 1], *ropes[i], a, b, poss[i],
+                                                   pcfg.rms_norm_eps)
+                               for r, (a, b) in enumerate(ones)], steps)
+                del ones
+            live = sum(2 + i + 1 for i in range(steps)) / steps  # mean live slots a step
+            n_bytes = (nbytes(*w.values(), xs[0], xs[0].new_empty((R, pcfg.hidden_size)))
+                       + L * R * (live + 1) * KVH * D * 2 * k0.element_size())
+            n_ops = 2 * R * sum(w[k].numel() for k in ("proj_w", "qkv", "o", "gu", "dn"))
+            b_ms, b_by = bound(n_bytes, n_ops, dt)
+            rows_out[R] = {"kernel_ms": t["kernel"], "plain_ms": t["plain"],
+                           "one_row_launches_ms": t.get("one_row_launches"), "bound_ms": b_ms,
+                           "bound_by": b_by, "bound_share": b_ms / t["kernel"]}
+            log(f"  timing fused_micro_step {preset} bf16 R={R} (CUDA graph of one {steps}-step "
+                f"frame, per micro-step): kernel {t['kernel'] * 1e3:.2f} us "
+                f"({b_ms / t['kernel'] * 100:.1f} % of the {b_ms * 1e3:.2f} us bound, "
+                f"{n_bytes / 1e6:.1f} MB), plain {t['plain'] * 1e3:.2f} us"
+                + (f", {R} one-row launches {t['one_row_launches'] * 1e3:.2f} us" if R > 1
+                   else "") + f"  [{card}]")
+            if R != 1:
+                continue
+            spec = predictor_lib.block_spec(pcfg)
+            layers = unstack_layers(params["blocks"])
+            kv = {"k": k0.clone(), "v": v0.clone()}
+            zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+            masks = [decode_mask(S, p, zero) for p in poss]
 
-        def per_layer(i, fused):
-            x = predictor_lib._proj(params, xs[i])[:, None]
-            y, _ = stack_forward(layers, x, *cs[i], kv, poss[i], masks[i], spec, fused=fused)
-            return rms_norm(y, params["final_norm"], pcfg.rms_norm_eps)
+            def per_layer(i, fused):
+                x = predictor_lib._proj(params, xs[i])[:, None]
+                y, _ = stack_forward(layers, x, *cs[i], kv, poss[i], masks[i], spec,
+                                     fused=fused)
+                return rms_norm(y, params["final_norm"], pcfg.rms_norm_eps)
 
-        t = {"kernel": graph_ms(lambda i: step(ps.fused_micro_step, i, kk, vv), steps),
-             "plain": graph_ms(lambda i: step(ps.fused_micro_step_plain, i, kk, vv), steps),
-             "stack_forward": graph_ms(lambda i: per_layer(i, False), steps),
-             "stack_forward_fused": graph_ms(lambda i: per_layer(i, True), steps)}
-        grid = ps.kernel_grid(dt, D)
-        n_sync = 1 + 4 * L
-        t["barriers"] = graph_ms(
-            lambda i: ps.grid_barriers(grid, n_sync, torch.cuda.current_stream()), steps)
-        live = sum(2 + i + 1 for i in range(steps)) / steps  # mean live slots a step
-        n_bytes = (nbytes(*w.values(), xs[0], xs[0].new_empty(pcfg.hidden_size))
-                   + L * (live + 1) * KVH * D * 2 * k0.element_size())
-        n_ops = 2 * sum(w[k].numel() for k in ("proj_w", "qkv", "o", "gu", "dn"))
-        b_ms, b_by = bound(n_bytes, n_ops, dt)
-        log(f"  timing fused_micro_step {preset} bf16 (CUDA graph of one {steps}-step frame, per "
-            f"micro-step): kernel {t['kernel'] * 1e3:.2f} us ({b_ms / t['kernel'] * 100:.1f} % "
-            f"of the {b_ms * 1e3:.2f} us bound, {n_bytes / 1e6:.1f} MB), plain "
-            f"{t['plain'] * 1e3:.2f} us, stack_forward {t['stack_forward'] * 1e3:.2f} us, "
-            f"fused=True {t['stack_forward_fused'] * 1e3:.2f} us; {n_sync} grid barriers "
-            f"alone on {grid} CTAs {t['barriers'] * 1e3:.2f} us  [{card}]")
-        out = {"times": t, "bound_ms": b_ms, "bound_by": b_by, "grid": grid,
-               "barriers": n_sync}
-        del params, w, layers, kv
+            t["stack_forward"] = graph_ms(lambda i: per_layer(i, False), steps)
+            t["stack_forward_fused"] = graph_ms(lambda i: per_layer(i, True), steps)
+            grid = ps.kernel_grid(dt, D)
+            n_sync = 1 + 4 * L
+            t["barriers"] = graph_ms(
+                lambda i: ps.grid_barriers(grid, n_sync, torch.cuda.current_stream()), steps)
+            log(f"  timing {preset} bf16 R=1, per micro-step: stack_forward "
+                f"{t['stack_forward'] * 1e3:.2f} us, fused=True "
+                f"{t['stack_forward_fused'] * 1e3:.2f} us; {n_sync} grid barriers alone on "
+                f"{grid} CTAs {t['barriers'] * 1e3:.2f} us  [{card}]")
+            out = {"times": t, "bound_ms": b_ms, "bound_by": b_by, "grid": grid,
+                   "barriers": n_sync}
+            del layers, kv
+        del params, w
+    out["rows"] = rows_out
     return max_err, out
 
 
@@ -2425,13 +2465,33 @@ def _batch_eos(card: str, model, ref: str) -> dict:
 def _batch_join(card: str, model, ref: str) -> dict:
     """join_row into a running greedy B 4 batch (row 2, once the position
     passes the joining prompt's bucket), then 32 steps: the joined row's
-    frames beside the same prompt's batch-1 request."""
+    frames equal the same prompt's batch-1 request.  Both engines run the
+    predictor's eager chain (``use_micro_kernel=False``), whose rows sum
+    alike at B 1 and B 4.  By default B 1 runs micro_step_kernel and B 4
+    micro_step_kernel_rows, which sum in other orders, so bf16 greedy tokens
+    may part at a near tie: that path's equal frames are reported, not
+    held."""
+    res = _batch_join_run(model, ref, _engine(model, use_micro_kernel=False),
+                          use_micro_kernel=False)
+    default = _batch_join_run(model, ref, model.engine)
+    res["default_path"] = {k: default[k] for k in ("equal_frames_vs_batch1",
+                                                   "first_differing_step")}
+    log(f"  join_row into a running B4 batch (bf16 0.6B): {json.dumps(res)}  [{card}]")
+    if res["frames"] != 32 or res["first_differing_step"] is not None:
+        raise AssertionError(f"the joined row's {res['frames']} greedy frames differ from the "
+                             f"prompt's batch-1 request from step {res['first_differing_step']}")
+    return res
+
+
+def _batch_join_run(model, ref: str, single_engine, **kw) -> dict:
+    """One join (``_batch_join``) on a B 4 engine built with ``kw``, beside
+    the prompt's request on ``single_engine``."""
     from qwen3tts_tpu_torch.runtime.engine import bucket_for
 
     pol, ppol = _greedy()
     prompt = model._batch_prompt(_batch_texts(4), ref, "", "English", True, True, True, None)
     join = model._prepare_clone(TEXT_C, ref, "", "English", True, True, True, None)
-    eng = _engine(model, batch=4)
+    eng = _engine(model, batch=4, **kw)
     dev, dt = eng.device, eng.dtype
     embeds, trailing, tpe, pads, tth_lens, _ = prompt
     state = eng.prefill(embeds, None, pol, ppol, pad_count=pads)
@@ -2463,15 +2523,10 @@ def _batch_join(card: str, model, ref: str) -> dict:
         rows.append(f[2, : int(lens[2])].cpu().numpy())
     eng.release(state)
     joined = np.concatenate(rows)
-    single = _greedy_frames(model.engine, join[:3], len(joined), 16)
+    single = _greedy_frames(single_engine, join[:3], len(joined), 16)
     equal = (joined == single[: len(joined)]).all(axis=1)
-    res = {"join_ms": join_ms, "frames": len(joined), "equal_frames_vs_batch1": int(equal.sum()),
-           "first_differing_step": None if equal.all() else int(np.argmin(equal))}
-    log(f"  join_row into a running B4 batch (bf16 0.6B): {json.dumps(res)}  [{card}]")
-    if len(joined) != 32 or not equal.all():
-        raise AssertionError(f"the joined row's {len(joined)} greedy frames differ from the "
-                             f"prompt's batch-1 request from step {res['first_differing_step']}")
-    return res
+    return {"join_ms": join_ms, "frames": len(joined), "equal_frames_vs_batch1": int(equal.sum()),
+            "first_differing_step": None if equal.all() else int(np.argmin(equal))}
 
 
 def _batch_vocode(card: str, model, ref: str) -> dict:
@@ -2747,7 +2802,7 @@ def _fixed_length_runs(card: str, model, ref: str) -> dict:
     of SERVE_STEPS steps at each QWEN3TTS_BATCH_PIPELINE depth of
     SERVE_DEPTHS, submitted at once: served frames/s, throughput RTF, the
     launches each replay's graph holds over the steps its ``n`` says ran
-    (flash-decode 28 a step), no capture after the warm-up, the busy share."""
+    (DEFAULT_WANT a step), no capture after the warm-up, the busy share."""
     from qwen3tts_tpu_torch.models.predictor import SamplingPolicy
     from qwen3tts_tpu_torch.runtime.engine import GenerationPolicy
     from qwen3tts_tpu_torch.runtime.scheduler import ContinuousBatcher
@@ -2795,12 +2850,12 @@ def _fixed_length_runs(card: str, model, ref: str) -> dict:
                        "kernel_nodes_a_step": sorted({c["all"] for c in per_step}),
                        "replay_device_ms": device_ms, "busy_share": device_ms / (wall * 1e3),
                        "captures_after_warmup": graphs.captures - res["warmup_captures"]}
-                bad = [c for c in per_step if c["flash_decode"] != 28
-                       or any(c[k] for k in KERNELS if k != "flash_decode")]
+                want = {k: DEFAULT_WANT.get(k, 0) for k in KERNELS}
+                bad = [c for c in per_step if {k: c[k] for k in KERNELS} != want]
                 log(f"  fixed-length run: {json.dumps(run)}  [{card}]")
                 if (run["served"] != SERVE_REQUESTS or run["joined_mid_batch"] < 1 or bad
-                        or run["captures_after_warmup"] or eager["flash_decode"]
-                        or replayed["flash_decode"] != 28 * steps):
+                        or run["captures_after_warmup"] or any(eager[k] for k in DEFAULT_WANT)
+                        or replayed != {k: v * steps for k, v in want.items()}):
                     raise AssertionError(f"the fixed-length run: {run}; steps holding {bad[:1]}")
                 res["runs"].append(run)
     finally:
@@ -3074,7 +3129,7 @@ def slice_voices_phase(card: str, models: dict) -> dict:
     random:qwen3-tts-0.6b-custom (a named speaker) and
     random:qwen3-tts-1.7b-design (``instruct``), captured, non-streamed and
     streamed, STEPS steps, the kernels of a traced streamed request counted
-    (flash-decode 28 a step); the 1.7B again with use_micro_kernel=True
+    (flash-decode 28 and the micro-step 14 a step); the 1.7B again with use_micro_kernel=True
     (a traced 48-step request: flash-decode 28 and the micro-step 14 a
     step).  Frees every model it ends with, the 0.6B ones included."""
     import gc
@@ -3839,7 +3894,7 @@ def _demo_requests(url: str, engine, body: dict, card: str) -> dict:
     (replays only), then a non-streamed /generate.  Each streamed request
     runs with the launch counters set to 0 just before it and read just
     after; each replay's launches are read from its graph.  Every captured
-    step must hold flash-decode 28 and no other counted kernel, the eager
+    step must hold DEFAULT_WANT and no other counted kernel, the eager
     launches must be one step's for each capture, and a warm request's
     replays must have run the steps its chunks were dispatched for
     (``_chunk_steps``; the first request's also ran the warm-up's).  Each
@@ -3851,7 +3906,7 @@ def _demo_requests(url: str, engine, body: dict, card: str) -> dict:
     from qwen3tts_tpu_torch.audio.wav import read_wav
     from qwen3tts_tpu_torch.utils.timing import TRACE
 
-    want = {k: 28 if k == "flash_decode" else 0 for k in KERNELS}
+    want = {k: DEFAULT_WANT.get(k, 0) for k in KERNELS}
     res = {"warm": []}
     with _recording(engine) as graphs:
         for i in range(1 + DEMO_WARM):
@@ -3874,7 +3929,7 @@ def _demo_requests(url: str, engine, body: dict, card: str) -> dict:
                 raise AssertionError(
                     f"{what}: {steps} steps replayed for {out['frames']} frames, launches "
                     f"{replayed} from the graphs and {eager} eagerly ({warm} captures), "
-                    f"captured steps holding {bad[:1]}; want flash_decode 28 a step")
+                    f"captured steps holding {bad[:1]}; want {DEFAULT_WANT} a step")
             stamped = {k: v["total_ms"] for k, v in TRACE.summary()["device"].items()}
             out.update(stamped_device_ms=stamped,
                        stamped_share=(stamped.get("step", 0) + stamped.get("codec_stream", 0))
@@ -4036,7 +4091,7 @@ def slice_demo_phase(card: str) -> dict:
     with the builtin recognizer (the committed checkpoint) on the card:
     /status names cuda:0; /load of the bf16 0.6B, then streamed clone
     requests (``preset_low``, chunk 8, ramp 2, 4, DEMO_STEPS), each counted
-    (flash-decode 28 a step): one that captures, DEMO_WARM warm ones; a
+    (DEFAULT_WANT a step): one that captures, DEMO_WARM warm ones; a
     non-streamed /generate (``_demo_requests``); the eviction
     (``_demo_evict``); the 16 committed clips through /transcribe
     (``_demo_transcribe``).  Shuts the server down and frees its models."""
@@ -4876,7 +4931,8 @@ def main():
            for name in ("fused_norm_matmul", "fused_o_mlp")}
     k17["fused_micro_step"] = {"ms": m17_out["times"]["kernel"],
                                "plain_ms": m17_out["times"]["plain"],
-                               "bound_ms": m17_out["bound_ms"], "max_abs_err": m17_err}
+                               "bound_ms": m17_out["bound_ms"], "max_abs_err": m17_err,
+                               "rows": m17_out["rows"]}
     log("slice-voices: " + json.dumps({"card": card, **voices, "kernels_1.7b": k17}))
     log("slice-checkpoint: " + json.dumps(ckpt))
     log("slice-w8a8: " + json.dumps({
@@ -4893,6 +4949,7 @@ def main():
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
         "micro_step_max_abs_err": m_err, "micro_step_ms": m_out["times"],
+        "micro_step_rows": m_out["rows"],
         "grid_ctas": m_out["grid"], "grid_barriers": m_out["barriers"],
         "matvec_max_abs_err": v_err,
         "matvec_ms": {w: v["times"] for w, v in v_times.items()}}))

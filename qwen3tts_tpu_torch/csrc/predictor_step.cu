@@ -135,7 +135,7 @@ struct Args {
   int barriers;          // 1: a grid barrier after every phase; 0: the tags alone order them
   int items;             // without barriers: every phase has this many items
   float eps, scale;
-  // R > 1 rows (micro_rows_kernel); every array above gains a row axis after
+  // R > 1 rows (micro_step_kernel_rows); every array above gains a row axis after
   // its split axis: x [R, Ht], kv_k [L, R, S, KVH, D], out [R, Hp], px [KS, R, Hp], ...
   int R;
   int owners, own_cols;  // CTA c < owners keeps the residual's columns [c own_cols, +own_cols)
@@ -189,7 +189,7 @@ struct Sched {
                  : kind == kGU  ? A.gu_w + (size_t)l * K * ld
                                 : A.dn_w + (size_t)l * K * ld;
     out = wstream::make_job(w, ld, n0, N + n0, kind == kGU ? 2 : 1, C, k_lo, k_hi);
-    out.align = A.R > 1 ? 16 : 1;  // micro_rows_kernel's stages: whole 16-row k-steps
+    out.align = A.R > 1 ? 16 : 1;  // micro_step_kernel_rows's stages: whole 16-row k-steps
     return true;
   }
   __device__ __forceinline__ bool job(int p, Job& out) const {
@@ -536,7 +536,7 @@ __global__ void __launch_bounds__(wstream::kBlock, 1) micro_step_kernel(const __
 }
 
 // ---------------------------------------------------------------------------
-// R > 1 rows: micro_rows_kernel.  The same phases, items and weight stream as
+// R > 1 rows: micro_step_kernel_rows.  The same phases, items and weight stream as
 // micro_step_kernel; what changes is what crosses the grid, which grows with R.
 //
 //   * Products: each weight tile is read from device memory once and used
@@ -1094,7 +1094,7 @@ __device__ void final_row(const Args<T>& a, int r, unsigned tag, float* rstd) {
 }
 
 template <typename T, int E>
-__global__ void __launch_bounds__(wstream::kBlock, 1) micro_rows_kernel(const __grid_constant__ Args<T> a) {
+__global__ void __launch_bounds__(wstream::kBlock, 1) micro_step_kernel_rows(const __grid_constant__ Args<T> a) {
   extern __shared__ __align__(128) char smem[];
   using Ring = wstream::RingMem<kRowsStages>;
   auto* ring_mem = reinterpret_cast<Ring*>(smem);
@@ -1212,7 +1212,7 @@ int grid_of() {
 }
 template <typename T, int E>
 int rows_grid_of() {
-  static const int grid = wstream::coresident_grid(micro_rows_kernel<T, E>, kRowsSmem);
+  static const int grid = wstream::coresident_grid(micro_step_kernel_rows<T, E>, kRowsSmem);
   return grid;
 }
 
@@ -1267,22 +1267,71 @@ bool fits(const Args<T>& a, int grid) {
   return true;
 }
 
-template <typename T, int E>
-cudaError_t micro_step(const Args<T>& a, cudaStream_t st) {
-  if (a.R > 1) {
-    const int grid = rows_grid_of<T, E>();
-    if (grid > 0 && !fits(a, grid)) return cudaErrorInvalidValue;
-    return wstream::launch_cooperative(micro_rows_kernel<T, E>, grid, kRowsSmem, st, a);
+// a's shapes, geometry and rows from the C interface's dims and geo (see
+// qwen3tts_micro_step), for a launch on `grid` CTAs.  At R > 1 the residual's
+// columns and the (row, head) attention pairs are dealt among the CTAs that
+// run: every CTA with an item, or the whole grid where the phases meet at
+// barriers.  CTA c < owners keeps the columns [c own_cols, (c + 1) own_cols),
+// a multiple of 8; pair i goes to CTA i % workers.
+template <typename T>
+void shape(Args<T>& a, const int* dims, const int* geo, int R, int grid) {
+  a.Ht = dims[0]; a.Hp = dims[1]; a.NH = dims[2]; a.KVH = dims[3];
+  a.D = dims[4]; a.I = dims[5]; a.L = dims[6]; a.S = dims[7];
+  for (int k = 0; k < kKinds; ++k) a.geo[k] = {geo[3 * k], geo[3 * k + 1], geo[3 * k + 2]};
+  a.barriers = geo[3 * kKinds];
+#if defined(QWEN3TTS_FORCE_BARRIERS) || defined(QWEN3TTS_ATTENTION_BARRIER)
+  a.barriers = 1;  // tools/kernel_probe.py: what the barriers cost
+#endif
+  a.items = a.geo[kProj].C >= 8 ? ((a.Hp + a.geo[kProj].C - 1) / a.geo[kProj].C) * a.geo[kProj].KS
+                                : 0;
+  a.R = R;
+  a.owners = a.own_cols = a.workers = 0;
+  if (R > 1) {
+    a.workers = a.barriers ? grid : a.items;
+    a.own_cols = a.workers < 1 ? 0 : kVec * ((a.Hp + kVec * a.workers - 1) / (kVec * a.workers));
+    a.owners = a.own_cols < 1 ? 0 : (a.Hp + a.own_cols - 1) / a.own_cols;
   }
-  const int grid = grid_of<T, E>();
-  if (grid > 0 && !fits(a, grid)) return cudaErrorInvalidValue;
-  return wstream::launch_cooperative(micro_step_kernel<T, E>, grid, kSmem, st, a);
+  a.as_stride = 0;
+  for (int k = 0; k < kKinds; ++k)
+    a.as_stride = a.geo[k].chunk > a.as_stride ? a.geo[k].chunk : a.as_stride;
+  a.as_stride += 16 / (int)sizeof(T);  // 16 bytes: ldmatrix's rows in 8 bank groups
+}
+
+// the dims every instance needs, whatever the grid
+bool dims_ok(const int* dims, int R) {
+  const int Ht = dims[0], Hp = dims[1], NH = dims[2], KVH = dims[3], D = dims[4], I = dims[5],
+            L = dims[6], S = dims[7];
+  return (D == 64 || D == 128) && KVH >= 1 && NH % KVH == 0 && L >= 1 && S >= 1 &&
+         S <= kMaxS && Ht >= 1 && Ht <= kMaxK && Ht % 8 == 0 && Hp >= 8 && Hp <= kMaxHp &&
+         Hp % 8 == 0 && NH * D <= kMaxK && I >= 8 && I <= kMaxK && I % 8 == 0 && R >= 1 &&
+         R <= kRows;
+}
+
+template <typename T, int E>
+int grid_for(int R) {
+  return R > 1 ? rows_grid_of<T, E>() : grid_of<T, E>();
+}
+
+// the owners of the residual's columns of a fitting launch (0 at R 1), or -1
+template <typename T>
+int instance(const int* dims, const int* geo, int R) {
+  if (!dims_ok(dims, R)) return -1;
+  const int grid = dims[4] == 64 ? grid_for<T, 2>(R) : grid_for<T, 4>(R);
+  if (grid <= 0) return -1;
+  Args<T> a;
+  shape(a, dims, geo, R, grid);
+  return fits(a, grid) ? a.owners : -1;
 }
 
 template <typename T>
-int run(int D, void* const* p, const int* dims, const int* geo, const int* rows, float eps,
-        float scale, cudaStream_t st) {
+int run(void* const* p, const int* dims, const int* geo, int R, float eps, float scale,
+        cudaStream_t st) {
+  const int D = dims[4];
+  const int grid = D == 64 ? grid_for<T, 2>(R) : grid_for<T, 4>(R);
+  if (grid <= 0) return grid < 0 ? -grid : (int)cudaErrorCooperativeLaunchTooLarge;
   Args<T> a;
+  shape(a, dims, geo, R, grid);
+  if (!fits(a, grid)) return (int)cudaErrorInvalidValue;
   a.x = static_cast<const T*>(p[0]);
   a.proj_w = static_cast<const T*>(p[1]);
   a.proj_b = static_cast<const float*>(p[2]);
@@ -1303,36 +1352,24 @@ int run(int D, void* const* p, const int* dims, const int* geo, const int* rows,
   a.out = static_cast<T*>(p[17]);
   uint64_t* ws = static_cast<uint64_t*>(p[18]);
   a.sync = static_cast<unsigned*>(p[19]);
-  a.Ht = dims[0]; a.Hp = dims[1]; a.NH = dims[2]; a.KVH = dims[3];
-  a.D = dims[4]; a.I = dims[5]; a.L = dims[6]; a.S = dims[7];
-  for (int k = 0; k < kKinds; ++k) a.geo[k] = {geo[3 * k], geo[3 * k + 1], geo[3 * k + 2]};
-  a.barriers = geo[3 * kKinds];
-#if defined(QWEN3TTS_FORCE_BARRIERS) || defined(QWEN3TTS_ATTENTION_BARRIER)
-  a.barriers = 1;  // tools/kernel_probe.py: what the barriers cost
-#endif
-  a.items = a.geo[kProj].C >= 8 ? ((a.Hp + a.geo[kProj].C - 1) / a.geo[kProj].C) * a.geo[kProj].KS
-                                : 0;
   a.eps = eps;
   a.scale = scale;
-  a.R = rows[0];
-  a.owners = rows[1];
-  a.own_cols = rows[2];
-  a.workers = rows[3];
-  const size_t R = a.R, QT = (size_t)(a.NH + 2 * a.KVH) * a.D;
+  const size_t rows = a.R, QT = (size_t)(a.NH + 2 * a.KVH) * a.D;
   const int ksx = a.geo[kProj].KS > a.geo[kDown].KS ? a.geo[kProj].KS : a.geo[kDown].KS;
   a.px = ws;
-  a.pq = a.px + (size_t)ksx * R * a.Hp;
-  a.po = a.pq + (size_t)a.geo[kQKV].KS * R * QT;
-  a.act = a.po + (size_t)a.geo[kO].KS * R * a.Hp;
-  a.xr = a.act + R * a.I;
-  a.ssp = a.xr + R * a.Hp;
-  a.at = a.ssp + R * a.owners;
-  a.as_stride = 0;
-  for (int k = 0; k < kKinds; ++k)
-    a.as_stride = a.geo[k].chunk > a.as_stride ? a.geo[k].chunk : a.as_stride;
-  a.as_stride += 16 / (int)sizeof(T);  // 16 bytes: ldmatrix's rows in 8 bank groups
-  if (D == 64) return (int)micro_step<T, 2>(a, st);
-  return (int)micro_step<T, 4>(a, st);
+  a.pq = a.px + (size_t)ksx * rows * a.Hp;
+  a.po = a.pq + (size_t)a.geo[kQKV].KS * rows * QT;
+  a.act = a.po + (size_t)a.geo[kO].KS * rows * a.Hp;
+  a.xr = a.act + rows * a.I;
+  a.ssp = a.xr + rows * a.Hp;
+  a.at = a.ssp + rows * a.owners;
+  if (D == 64)
+    return R > 1 ? (int)wstream::launch_cooperative(micro_step_kernel_rows<T, 2>, grid,
+                                                     kRowsSmem, st, a)
+                 : (int)wstream::launch_cooperative(micro_step_kernel<T, 2>, grid, kSmem, st, a);
+  return R > 1 ? (int)wstream::launch_cooperative(micro_step_kernel_rows<T, 4>, grid, kRowsSmem,
+                                                   st, a)
+               : (int)wstream::launch_cooperative(micro_step_kernel<T, 4>, grid, kSmem, st, a);
 }
 
 }  // namespace
@@ -1349,22 +1386,28 @@ extern "C" {
 // column tiles of C columns x KS row splits of chunk rows, at most one item
 // per CTA of the grid (qwen3tts_micro_step_grid); then 1 for a grid barrier
 // after every phase, or 0 where every phase has the same number of items
-// and the tags alone order the phases.  rows: R (1-16), then at R > 1 the
-// owners of the residual's columns, the columns each owns, and the CTAs that
-// take attention pairs.  Returns the launch's cudaError_t (0 on success);
-// cudaErrorInvalidValue for a shape without an instance.
-int qwen3tts_micro_step(int dtype, void* const* ptrs, const int* dims, const int* geo,
-                        const int* rows, float eps, float scale, void* stream) {
-  const int Ht = dims[0], Hp = dims[1], NH = dims[2], KVH = dims[3], D = dims[4], I = dims[5],
-            L = dims[6], S = dims[7];
-  if ((D != 64 && D != 128) || KVH < 1 || NH % KVH != 0 || L < 1 || S < 1 || S > kMaxS ||
-      Ht < 1 || Ht > kMaxK || Ht % 8 != 0 || Hp < 8 || Hp > kMaxHp || Hp % 8 != 0 ||
-      NH * D > kMaxK || I < 8 || I > kMaxK || I % 8 != 0 || rows[0] < 1 || rows[0] > kRows)
-    return (int)cudaErrorInvalidValue;
+// and the tags alone order the phases.  R: the rows (1-16).  The grid, and at
+// R > 1 the owners of the residual's columns and the CTAs that take attention
+// pairs, follow from these (shape).  Returns the launch's cudaError_t (0 on
+// success); cudaErrorInvalidValue for a shape without an instance
+// (qwen3tts_micro_step_instance).
+int qwen3tts_micro_step(int dtype, void* const* ptrs, const int* dims, const int* geo, int R,
+                        float eps, float scale, void* stream) {
+  if (!dims_ok(dims, R)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<__nv_bfloat16>(D, ptrs, dims, geo, rows, eps, scale, st);
-  if (dtype == 1) return run<float>(D, ptrs, dims, geo, rows, eps, scale, st);
+  if (dtype == 0) return run<__nv_bfloat16>(ptrs, dims, geo, R, eps, scale, st);
+  if (dtype == 1) return run<float>(ptrs, dims, geo, R, eps, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Whether qwen3tts_micro_step has an instance for dtype, dims, geo and R (as
+// there): the owners of the residual's columns (0 at R 1), which size the
+// workspace, or -1 where it has none.  The one check of a shape: the launch
+// makes the same.
+int qwen3tts_micro_step_instance(int dtype, const int* dims, const int* geo, int R) {
+  if (dtype == 0) return instance<__nv_bfloat16>(dims, geo, R);
+  if (dtype == 1) return instance<float>(dims, geo, R);
+  return -1;
 }
 
 // The grid (CTAs) a micro-step of one row (rows 1) or of 2-16 rows (rows 2)

@@ -40,7 +40,6 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core.config import PredictorConfig
-from ..ops import cuda_build
 from ..ops import predictor_step as micro_step
 from ..ops.predictor_step import fused_micro_step, micro_step_weights
 from ..ops.quant import is_quantized
@@ -186,7 +185,8 @@ def micro_kernel_misfit(params: Params, cfg: PredictorConfig, rows: int,
                     cfg.num_key_value_heads, cfg.head_dim, cfg.intermediate_size,
                     cfg.num_hidden_layers, cfg.max_seq)
             try:
-                micro_step.instance(dims, rows, w.dtype, cuda_build.sm_count(device))
+                with torch.cuda.device(device):
+                    micro_step.instance(dims, rows, w.dtype)
             except ValueError as e:
                 why.append(str(e))
     return "; ".join(why) or None

@@ -33,7 +33,9 @@ SOURCES = {"flash_decode": CSRC / "flash_decode.cu",
            "graph_cond": CSRC / "graph_cond.cu"}
 
 # each launch wrapper's kernel, as its name appears (mangled) in a CUDA
-# graph's kernel nodes; flash_decode_kernel is the float and the int8 cache's
+# graph's kernel nodes; flash_decode_kernel is the float and the int8 cache's,
+# micro_step_kernel names micro_step_kernel_rows too (a graph walk matches
+# substrings)
 KERNEL_SYMBOLS = {"flash_decode": "flash_decode_kernel", "fused_norm_matmul": "norm_matmul_kernel",
                   "fused_o_mlp": "o_mlp_kernel", "fused_micro_step": "micro_step_kernel",
                   "quantize_act": "quantize_act_kernel", "w8a8_gemv": "fused_w8a8_gemv_kernel"}

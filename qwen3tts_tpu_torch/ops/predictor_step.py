@@ -29,7 +29,7 @@ default path.
 Rows: 1 to ``MAX_ROWS`` rows at one ``pos`` (a frame's rows are all at the
 same codebook), each streamed weight tile used by every row.  One row runs
 the kernel ``micro_step_kernel`` as it was designed for batch 1; 2 to 16
-rows run ``micro_rows_kernel`` (the source note says what changes with the
+rows run ``micro_step_kernel_rows`` (the source note says what changes with the
 rows).  Plain (unquantized) weights of the activations' dtype, full
 attention (no sliding window): ``models/predictor.py:micro_kernel_misfit``
 is the one gate.  The cache ``[L, R, S, KVH, D]`` (the engine's layout) is
@@ -55,21 +55,9 @@ from . import cuda_build, wstream
 from .quant import is_quantized
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (64, 128)  # lanes hold D / 32 elements, rotate-half pairs in one lane
-MAX_K = 4096  # longest activation row the kernel keeps in shared memory
-MAX_HP = 2048  # widest residual the kernel keeps in shared memory
-MAX_S = 64  # most cache slots
 MAX_ITEM_COLS = 2048  # most outputs of one item (gate and up columns together)
 KV_BYTES = 24576  # shared memory for the cache rows an o-phase item's attention reads
 MAX_ROWS = 16  # most rows of one launch (the mma's rows)
-ROW_BLOCK = 4  # rows a float32 consumer thread multiplies at once
-ACT_BYTES = 67584  # the rows' activations over an item's row split, and its fold
-RES_FLOATS = 2048  # an item's outputs, 16 rows x columns
-OWN_FLOATS = 1024  # an owner's residual columns, rows x columns
-MAX_TILES = 8  # 8-column tiles of a bfloat16 item's outputs
-ATTN_WARPS = 8  # warps that take attention (row, head) pairs
-CONSUMERS = 256  # consumer threads of a CTA (csrc/wstream.cuh kThreads)
-WARPS = CONSUMERS // 32
 PHASES = ("proj", "qkv", "o", "gu", "down")  # the kernel's phase kinds, in its order
 _MATRICES = ("proj_w", "qkv", "o", "gu", "dn")
 _workspace: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -256,87 +244,42 @@ def cta_jobs(dims, geo: Dict[str, wstream.Geo], cta: int, elt_size: int):
     return jobs
 
 
-def instance(dims, R: int, dtype: torch.dtype, grid: int):
-    """(geometry, rows) of a launch of R rows of these dims on a grid of
-    ``grid`` CTAs: ``phase_geometry`` and the kernel's rows argument (R,
-    owners, own_cols, workers).  At R > 1, CTA c < owners keeps the
-    residual's columns [c own_cols, (c + 1) own_cols), and (row, head)
-    attention pair i goes to CTA i % workers; both deal among the CTAs that
-    run (every CTA with an item, or the whole grid with barriers).  Raises
-    ValueError naming what has no kernel instance (the kernel's own check is
-    csrc/predictor_step.cu:fits)."""
+def instance(dims, R: int, dtype: torch.dtype) -> Tuple[Dict[str, wstream.Geo], int]:
+    """(geometry, owners) of a launch of R rows of these dims: the
+    ``phase_geometry`` of the grid the kernel launches on
+    (``kernel_grid``), and at R > 1 the CTAs that keep the residual's
+    columns (0 at one row).  The kernel's own check
+    (``csrc/predictor_step.cu``: ``fits``, through
+    ``qwen3tts_micro_step_instance``) decides; raises ValueError where it
+    has no instance."""
     Ht, Hp, NH, KVH, D, I, L, S = dims
-    why = []
-    if dtype not in _DTYPE_CODE:
-        why.append(f"{dtype} (bfloat16 or float32)")
-    if (D not in HEAD_DIMS or S > MAX_S or max(Ht, NH * D, I) > MAX_K or Hp > MAX_HP
-            or any(n % wstream.VEC for n in (Ht, Hp, I))):
-        why.append(f"Ht {Ht}, Hp {Hp}, {NH}/{KVH} heads of {D}, I {I}, {S} slots (needs "
-                   f"head_dim in {HEAD_DIMS}, widths <= {MAX_K}, Hp <= {MAX_HP}, Ht, Hp and "
-                   f"I multiples of {wstream.VEC}, <= {MAX_S} slots)")
-    if not 1 <= R <= MAX_ROWS:
-        why.append(f"{R} rows (1 to {MAX_ROWS})")
-    if why:
-        raise ValueError("fused_micro_step has no kernel instance for " + "; ".join(why))
-    elt = torch.empty((), dtype=dtype).element_size()
+    why = (f"{R} rows of Ht {Ht}, Hp {Hp}, {NH}/{KVH} heads of {D}, I {I}, {L} layers, "
+           f"{S} slots in {dtype}")
+    if dtype not in _DTYPE_CODE or not 1 <= R <= MAX_ROWS:
+        raise ValueError(f"fused_micro_step has no kernel instance for {why} (bfloat16 or "
+                         f"float32, 1 to {MAX_ROWS} rows)")
+    grid = kernel_grid(dtype, D, R > 1)
     geo = phase_geometry(dims, grid)
-    if 2 * geo["gu"].cols > MAX_ITEM_COLS:
-        why.append(f"I {I} on this grid")
-    if R == 1:
-        if 2 * attention_kv_heads(dims, geo["o"]) * S * D * elt > KV_BYTES:
-            why.append(f"{S} slots of {KVH} kv heads of {D}: an item's cache rows exceed "
-                       f"{KV_BYTES} bytes of shared memory")
-        return _checked(geo, (1, 0, 0, 0), why)
-    workers = _workers(dims, geo, grid)
-    own_cols = _own_cols(dims, geo, workers)
-    RP = ROW_BLOCK * -(-R // ROW_BLOCK)
-    pairs_per_cta = -(-R * NH // workers)
-    stride = max(g.chunk for g in geo.values()) + 16 // elt
-    if R > workers:
-        why.append(f"{R} rows on {workers} CTAs")
-    if own_cols > 32 or R * own_cols > OWN_FLOATS:
-        why.append(f"{own_cols} residual columns an owner at {R} rows")
-    if pairs_per_cta > ATTN_WARPS or 2 * pairs_per_cta * S * D * elt > KV_BYTES:
-        why.append(f"{pairs_per_cta} attention pairs a CTA over {S} slots of {D} (at most "
-                   f"{ATTN_WARPS}, {KV_BYTES} bytes of cache rows)")
-    if MAX_ROWS * stride * elt > ACT_BYTES:
-        why.append(f"row splits of {stride - 16 // elt} in {ACT_BYTES} bytes at {elt} a value")
-    for kind, g in geo.items():
-        cols = (2 if kind == "gu" else 1) * g.cols
-        threads = cols // wstream.VEC * (RP // ROW_BLOCK)
-        if elt == 2:
-            bad = cols % 16 or cols // 8 > MAX_TILES or WARPS * MAX_ROWS * cols * 4 > ACT_BYTES
-        else:
-            bad = threads > CONSUMERS or CONSUMERS // threads * (RP * cols + 4) * 4 > ACT_BYTES
-        if bad or MAX_ROWS * cols > RES_FLOATS:
-            why.append(f"the {kind} phase's items ({g.chunk} rows x {cols} columns) at {R} rows")
-    return _checked(geo, (R, -(-Hp // own_cols), own_cols, workers), why)
+    _, _, _, check = _kernel_fns()
+    owners = check(_DTYPE_CODE[dtype], (ctypes.c_int * 8)(*dims), _geo_words(dims, geo), R)
+    if owners < 0:
+        raise ValueError(f"fused_micro_step has no kernel instance for {why} on {grid} CTAs")
+    return geo, owners
 
 
-def _workers(dims, geo: Dict[str, wstream.Geo], grid: int) -> int:
-    """The CTAs that run a launch of R > 1 rows: every CTA with an item, or
-    the whole grid where the phases meet at barriers."""
-    Hp = dims[1]
-    return grid if needs_barriers(dims, geo) else wstream.num_items(Hp, Hp, geo["proj"])
-
-
-def _own_cols(dims, geo: Dict[str, wstream.Geo], workers: int) -> int:
-    """The residual's columns one owner CTA keeps (a multiple of 8)."""
-    Hp = dims[1]
-    return wstream.VEC * -(-Hp // (wstream.VEC * workers))
-
-
-def _checked(geo, rows, why):
-    if why:
-        raise ValueError("fused_micro_step has no kernel instance for " + "; ".join(why))
-    return geo, rows
+def _geo_words(dims, geo: Dict[str, wstream.Geo]):
+    """The C interface's geo: (C, KS, chunk) of each phase kind, then the
+    barrier flag."""
+    return (ctypes.c_int * 16)(*(v for kind in PHASES for v in geo[kind]),
+                               int(needs_barriers(dims, geo)))
 
 
 def bind(lib: ctypes.CDLL):
-    """(micro_step, micro_step_grid, grid_barriers) of a built library."""
+    """(micro_step, micro_step_grid, grid_barriers, micro_step_instance) of a
+    built library."""
     step = lib.qwen3tts_micro_step
-    step.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_float,
-                                                              ctypes.c_void_p]
+    step.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float,
+                                                              ctypes.c_float, ctypes.c_void_p]
     step.restype = ctypes.c_int
     grid = lib.qwen3tts_micro_step_grid
     grid.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -344,7 +287,10 @@ def bind(lib: ctypes.CDLL):
     barriers = lib.qwen3tts_grid_barriers
     barriers.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     barriers.restype = ctypes.c_int
-    return step, grid, barriers
+    check = lib.qwen3tts_micro_step_instance
+    check.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    check.restype = ctypes.c_int
+    return step, grid, barriers, check
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,17 +308,16 @@ def needs_barriers(dims, geo: Dict[str, wstream.Geo]) -> bool:
                 for kind, kn in phase_dims(dims).items()}) > 1
 
 
-def _workspace_for(device, dims, geo: Dict[str, wstream.Geo], rows: Tuple[int, ...]):
+def _workspace_for(device, dims, geo: Dict[str, wstream.Geo], R: int, owners: int):
     """What crosses the grid between phases, as 8-byte tagged words (proj /
     down, qkv and o partial sums: one row per row split and row; the
     activation; at R > 1 also the owners' residual, their sums of squares
     and the attention's output), zeroed once, and the sync words
     {grid barrier, next launch's tags, CTAs done}, allocated once per shape
-    (never during CUDA-graph capture).  ``rows`` is ``instance``'s.  Launches
-    are ordered on the stream, so one set serves them all."""
+    (never during CUDA-graph capture).  ``owners`` is ``instance``'s.
+    Launches are ordered on the stream, so one set serves them all."""
     Ht, Hp, NH, KVH, D, I, L, S = dims
     QT = (NH + 2 * KVH) * D
-    R, owners = rows[0], rows[1]
     n = R * (max(geo["proj"].splits, geo["down"].splits) * Hp + geo["qkv"].splits * QT
              + geo["o"].splits * Hp + I + (Hp + owners + NH * D if R > 1 else 0))
     key = (device, n)
@@ -442,22 +387,18 @@ def fused_micro_step(w: Weights, x_emb: torch.Tensor, cos: torch.Tensor, sin: to
     if x_emb.device.type == "cpu":
         return fused_micro_step_plain(w, x_emb, cos, sin, kv_k, kv_v, pos, eps)
     _check_cuda(tensors, x_emb)
-    step, _, _ = _kernel_fns()
-    grid = kernel_grid(x_emb.dtype, D, R > 1)
-    geo, rows = instance(dims, R, x_emb.dtype, grid)
+    geo, owners = instance(dims, R, x_emb.dtype)
     out = torch.empty((R, Hp), dtype=x_emb.dtype, device=x_emb.device)
-    ws, sync = _workspace_for(x_emb.device, dims, geo, rows)
+    ws, sync = _workspace_for(x_emb.device, dims, geo, R, owners)
     ptrs = (ctypes.c_void_p * 20)(*(t.data_ptr() for t in (
         x_emb, w["proj_w"], w["proj_b"], w["in_norm"], w["post_norm"], w["q_norm"],
         w["k_norm"], w["final_norm"], w["qkv"], w["o"], w["gu"], w["dn"], cos, sin,
         kv_k, kv_v, pos, out, ws, sync)))
-    dims_c = (ctypes.c_int * 8)(*dims)
-    geo_c = (ctypes.c_int * 16)(*(v for kind in PHASES for v in geo[kind]),
-                                int(needs_barriers(dims, geo)))
-    rows_c = (ctypes.c_int * 4)(*rows)
+    step = _kernel_fns()[0]
     with torch.cuda.device(x_emb.device):
-        rc = step(_DTYPE_CODE[x_emb.dtype], ptrs, dims_c, geo_c, rows_c, float(eps),
-                  float(D ** -0.5), torch.cuda.current_stream(x_emb.device).cuda_stream)
+        rc = step(_DTYPE_CODE[x_emb.dtype], ptrs, (ctypes.c_int * 8)(*dims),
+                  _geo_words(dims, geo), R, float(eps), float(D ** -0.5),
+                  torch.cuda.current_stream(x_emb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_micro_step kernel launch failed: cudaError {rc}")
     cuda_build.count_launches(fused_micro_step)
@@ -471,7 +412,7 @@ fused_micro_step.launches = 0
 def kernel_grid(dtype: torch.dtype, head_dim: int, rows: bool = False) -> int:
     """CTAs of one micro-step launch on the current card (one per SM), of
     one row or (``rows``) of 2 to 16."""
-    _, grid, _ = _kernel_fns()
+    grid = _kernel_fns()[1]
     n = grid(_DTYPE_CODE[dtype], head_dim, 2 if rows else 1)
     if n <= 0:
         raise RuntimeError(f"no co-resident grid for the micro-step kernel: cudaError {-n}")
@@ -481,7 +422,7 @@ def kernel_grid(dtype: torch.dtype, head_dim: int, rows: bool = False) -> int:
 def grid_barriers(grid: int, n: int, stream: torch.cuda.Stream) -> None:
     """Launch ``n`` grid-wide barriers on ``grid`` CTAs and nothing else:
     the barriers' share of a micro-step, timed apart."""
-    _, _, barriers = _kernel_fns()
+    barriers = _kernel_fns()[2]
     rc = barriers(grid, n, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"grid barrier launch failed: cudaError {rc}")

@@ -547,8 +547,10 @@ def _generate(cfg, params, mesh: Mesh, shard: bool, embeds, tth, tpe, steps: int
     chunks replay what the first captured), which must give the same
     tokens, and its timing; and the counts of one eager step."""
     tpp, ppp = _params(cfg, params, mesh, shard)
+    # the predictor's eager chain in both runs: the micro-step kernel runs no
+    # mesh, and the whole run is held to the sharded one on the same path
     eng = Engine(tpp, ppp, cfg, max_seq_len=max_seq_len, kv_quant=kv_quant,
-                 mesh=mesh if shard else None, **engine_kw)
+                 mesh=mesh if shard else None, use_micro_kernel=False, **engine_kw)
     pol, ppol = _greedy()
 
     def request():

@@ -616,7 +616,7 @@ def _micro_chain(w, pcfg, Ht, dt, L, tol, free_running, rows=None):
 @pytest.mark.parametrize("talker_hidden", [1024, 2048])
 def test_micro_step_rows_match_plain(dtype, rows, talker_hidden):
     """The kernel at R rows of one ``pos`` (a cache [L, R, S, KVH, D]; R 1
-    runs micro_step_kernel, 2-16 micro_rows_kernel) at the 0.6B predictor's
+    runs micro_step_kernel, 2-16 micro_step_kernel_rows) at the 0.6B predictor's
     shapes, its proj input 1024 (0.6B) or 2048 wide (1.7B): four chained
     steps against the plain version, one launch a step, two runs the same
     bits; bf16 held to MICRO_BF16_TOL, float32 also free-running."""

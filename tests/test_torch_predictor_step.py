@@ -495,6 +495,23 @@ def test_ring_schedule_of_a_micro_step(L, cta):
     assert abs(sum(r * b for r, b in jobs) - total / 128) <= 0.01 * total / 128
 
 
+def test_graph_walk_needle_names_every_micro_step_kernel():
+    """A captured step's launches are read from its graph's kernel nodes by
+    substring of the kernel's name (``KERNEL_SYMBOLS``): the one-row and
+    the rows kernel that ``fused_micro_step`` launches both carry its
+    needle, and no other wrapper's needle matches them."""
+    import re
+
+    from qwen3tts_tpu_torch.ops.cuda_build import KERNEL_SYMBOLS, SOURCES
+
+    src = SOURCES["predictor_step"].read_text()
+    launched = set(re.findall(r"launch_cooperative\((\w+)<", src))
+    assert launched == {"micro_step_kernel", "micro_step_kernel_rows"}
+    for name in launched:
+        hits = [k for k, needle in KERNEL_SYMBOLS.items() if needle in name]
+        assert hits == ["fused_micro_step"], (name, hits)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_micro_step_in_kernel_order_matches_jax_kernel(tiny_cfg, dtype):
     """The plain version with every product summed over the CUDA kernel's
