@@ -2,8 +2,9 @@
 
 Once the window has closed, a sample of the finished requests, drawn from
 the seed with the longest greedy one and the longest one in it, is run
-through the plain reference (``reference/qwen3tts.py``) on the served
-frames.  The numbers compared:
+through the plain reference that the configuration names
+(``bench.reference``: ``reference/<name>.py``, loaded by
+``harness.load_reference``) on the served frames.  The numbers compared:
 
 - ``talker_greedy_gap_mean``: over the greedy requests' codebook-0 tokens,
   the mean gap by which a served token's logit lies below the reference's
@@ -39,7 +40,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from reference.qwen3tts import Reference, logits_processed, no_tf32
+from reference import logits_processed, no_tf32
 
 TOP_K = 50
 PENALTY = 1.05
@@ -69,10 +70,12 @@ def sample(recs: List[Dict], n: int, seed: int, spf: int) -> List[Dict]:
 
 
 @torch.no_grad()
-def judge(params, cfg: Dict, voices: List[np.ndarray], recs: List[Dict], n: int, seed: int,
-          fp8_audio: bool = False) -> Dict[str, float]:
+def judge(reference, params, cfg: Dict, voices: List[np.ndarray], recs: List[Dict], n: int,
+          seed: int, fp8_audio: bool = False) -> Dict[str, float]:
+    """The numbers of the sample, computed by ``reference`` (a reference
+    module's ``Reference`` class) on ``params``."""
     no_tf32()
-    ref = Reference(params, cfg)
+    ref = reference(params, cfg)
     spf = int(np.prod(cfg["speech_tokenizer_config"]["upsample_rates"])
               * np.prod(cfg["speech_tokenizer_config"]["upsampling_ratios"]))
     vocab = cfg["talker_config"]["vocab_size"]

@@ -7,6 +7,12 @@ multiply-add is two operations.  ``cfg`` is the configuration file's dict;
 
 H100 SXM peaks (NVIDIA's data sheet, dense): 989e12 bfloat16 operations a
 second, 3.35e12 bytes a second of HBM.
+
+A counts module (``bench_h100/counts/<name>.py``, named by a configuration's
+``bench.counts``) provides every model-dependent number the readers take:
+``step_products``, ``flash_decode_call``, ``decode_attention_layers``,
+``frame_ops``, ``codec_ops_per_frame``, ``bound_s``, ``PEAK_BF16_OPS`` and
+``HBM_BYTES_PER_S``.
 """
 from __future__ import annotations
 
@@ -63,6 +69,12 @@ def flash_decode_call(cfg: Dict, B: int, live: int) -> Tuple[float, float]:
     return ops, nbytes
 
 
+def decode_attention_layers(cfg: Dict) -> int:
+    """The talker layers that run a decode attention over the KV cache:
+    every one of Qwen3's."""
+    return cfg["talker_config"]["num_hidden_layers"]
+
+
 def codec_ops_per_frame(cfg: Dict) -> float:
     """Operations of the codec decoder for one frame of codes: the
     pre-transformer at the frame rate, then every convolution at its own
@@ -92,10 +104,9 @@ def frame_ops(cfg: Dict, live: int) -> float:
     """Operations of one row's frame step at a talker position with
     ``live`` slots: its share of the step's products, the talker's and the
     predictor's attention, and the codec decoder's frame."""
-    tc = cfg["talker_config"]
-    pc = tc["code_predictor_config"]
+    pc = cfg["talker_config"]["code_predictor_config"]
     ops, _ = step_products(cfg, 1)
-    ops += tc["num_hidden_layers"] * flash_decode_call(cfg, 1, live)[0]
+    ops += decode_attention_layers(cfg) * flash_decode_call(cfg, 1, live)[0]
     pa = 4.0 * pc["num_attention_heads"] * pc["head_dim"]
     ops += pc["num_hidden_layers"] * pa * sum(range(1, pc["num_code_groups"] + 1))
     return ops + codec_ops_per_frame(cfg)

@@ -2,8 +2,9 @@
 
 Everything a cell is made of is found by name: its configuration file (the
 ``file`` of its ``configs`` entry) with the program's path in its
-``bench.path`` and its counts in ``bench.counts``
-(``bench_h100/counts/<counts>.py``), its traffic mix
+``bench.path``, its counts in ``bench.counts``
+(``bench_h100/counts/<counts>.py``) and the plain reference that judges it
+in ``bench.reference`` (``bench_h100/reference/<reference>.py``), its traffic mix
 (``bench_h100/traffic/<traffic>.json``) with its driver
 (``bench_h100/drivers/<driver>.py``), the limits of its check
 (``bench_h100/limits/<workload>.json``) and a reader for each metric
@@ -11,11 +12,26 @@ Everything a cell is made of is found by name: its configuration file (the
 or None when it finds nothing to read; a metric ``<base>.<part>`` with no
 file of its own is read by ``<base>``'s, as ``frames_per_s.b1`` by
 ``frames_per_s.py``).
+
+Adding a configuration takes new files only:
+
+- ``configs/<config>.json``: the port's configuration, equal to the port's
+  preset of that name, with ``bench.reference``, ``bench.counts``,
+  ``bench.path``, ``bench.max_seq_len`` and ``bench.reduced`` (the same keys
+  as the ``BENCHMARK.json`` entry's ``reduced``);
+- ``reference/<reference>.py``: a ``Reference`` that subclasses
+  ``reference/qwen3tts.py``'s and replaces ``talker_stack`` (or a whole
+  reference), importing nothing of the program;
+- ``counts/<counts>.py``: the names listed in ``counts/qwen3tts.py``'s
+  docstring;
+- ``limits/<workload>.json``, and ``traffic/<mix>.json`` for a new mix;
+- ``BENCHMARK.json`` entries of the new cell's metrics under a suffix
+  that the base name's reader reads (``frames_per_s.<suffix>``, as
+  ``.b1`` is read today), and new readers only for new spans.
 """
 from __future__ import annotations
 
 import gc
-import importlib
 import importlib.util
 import json
 import time
@@ -31,10 +47,18 @@ from traffic import load_mix, plan, voices
 from weights import make_weights
 
 HERE = Path(__file__).resolve().parent
+REFERENCES = HERE / "reference"
 # the program's path, as the configuration's ``bench.path`` names it, and
 # the API's default of each key
 PATH = {"flash_decode": True, "fused_kernels": False, "micro_kernel": False,
         "cuda_graphs": True, "quantize": None, "kv_quant": False}
+
+
+def _load_file(path: Path, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader_file(name: str) -> Path:
@@ -48,19 +72,27 @@ def reader_file(name: str) -> Path:
 
 def load_reader(name: str):
     path = reader_file(name)
-    spec = importlib.util.spec_from_file_location("metric_" + path.stem.replace(".", "_"),
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load_file(path, "metric_" + path.stem.replace(".", "_")).read
+
+
+def _load_named(cfg: Dict, kind: str, folder: Path):
+    """The module ``<folder>/<name>.py`` that the configuration's
+    ``bench.<kind>`` names; a missing or unknown name raises."""
+    name = cfg["bench"].get(kind)
+    if not isinstance(name, str) or not (folder / f"{name}.py").is_file():
+        raise ValueError(f"no {kind} {name!r} in bench_h100/{kind}/")
+    return _load_file(folder / f"{name}.py", f"{kind}_{name}")
 
 
 def load_counts(cfg: Dict):
     """The counts module the configuration names (``bench.counts``)."""
-    name = cfg["bench"]["counts"]
-    if not (HERE / "counts" / f"{name}.py").is_file():
-        raise ValueError(f"no counts {name!r} in bench_h100/counts/")
-    return importlib.import_module(f"counts.{name}")
+    return _load_named(cfg, "counts", HERE / "counts")
+
+
+def load_reference(cfg: Dict):
+    """The ``Reference`` class of the plain reference the configuration
+    names (``bench.reference``), from ``REFERENCES``."""
+    return _load_named(cfg, "reference", REFERENCES).Reference
 
 
 def applies(metric: Dict, workload: str) -> bool:
@@ -167,6 +199,7 @@ def run(bench: Dict, root: Path, workload: str, seed: int, seconds: float, trace
     cuda = torch.device(device).type == "cuda"
     cfg_obj = TTSModelConfig.from_dict(cfg)
     counts = load_counts(cfg)
+    reference = load_reference(cfg)
     driver_cls = drivers.load(mix["driver"])
     params = make_weights(cfg_obj, seed, device)
     model = build_model(cfg, cfg_obj, params, seed, driver_cls.rows(mix), control)
@@ -212,8 +245,8 @@ def run(bench: Dict, root: Path, workload: str, seed: int, seconds: float, trace
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    numbers = check_lib.judge(params, cfg, vox, recs, mix["check"]["requests"], seed,
-                              fp8_audio=fp8_audio)
+    numbers = check_lib.judge(reference, params, cfg, vox, recs,
+                              mix["check"]["requests"], seed, fp8_audio=fp8_audio)
     if batch_pos is not None:
         numbers["batch_max_pos"] = float(batch_pos)
     names = [m for m in (bench["per_layer"] if trace else bench["end_to_end"])

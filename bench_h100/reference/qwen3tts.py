@@ -9,7 +9,9 @@ frames, no cache), the code predictor's logits along the same frames
 the frames.  It follows the published architecture: Qwen3-style decoder
 blocks (RMSNorm, GQA with per-head q/k RMSNorm and rotary positions,
 SwiGLU), an ECAPA-style speaker encoder and a causal convolutional codec
-decoder with a sliding-window pre-transformer.
+decoder with a sliding-window pre-transformer.  The talker's decoder
+stack is one method, ``Reference.talker_stack``: a reference of another
+talker subclasses ``Reference``, replaces that method and keeps the rest.
 
 It imports nothing but torch and numpy.  ``params`` is the nested dict of
 tensors the harness drew (``bench_h100/weights.py``), in the layout the
@@ -37,12 +39,6 @@ Params = Dict
 IM_START, IM_END, NL, ROLE_ASSISTANT = 0, 1, 2, 3
 R0, R1, R2 = 6, 7, 8
 BYTE_OFFSET = 16
-
-
-def no_tf32() -> None:
-    """float32 products stay float32 on the card."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def text_ids(text: str) -> list:
@@ -85,6 +81,8 @@ def attention(q, k, v, mask) -> torch.Tensor:
 
 def decoder_stack(blocks: Params, x: torch.Tensor, c: Dict, pos: torch.Tensor) -> torch.Tensor:
     """Causal Qwen3 blocks over x [N, T, H] at positions ``pos`` [T]."""
+    if c.get("sliding_window") is not None:
+        raise ValueError("the reference's decoder stack covers full attention only")
     L = blocks["input_norm"].shape[0]
     NH, KVH, D = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
     I, eps = c["intermediate_size"], c["rms_norm_eps"]
@@ -116,8 +114,6 @@ class Reference:
         self.cc = cfg["speech_tokenizer_config"]
         self.sc = cfg["speaker_encoder_config"]
         self.device = params["talker"]["codec_embedding"].device
-        if self.tc.get("sliding_window") is not None or self.pc.get("sliding_window") is not None:
-            raise ValueError("the reference covers full-attention talkers and predictors only")
 
     # -- the x-vector ---------------------------------------------------
     def log_mel(self, wav: torch.Tensor) -> torch.Tensor:
@@ -210,6 +206,11 @@ class Reference:
             e = e + _f(pr["codec_embeddings"][i][codes[:, i + 1]])
         return e
 
+    def talker_stack(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """The talker's decoder blocks over x [1, T, H] at positions ``pos``
+        [T], before the final norm."""
+        return decoder_stack(self.p["talker"]["blocks"], x, self.tc, pos)
+
     def talker(self, prompt: torch.Tensor, codes: torch.Tensor, tts_pad: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits [F, V], final hidden [F, H]) that precede each frame's
@@ -219,8 +220,7 @@ class Reference:
         x = torch.cat([prompt, self.frame_embeds(codes[:-1]) + tts_pad[None]])[None]
         T0 = prompt.shape[0]
         pos = torch.arange(x.shape[1], device=self.device)
-        h = rms(decoder_stack(t["blocks"], x, tc, pos)[0, T0 - 1:], t["final_norm"],
-                tc["rms_norm_eps"])
+        h = rms(self.talker_stack(x, pos)[0, T0 - 1:], t["final_norm"], tc["rms_norm_eps"])
         return h @ _f(t["codec_head"]), h
 
     # -- the code predictor ---------------------------------------------
@@ -305,23 +305,3 @@ def _fp8(x: torch.Tensor) -> torch.Tensor:
     """x rounded to float8 e4m3 under a per-tensor scale (amax to 448)."""
     s = x.abs().amax().clamp_min(1e-12) / 448.0
     return (x / s).to(torch.float8_e4m3fn).float() * s
-
-
-def logits_processed(logits: torch.Tensor, codes0: torch.Tensor, vocab: int,
-                     penalty: float, zone: int = 1024) -> torch.Tensor:
-    """The talker's codebook-0 logits as its sampler sees them, in float64:
-    the repetition penalty on every id emitted before the frame (divided
-    where positive, multiplied where not) and the control ids (the top
-    ``zone`` of the vocabulary) out, EOS included, as it is while a request
-    is below its minimum length."""
-    out = logits.double().clone()
-    F_ = out.shape[0]
-    seen = torch.zeros((F_, vocab), dtype=torch.bool, device=out.device)
-    for f in range(1, F_):
-        seen[f] = seen[f - 1]
-        seen[f, codes0[f - 1]] = True
-    if penalty != 1.0:
-        pen = torch.where(out > 0, out / penalty, out * penalty)
-        out = torch.where(seen, pen, out)
-    out[:, vocab - zone:] = float("-inf")
-    return out

@@ -86,7 +86,23 @@ def test_config_file_is_the_preset(conf):
     assert conf["file"].startswith(BENCH["paths"][0] + "/")
     raw = json.loads((ROOT / conf["file"]).read_text())
     assert TTSModelConfig.from_dict(raw) == get_preset(conf["name"])
-    assert raw["bench"]["source"] == conf["source"] and raw["bench"]["reduced"] == []
+    assert raw["bench"]["source"] == conf["source"]
+    assert raw["bench"]["reduced"] == conf["reduced"]
+
+
+@pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
+def test_config_names_its_reference_and_counts(conf):
+    """The modules a configuration names exist, and its counts module gives
+    every name the readers take (``counts/qwen3tts.py``'s docstring)."""
+    import harness
+
+    raw = json.loads((ROOT / conf["file"]).read_text())
+    assert callable(harness.load_reference(raw))
+    counts = harness.load_counts(raw)
+    for name in ("step_products", "flash_decode_call", "decode_attention_layers",
+                 "frame_ops", "codec_ops_per_frame", "bound_s", "PEAK_BF16_OPS",
+                 "HBM_BYTES_PER_S"):
+        assert hasattr(counts, name) and name in counts.__doc__, name
 
 
 @pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])

@@ -50,3 +50,22 @@ def test_codec_and_frame_ops():
     f100, f200 = c.frame_ops(cfg, 100), c.frame_ops(cfg, 200)
     assert f200 - f100 == pytest.approx(28 * 4 * 16 * 128 * 100)
     assert f100 > c.step_products(cfg, 1)[0] + codec
+
+
+@pytest.mark.parametrize("name", sorted(CFG))
+@pytest.mark.parametrize("B,live", [(1, 300), (16, 2000)])
+def test_flash_decode_roofline_counts_every_qwen3_layer(name, B, live):
+    """The reader's bound, its layers from the counts module, equals every
+    talker layer's call: 28 x ``flash_decode_call`` in both configurations."""
+    import devtrace
+    import harness
+
+    cfg = CFG[name]
+    assert c.decode_attention_layers(cfg) == cfg["talker_config"]["num_hidden_layers"] == 28
+    spent = 1e-3
+    ctx = {"counts": harness.load_counts(cfg), "cfg": cfg, "devtrace": devtrace,
+           "profile": {"kernels": {"flash_decode_kernel": spent}, "batch": B,
+                       "pos0": live - 1, "steps": 1}}
+    bound = cfg["talker_config"]["num_hidden_layers"] * c.bound_s(*c.flash_decode_call(
+        cfg, B, live))
+    assert harness.load_reader("flash_decode_roofline")(ctx) == 100.0 * bound / spent

@@ -2,6 +2,7 @@
 and whole runs of the three drivers at a tiny size: correct as served,
 not correct with the timed path broken underneath or on the control."""
 import json
+import shutil
 import time
 from pathlib import Path
 
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 import harness
-from reference.qwen3tts import Reference, logits_processed
+from reference import logits_processed
+from reference.qwen3tts import Reference
 
 BASE = {"text_tokens_per_frame": 0.3333, "language": "English", "check": {"requests": 3},
         "schedule_seed": 1,
@@ -39,7 +41,8 @@ def tiny_cfg():
     from qwen3tts_tpu_torch.core.presets import get_preset
 
     cfg = get_preset("tiny").to_hf_dict()
-    cfg["bench"] = {"max_seq_len": 256, "counts": "qwen3tts", "path": {}}
+    cfg["bench"] = {"max_seq_len": 256, "counts": "qwen3tts", "reference": "qwen3tts",
+                    "path": {}}
     return cfg
 
 
@@ -48,11 +51,12 @@ def tiny_cfg():
 READERS = sorted(p.stem for p in (Path(harness.__file__).parent / "metrics").glob("*.py"))
 
 
-def tiny_run(kind, control=None, fp8_audio=False, limits=None):
+def tiny_run(kind, control=None, fp8_audio=False, limits=None, cfg=None):
     """One tiny cell's run.  A closed loop serves the first cycle of its plan
     (both sampling policies in it) whatever the CPU's speed: its window
     outlasts the cycle, which ends the loop.  The limits are ``LIMITS``, less
-    the greedy gap where the mix has no greedy request."""
+    the greedy gap where the mix has no greedy request; the configuration
+    is ``tiny_cfg()`` unless given."""
     mix = MIXES[kind]
     if limits is None:
         limits = {k: v for k, v in LIMITS.items()
@@ -65,7 +69,7 @@ def tiny_run(kind, control=None, fp8_audio=False, limits=None):
     try:
         return harness.run(bench, None, "tiny-" + kind, SEED, 600.0 if closed else 3.0, False,
                            time.perf_counter(), device="cpu", control=control,
-                           fp8_audio=fp8_audio, cell_parts=(tiny_cfg(), mix, limits))
+                           fp8_audio=fp8_audio, cell_parts=(cfg or tiny_cfg(), mix, limits))
     finally:
         harness.plan = orig
 
@@ -170,6 +174,43 @@ def test_pieces_found_by_name_or_refused():
         drivers.load("http")
     with pytest.raises(ValueError, match="no counts"):
         harness.load_counts({"bench": {"counts": "other_model"}})
+    for bench in ({"reference": "other_model"}, {}):
+        with pytest.raises(ValueError, match="no reference"):
+            harness.load_reference({"bench": bench})
+    cfg = tiny_cfg()
+    del cfg["bench"]["reference"]
+    with pytest.raises(ValueError, match="no reference"):  # before any set-up
+        harness.run(None, None, "tiny-batch", SEED, 1.0, False, time.perf_counter(),
+                    device="cpu", cell_parts=(cfg, MIXES["batch"], LIMITS))
+
+
+# a reference module of another talker, as a configuration would name it:
+# the base's x-vector, prompt, predictor and codec, the talker's logits moved
+# by one id
+ALTERED = """
+from reference.qwen3tts import Reference as Base
+
+
+class Reference(Base):
+    def talker(self, prompt, codes, tts_pad):
+        logits, hidden = super().talker(prompt, codes, tts_pad)
+        return logits.roll(1, -1), hidden
+"""
+
+
+@pytest.mark.parametrize("name,correct", [("qwen3tts", True), ("altered", False)])
+def test_the_named_reference_judges(name, correct, tmp_path, monkeypatch):
+    """The configuration's ``bench.reference`` picks the module that judges
+    the cell, through the loader's folder: the plain reference passes the
+    tiny batch cell, a subclass whose talker logits alone differ fails it."""
+    shutil.copy(harness.REFERENCES / "qwen3tts.py", tmp_path / "qwen3tts.py")
+    (tmp_path / "altered.py").write_text(ALTERED)
+    monkeypatch.setattr(harness, "REFERENCES", tmp_path)
+    cfg = tiny_cfg()
+    cfg["bench"]["reference"] = name
+    out = tiny_run("batch", cfg=cfg)
+    assert out["correct"] is correct, out["numbers"]
+    assert out["failed"] == 0
 
 
 def _alter_talker_tokens(monkeypatch):

@@ -84,3 +84,36 @@ def test_unknown_arrivals_kind_raises():
     mix = load_mix(MIXES[0])
     with pytest.raises(ValueError, match="arrivals kind"):
         plan(dict(mix, arrivals={"kind": "sine", "rate_per_s": 1}), 1, 30)
+
+
+CLOSED = [p for p in MIXES if load_mix(p)["arrivals"]["kind"] == "closed"]
+
+
+@pytest.mark.parametrize("path", CLOSED, ids=lambda p: p.stem)
+@pytest.mark.parametrize("speed", [0.7, 1.0, 1.3])
+def test_a_closed_window_holds_whole_cycles(path, speed, monkeypatch):
+    """Whatever the speed, a closed loop's window ends at a cycle's end (the
+    first after its time), so it holds each size of the cycle equally often,
+    and the rate over it does not hang on where the time ran out."""
+    import drivers
+
+    mix = load_mix(path)
+    clock = [0.0]
+    monkeypatch.setattr(drivers.time, "perf_counter", lambda: clock[0])
+
+    class Loop(drivers.ClosedLoop):
+        def __init__(self):
+            self.mix = mix
+
+        def _call(self, item, due):
+            clock[0] += speed * (0.3 + item["frames"] / 100)
+            return [{"frames": item["frames"], "due": due, "end": clock[0]}]
+
+    p = plan(mix, 11, 30)
+    recs = Loop().window(p, 0.0, 30.0)
+    k = mix["frames"]["cycle"]
+    assert len(recs) % k == 0 and len(recs) > k
+    assert recs[-k]["due"] < 30.0 <= recs[-1]["end"]
+    n = len(recs) // k
+    assert Counter(r["frames"] for r in recs) == Counter(
+        {f: c * n for f, c in Counter(_stratified(mix["frames"], k).tolist()).items()})

@@ -154,7 +154,7 @@ def plan(mix: Dict, seed: int, seconds: float) -> List[Dict]:
     else:
         cycle = _stratified(mix["frames"], mix["frames"]["cycle"])
         # more than a window can hold at any plausible speed: the loop stops
-        # starting requests when the window ends
+        # starting requests at the first cycle's end after the window's time
         n_cycles = 64
         frames = np.concatenate([order.permutation(cycle) for _ in range(n_cycles)])
         greedy = np.concatenate([_greedy(order, len(cycle), mix["greedy_share"])
