@@ -234,7 +234,25 @@ Phases, in order; any failure raises and exits non-zero:
    whose logits on the 16 committed clips agree with the CPU's within 0.1
    (cuDNN's TF32) and 1e-3 (TF32 off); seconds of synthesis,
    featurisation and an epoch.
-17. examples — the port's x-vector examples as a user runs them, each in a
+17. slice-lfm2 — the hybrid talker's main path: random:lfm2-8b-a1b-tts
+   (bf16, 8.5B parameters, 17.1 GB) through the API at 16 rows as the
+   benchmark's xvec-lfm2moe-batch16 runs it (``generate_voice_clone_batch``
+   of 16 texts, captured chunks): load seconds and memory, the first call
+   (captures), frames/s of a 96-frame call, and a 16-frame call whose
+   launches are held to flash-decode 6, the micro-step 14 and
+   routed_experts 66 (22 routed layers x 3) a step (``_held_request``), with
+   the device's busy share and the routing counters.  Its kernels are held
+   in the kernel phase, after set_condition: routed_experts at LFM2-8B-A1B's
+   routed layers (H 2048, 32 experts of 1792, top 4) at 1, 4 and 16 rows,
+   all rows on 4 experts and spread over 32, against its plain version
+   (BF16_TOL), two runs bit-equal, counters equal to the plain version's,
+   a captured call replayed on rewritten rows and bias, and timed beside
+   the touched experts' bytes; flash-decode's head_dim 64 / group 4
+   instance (6 layers, 32 over 8 heads, S 2048) at 1, 4 and 16 left-padded
+   rows and pos 300 and 2000, bf16 and float32, against flash_decode_plain,
+   two runs bit-equal, a captured graph per row count replayed at
+   rewritten (pos, pad), and timed beside its bound.
+18. examples — the port's x-vector examples as a user runs them, each in a
    fresh process (``python3 examples/torch_*.py``, the checkout on
    PYTHONPATH, random:qwen3-tts-0.6b, bf16, the card by default):
    torch_extract_speaker.py on the phase's reference wav writes one finite
@@ -252,7 +270,8 @@ kernels' JSON line before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  The kernels' ``launches`` are those of
 the main path's counted captured requests (slice-graph, the run that
 captures its chunks: the wrappers' eager launches, one step a capture,
-plus each replay's kernel nodes); the matvecs' are the probe's.
+plus each replay's kernel nodes; slice-lfm2's for the hybrid talker's
+two); the matvecs' are the probe's.
 """
 from __future__ import annotations
 
@@ -1621,7 +1640,7 @@ COUNTED_STEPS = {"captured": 16, "eager": 8}  # streamed requests whose kernels 
 # the kernels counted on each path, launches a step (28 talker layers; 5
 # predictor layers x 14 micro-steps)
 KERNELS = ("flash_decode", "fused_norm_matmul", "fused_o_mlp", "fused_micro_step",
-           "quantize_act", "w8a8_gemv")
+           "quantize_act", "w8a8_gemv", "routed_experts")
 # the API's default bf16 path on the card: flash-decode and the micro-step kernel
 DEFAULT_WANT = {"flash_decode": 28, "fused_micro_step": 14}
 GRAPH_PATHS = {  # path -> (model, Engine keywords, launches a step by kernel)
@@ -1637,24 +1656,27 @@ def _launch_counts() -> dict:
     from qwen3tts_tpu_torch.ops import flash_decode as fd
     from qwen3tts_tpu_torch.ops import fused_block as fb
     from qwen3tts_tpu_torch.ops import predictor_step as ps
+    from qwen3tts_tpu_torch.ops import routed_experts as rx
     from qwen3tts_tpu_torch.ops import w8a8
 
     return {"flash_decode": fd.flash_decode.launches + fd.flash_decode.launches_int8kv,
             "fused_norm_matmul": fb.fused_norm_matmul.launches,
             "fused_o_mlp": fb.fused_o_mlp.launches,
             "fused_micro_step": ps.fused_micro_step.launches,
-            "quantize_act": w8a8.quantize_act.launches, "w8a8_gemv": w8a8.w8a8_gemv.launches}
+            "quantize_act": w8a8.quantize_act.launches, "w8a8_gemv": w8a8.w8a8_gemv.launches,
+            "routed_experts": rx.routed_experts.launches}
 
 
 def _zero_counts() -> None:
     from qwen3tts_tpu_torch.ops import flash_decode as fd
     from qwen3tts_tpu_torch.ops import fused_block as fb
     from qwen3tts_tpu_torch.ops import predictor_step as ps
+    from qwen3tts_tpu_torch.ops import routed_experts as rx
     from qwen3tts_tpu_torch.ops import w8a8
 
     fd.flash_decode.launches = fd.flash_decode.launches_int8kv = 0
     fb.fused_norm_matmul.launches = fb.fused_o_mlp.launches = ps.fused_micro_step.launches = 0
-    w8a8.quantize_act.launches = w8a8.w8a8_gemv.launches = 0
+    w8a8.quantize_act.launches = w8a8.w8a8_gemv.launches = rx.routed_experts.launches = 0
 
 
 def _per_step(want: dict, B: int) -> dict:
@@ -4783,6 +4805,247 @@ EXAMPLE_S = 300  # each example process's time limit
 EXAMPLE_WROTE = re.compile(r"wrote (\S+): ([0-9.]+)s in ([0-9.]+)s \(([0-9.]+) ms/step\)")
 
 
+# ---------------------------------------------------------------------------
+# The hybrid (LFM2) talker: its kernels at LFM2-8B-A1B's shapes, then its
+# main path through the API.
+
+LFM2_PRESET = "lfm2-8b-a1b-tts"
+ROUTED = (2048, 1792, 32, 4)  # H, expert width I, experts E, top k
+ROUTED_ROWS = (1, 4, 16)
+ROUTED_TIMED_LAYERS = 4  # 2.8 GB of experts in the timing graph: none stays in L2
+D64G4 = (6, 2048, 8, 32, 64)  # attention layers L, slots S, KVH, NH, head_dim
+D64G4_ROWS = (1, 4, 16)
+D64G4_POSITIONS = (300, 2000)
+# the main path's launches a step at 16 rows: 6 attention layers, 14
+# micro-steps, 22 routed layers x 3 launches
+LFM2_WANT = {"flash_decode": 6, "fused_micro_step": 14, "routed_experts": 66}
+LFM2_B = 16
+
+
+def _routed_rows(case: str, B: int, router, g):
+    """(x, h, bias) of B rows: ``same``, a bias that sends every row to
+    experts 3, 7, 11 and 29; ``spread``, row r's hidden picks experts 4r ..
+    4r + 3 (mod E) through ``router`` (changed in place), so that 8 rows or
+    more touch all 32."""
+    H, _, E, K = ROUTED
+    dev = router.device
+    x = torch.randn((B, H), generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn((B, H), generator=g, device=dev) * 0.1
+    bias = torch.zeros((E,), device=dev)
+    if case == "same":
+        bias[[3, 7, 11, 29]] = 10.0
+    else:
+        for r in range(B):
+            h[r, r] = 30.0
+            for j in range(K):
+                router[r, (4 * r + j) % E] = 1.0
+    return x, h.to(torch.bfloat16), bias.to(torch.bfloat16)
+
+
+def routed_kernel_phase(card: str) -> tuple:
+    """``routed_experts`` (csrc/routed_experts.cu) at LFM2-8B-A1B's routed
+    layers (H 2048, 32 experts of 1792, top 4), bf16, at 1, 4 and 16 rows
+    with every row on the same 4 experts and with the rows spread over all
+    32: against ``routed_experts_plain`` (BF16_TOL), two runs bit-equal, the
+    device counters equal to the plain version's and the experts touched as
+    routed; one captured call replayed on rewritten rows and bias (routed
+    to 4 experts, then by the router); then timed at each row count over
+    ROUTED_TIMED_LAYERS layers of experts in one graph beside the bound of
+    the touched experts' bytes and the plain version (wall, it reads the
+    counts on the host).  Returns (max error, timings by rows)."""
+    from qwen3tts_tpu_torch.ops import routed_experts as rx
+
+    H, I, E, K = ROUTED
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def n(*shape, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    def stats():
+        return torch.zeros((E + 2,), dtype=torch.int64, device=dev)
+
+    w13, w2 = n(E, H, 2 * I, scale=H ** -0.5), n(E, I, H, scale=I ** -0.5)
+    err, before = 0.0, rx.routed_experts.launches
+    for B in ROUTED_ROWS:
+        for case in ("same", "spread"):
+            router = n(H, E, scale=H ** -0.5)
+            x, h, bias = _routed_rows(case, B, router, g)
+            s_k, s_p = stats(), stats()
+            got = rx.routed_experts(x, h, router, bias, w13, w2, K, True, 1.0, s_k)
+            again = rx.routed_experts(x, h, router, bias, w13, w2, K, True, 1.0)
+            want = rx.routed_experts_plain(x, h, router, bias, w13, w2, K, True, 1.0, s_p)
+            err = max(err, _held("routed_experts", got, want, BF16_TOL, f"B={B} {case}"))
+            if not torch.equal(got, again):
+                raise AssertionError(f"routed_experts: two runs differ at B={B} {case}")
+            touched = 4 if case == "same" else min(E, 4 * B)
+            if not torch.equal(s_k, s_p) or int(s_k[E]) != touched:
+                raise AssertionError(f"routed_experts counters at B={B} {case}: {s_k.tolist()}"
+                                     f" against plain {s_p.tolist()}; want {touched} touched")
+    if rx.routed_experts.launches - before != 3 * 2 * 2 * len(ROUTED_ROWS):
+        raise AssertionError("routed_experts: the launch counter does not count 3 a call")
+    router = n(H, E, scale=H ** -0.5)
+    x, h, bias = _routed_rows("spread", LFM2_B, router, g)
+    st = stats()
+    graph, out = _captured(lambda: rx.routed_experts(x, h, router, bias, w13, w2, K, True,
+                                                     1.0, st))
+    for case, b in (("same", [3, 7, 11, 29]), ("router", [])):
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        h.copy_(torch.randn(h.shape, generator=g, device=dev) * 0.1)
+        bias.zero_()
+        bias[b] = 10.0
+        graph.replay()
+        err = max(err, _held("routed_experts graph replay", out,
+                             rx.routed_experts_plain(x, h, router, bias, w13, w2, K), BF16_TOL,
+                             f"B={LFM2_B} {case}"))
+    if int(st[E + 1]) != 3:
+        raise AssertionError(f"routed_experts: {int(st[E + 1])} calls counted over a warm-up "
+                             "and two replays")
+    log(f"  routed_experts: {2 * len(ROUTED_ROWS)} cases bit-equal over two runs, counters "
+        f"equal to plain's; one captured call replayed twice, max_abs_err={err:.3e}")
+
+    L = ROUTED_TIMED_LAYERS
+    w13s = [w13] + [n(E, H, 2 * I, scale=H ** -0.5) for _ in range(L - 1)]
+    w2s = [w2] + [n(E, I, H, scale=I ** -0.5) for _ in range(L - 1)]
+    times = {}
+    for B in ROUTED_ROWS:
+        router = n(H, E, scale=H ** -0.5)
+        x, h, bias = _routed_rows("spread", B, router, g)
+        st = stats()
+        rx.routed_experts(x, h, router, bias, w13, w2, K, True, 1.0, st)
+        touched = int(st[E])
+        t_k = graph_ms(lambda i: rx.routed_experts(x, h, router, bias, w13s[i], w2s[i], K),
+                       L)
+        torch.cuda.synchronize()
+        t = time.time()
+        for i in range(L):
+            rx.routed_experts_plain(x, h, router, bias, w13s[i], w2s[i], K)
+        torch.cuda.synchronize()
+        t_p = (time.time() - t) * 1e3 / L
+        b = bound((touched * 3 * H * I + H * E + 3 * B * H) * 2, 2 * B * K * 3 * H * I,
+                  torch.bfloat16)
+        times[B] = {"ms": t_k, "plain_ms": t_p, "bound_ms": b[0], "bound_by": b[1],
+                    "touched": touched}
+        log(f"  routed_experts timing B={B} ({touched} experts touched, {L} layers a graph): "
+            f"kernel {t_k * 1e3:.2f} us/call, plain {t_p * 1e3:.2f} us/call (wall), bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]}, {100 * b[0] / t_k:.1f} %)  [{card}]")
+    del w13s, w2s, w13, w2
+    return err, times
+
+
+def d64g4_kernel_phase(card: str) -> tuple:
+    """flash-decode's head_dim 64 / group 4 instance at the LFM2 talker's
+    attention (6 layers, 32 over 8 heads of 64, S 2048), bf16 and float32,
+    at 1, 4 and 16 rows (row r left-padded 7 r slots) and pos 300 and 2000:
+    against ``flash_decode_plain`` (BF16_TOL, F32_TOL), two runs bit-equal;
+    one captured graph a row count replayed at (pos, pad) rewritten after
+    capture; then timed per call over the 6 layers in one graph beside the
+    bound of the live K and V and the plain version (the 6 layers' live KV
+    outgrows the 50 MB L2 only at 16 rows).  Returns (max error by dtype,
+    timings by (rows, pos))."""
+    from qwen3tts_tpu_torch.ops import flash_decode as fd
+
+    L, S, KVH, NH, D = D64G4
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(64)
+    err, times = {}, {}
+    for name, dt, tol in (("bf16", torch.bfloat16, BF16_TOL), ("f32", torch.float32, F32_TOL)):
+        err[name] = 0.0
+        for B in D64G4_ROWS:
+            q = torch.randn((B, NH, D), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((L, B, S, KVH, D), generator=g, device=dev).to(dt)
+                    for _ in range(2))
+            pad = torch.arange(B, dtype=torch.int32, device=dev) * 7
+            p = torch.zeros((1,), dtype=torch.int32, device=dev)
+            for pos in D64G4_POSITIONS:
+                p.fill_(pos)
+                for layer in (0, L - 1):
+                    got = fd.flash_decode(q, k, v, layer, p, pad)
+                    if not torch.equal(got, fd.flash_decode(q, k, v, layer, p, pad)):
+                        raise AssertionError(f"d64g4 {name}: two runs differ at B={B} "
+                                             f"pos={pos} layer={layer}")
+                    err[name] = max(err[name], _held(
+                        f"flash-decode d64g4 {name}", got,
+                        fd.flash_decode_plain(q, k, v, layer, p, pad), tol,
+                        f"B={B} pos={pos} layer={layer}"))
+            pd = pad.clone()
+            graph, out = _captured(lambda: fd.flash_decode(q, k, v, L - 1, p, pd))
+            for pos, first in REPLAY_POSITIONS:
+                p.fill_(pos)
+                pd.copy_(pad + first)
+                graph.replay()
+                err[name] = max(err[name], _held(
+                    f"flash-decode d64g4 {name} graph replay", out,
+                    fd.flash_decode_plain(q, k, v, L - 1, p, pd), tol,
+                    f"B={B} pos={pos} pad={pd.tolist()}"))
+            if name != "bf16":
+                continue
+            for pos in D64G4_POSITIONS:
+                p.fill_(pos)
+                live = pos + 1
+                t_k = graph_ms(lambda i: fd.flash_decode(q, k, v, i, p, pad), L)
+                t_p = graph_ms(lambda i: fd.flash_decode_plain(q, k, v, i, p, pad), L)
+                rows_live = sum(max(0, live - int(r)) for r in pad.tolist())
+                b = bound(nbytes(q, q) + 2 * rows_live * KVH * D * k.element_size(),
+                          4 * NH * rows_live * D, q.dtype)
+                times[(B, pos)] = {"ms": t_k, "plain_ms": t_p, "bound_ms": b[0],
+                                   "bound_by": b[1]}
+                log(f"  flash-decode d64g4 timing B={B} pos={pos}: kernel {t_k * 1e3:.2f} "
+                    f"us/call, plain {t_p * 1e3:.2f} us/call, bound {b[0] * 1e3:.2f} us "
+                    f"({100 * b[0] / t_k:.1f} %)  [{card}]")
+    log(f"  flash-decode d64g4: max_abs_err {json.dumps(err)}")
+    return err, times
+
+
+def slice_lfm2_phase(card: str) -> dict:
+    """The hybrid talker's main path: random:lfm2-8b-a1b-tts (bf16, 8.5B
+    parameters) through the API at LFM2_B rows, as the benchmark's
+    xvec-lfm2moe-batch16 runs it: ``generate_voice_clone_batch`` of 16
+    texts (its first call captures the chunks), a timed call of BATCH_STEPS
+    frames, then a counted call of BATCH_TRACED frames whose launches are
+    held to LFM2_WANT a step (``_held_request`` on the API's batch engine:
+    the counters set to 0 just before, read just after), with the device's
+    busy share and the routing counters (``moe.*``)."""
+    import gc
+
+    from qwen3tts_tpu_torch.utils.timing import TRACE
+
+    model = _load(LFM2_PRESET)
+    res = {"load_s": model.load_s, "memory_gb": torch.cuda.memory_allocated() / 1e9}
+    texts = _batch_texts(LFM2_B)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.wav")
+        _ref_wav(ref)
+
+        def call(steps):
+            wavs, _ = model.generate_voice_clone_batch(texts, "English", ref, "",
+                                                       max_new_tokens=steps,
+                                                       min_new_tokens=steps)
+            for i, w in enumerate(wavs):
+                _check_audio(w, steps, model.vocoder.spf, f"lfm2 batch row {i}")
+
+        for name, steps in (("first_call_s", BATCH_TRACED), ("timed", BATCH_STEPS)):
+            torch.cuda.synchronize()
+            t = time.time()
+            call(steps)
+            torch.cuda.synchronize()
+            res[name] = time.time() - t
+        res["frames_per_s"] = LFM2_B * BATCH_STEPS / res.pop("timed")
+        eng = model._batch_engine(LFM2_B)
+        eng.route_stats.counts.zero_()
+        res["counted_request"] = _held_request(eng, lambda: call(BATCH_TRACED), LFM2_WANT,
+                                               BATCH_TRACED, f"lfm2 B{LFM2_B}")
+        res["routes"] = eng.route_stats.read()
+        res["trace_moe"] = {k: v for k, v in TRACE.summary().get("counters", {}).items()
+                            if k.startswith("moe.")}
+    log(f"  lfm2 B{LFM2_B}: {json.dumps(res)}  [{card}]")
+    model._batch_engines.clear()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def _example(script: str, *argv) -> tuple:
     """``python3 examples/<script> *argv`` in a fresh process, as a user
     runs it (the checkout on PYTHONPATH): (its last stdout line, seconds).
@@ -4874,6 +5137,8 @@ def main():
     w_err, w_times, w_bounds = phase("kernel", w8a8_kernel_phase, card)
     rank_flash = phase("kernel", rank_flash_phase, card)
     cond = phase("kernel", set_condition_phase, card)
+    rx_err, rx_times = phase("kernel", routed_kernel_phase, card)
+    d64_err, d64_times = phase("kernel", d64g4_kernel_phase, card)
     models = {"bf16": _load(), "int8": _load(quantize="int8", kv_quant=True)}
     _, results = phase("slice", slice_phase, card, models["bf16"])
     _, q_results = phase("slice-int8", slice_int8_phase, card, models["int8"])
@@ -4896,6 +5161,7 @@ def main():
     demo = phase("slice-demo", slice_demo_phase, card)
     shard = phase("slice-shard", slice_shard_phase, card)
     train = phase("slice-train", slice_train_phase, card)
+    lfm2 = phase("slice-lfm2", slice_lfm2_phase, card)
     examples = phase("examples", examples_phase, card)
     # the main path: the captured chunks, in the counted request that
     # captured them; a replay's launches read from its graph's kernel nodes
@@ -4945,6 +5211,14 @@ def main():
     log("slice-shard: " + json.dumps({"card": card, **shard, "rank_flash_decode": rank_flash,
                                       "set_condition": cond}))
     log("slice-train: " + json.dumps({"card": card, **train}))
+    log("slice-lfm2: " + json.dumps({
+        "card": card, **lfm2, "routed_experts_max_abs_err": rx_err,
+        "routed_experts_us": {f"B{B}": {k: v * 1e3 if k.endswith("ms") else v
+                                        for k, v in t.items()} for B, t in rx_times.items()},
+        "d64g4_max_abs_err": d64_err,
+        "d64g4_us": {f"B{B} pos {pos}": {k: v * 1e3 if k.endswith("ms") else v
+                                         for k, v in t.items()}
+                     for (B, pos), t in d64_times.items()}}))
     log("examples: " + json.dumps({"card": card, **examples}))
     log("slice-micro: " + json.dumps({
         "card": card, "ms_per_frame": m_frames, "launches": m_launches,
@@ -4960,6 +5234,8 @@ def main():
     w_src = "qwen3tts_tpu_torch/csrc/w8a8.cu"
     w_launches = w8["w8a8"]["counted_request"]["capturing"]["launches"]
     w_t, w_b = w_times[("talker_qkv", 1)], w_bounds[("talker_qkv", 1)]
+    lfm2_launches = lfm2["counted_request"]["capturing"]["launches"]
+    rx_t, d64_t = rx_times[LFM2_B], d64_times[(LFM2_B, 300)]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms_by, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4974,7 +5250,11 @@ def main():
     # qkv shape, one row of bf16 activations, quantize_act there at 64 rows
     # (the prefill's route; their launches: slice-w8a8's counted captured
     # request, the prefill's quantize_act included; no Pallas original: they
-    # replace the JAX package's XLA int8 dot and its activation quantizer)
+    # replace the JAX package's XLA int8 dot and its activation quantizer);
+    # the hybrid talker's routed experts at 16 rows spread over all 32
+    # experts (no original: the JAX package has no hybrid talker) and the
+    # head_dim 64 flash-decode instance at 16 rows, pos 300 (their launches:
+    # slice-lfm2's counted captured request)
     log(f"phase seconds: {json.dumps(phase_s)}; total {time.time() - t0:.1f} s")
     kernels = [
         entry("flash_decode", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180", launches,
@@ -5006,6 +5286,12 @@ def main():
         entry("w8a8_gemv", w_src, "qwen3tts_tpu/ops/quant.py:76", w_launches["w8a8_gemv"],
               w_err["w8a8_gemv"], w_t["w8a8_gemv"], w_t["w8a8_gemv_plain"], w_b["w8a8_gemv"],
               None),
+        entry("routed_experts", "qwen3tts_tpu_torch/csrc/routed_experts.cu", None,
+              lfm2_launches["routed_experts"], rx_err, rx_t["ms"], rx_t["plain_ms"],
+              (rx_t["bound_ms"], rx_t["bound_by"]), None),
+        entry("flash_decode_d64g4", fd_src, "qwen3tts_tpu/ops/flash_decode.py:180",
+              lfm2_launches["flash_decode"], d64_err["bf16"], d64_t["ms"], d64_t["plain_ms"],
+              (d64_t["bound_ms"], d64_t["bound_by"]), None),
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

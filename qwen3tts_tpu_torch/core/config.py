@@ -84,6 +84,21 @@ class TalkerConfig:
     sliding_window: Optional[int] = None
     layer_types: Optional[Tuple[str, ...]] = None
     max_position_embeddings: int = 32768
+    # --- the hybrid (LFM2) talker, under its source config's names: a
+    # layer_types entry "conv" is a gated short convolution of conv_L_cache
+    # taps, the rest "full_attention"; the first num_dense_layers layers have
+    # a SwiGLU FFN of intermediate_size, the others num_experts routed experts
+    # of moe_intermediate_size, num_experts_per_tok a token (models/lfm2.py).
+    # A Qwen3 talker's dicts leave them out where they are at their defaults.
+    conv_L_cache: int = 3
+    conv_bias: bool = False
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    num_dense_layers: int = 0
+    use_expert_bias: bool = False
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
 
     # --- special codec token ids (control zone, near top of vocab) ---
     codec_eos_token_id: int = 2150
@@ -151,6 +166,26 @@ class TalkerConfig:
         if self.sliding_window is None or self.layer_types is None:
             return False
         return self.layer_types[idx] == "sliding_attention"
+
+    @property
+    def is_hybrid(self) -> bool:
+        """An LFM2 talker: some layer is a short convolution."""
+        return self.layer_types is not None and "conv" in self.layer_types
+
+    def as_dict(self) -> Dict[str, Any]:
+        """``dataclasses.asdict``; a Qwen3 talker's without the hybrid keys,
+        left at their defaults (so that its dict is the JAX package's)."""
+        d = dataclasses.asdict(self)
+        if not self.is_hybrid:
+            for f in dataclasses.fields(self):
+                if f.name in HYBRID_KEYS and d[f.name] == f.default:
+                    del d[f.name]
+        return d
+
+
+HYBRID_KEYS = ("conv_L_cache", "conv_bias", "num_experts", "num_experts_per_tok",
+               "moe_intermediate_size", "num_dense_layers", "use_expert_bias",
+               "norm_topk_prob", "routed_scaling_factor")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,12 +344,14 @@ class TTSModelConfig:
         )
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        d["talker"] = self.talker.as_dict()
+        return d
 
     def to_hf_dict(self) -> Dict[str, Any]:
         """Serialize in the upstream HF key layout that ``from_dict`` parses
         (the config format of a torch-layout checkpoint dir)."""
-        tk = dataclasses.asdict(self.talker)
+        tk = self.talker.as_dict()
         tk["code_predictor_config"] = dataclasses.asdict(self.predictor)
         return {
             "tts_model_type": self.model_type,

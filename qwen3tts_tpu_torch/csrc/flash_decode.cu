@@ -81,9 +81,10 @@
 //     chain of flash-decode calls but adds 0.2 us where a PyTorch kernel
 //     precedes each call, as in a decode step (tools/kernel_probe.py).
 //
-// Instantiated for the talker's head layout only (head_dim 128, two query
-// heads per kv head: every talker preset): q/out bfloat16 or float32, the
-// cache in q's dtype or int8.  Built with nvcc -gencode
+// Instantiated for the Qwen3 talker's head layout (head_dim 128, two query
+// heads per kv head): q/out bfloat16 or float32, the cache in q's dtype or
+// int8; and, as flash_decode_kernel_d64g4 at the end of this file, for
+// head_dim 64 with four query heads per kv head, float cache only.  Built with nvcc -gencode
 // arch=compute_90a,code=sm_90a into a shared library with a plain C interface
 // (qwen3tts_tpu_torch/ops/flash_decode.py).
 
@@ -329,11 +330,13 @@ __device__ __forceinline__ void fold_tile(const typename Lane<KV>::Raw (&kr)[U],
 // sum_s l_s c_s with c_s = exp(m_s - max_s m_s), the splits taken in split
 // order.  Every split's (m, l) and a thread's acc of every split are loaded
 // at once; each weight c_s and each denominator is computed once.
-template <typename T>
+// G, D: the instance's query heads per kv head and head_dim (both instances
+// merge alike).
+template <typename T, int G = kG, int D = kD>
 __device__ __forceinline__ void merge_splits(const float* __restrict__ ws_acc,
                                              const float* __restrict__ ws_ml, size_t row,
                                              int splits, T* __restrict__ out) {
-  constexpr int G = kG, D = kD, GD = kG * kD;
+  constexpr int GD = G * D;
   __shared__ float sm_m[kMaxSplits][G], sm_l[kMaxSplits][G], sm_mx[G], sm_den[G];
   const int tid = threadIdx.x;
   if (tid < splits * G) {  // split s = tid / G, head g = tid % G: (m, l) adjacent
@@ -552,6 +555,193 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The instance for head_dim 64 with four query heads per kv head (the hybrid
+// LFM2 talker's attention layers: 32 heads over 8), float cache only: a
+// kernel of its own, flash_decode_kernel_d64g4, beside the instance above.
+// The same function, the same split of the live range (split_bounds) and
+// the same last-CTA merge (the ticket, merge_splits<T, 4, 64>); inside a
+// CTA, each of the kWarps warps takes four slots at a time, a quarter-warp
+// (8 lanes of 8 elements) per 128-byte bf16 row, kU such passes' loads in
+// flight before the first is folded.  A quarter-warp sums its 4 heads' dot products by
+// 3-level butterflies (every lane ends with all 4 scores) and keeps its own
+// running (max, sum, acc) per head; the quarters merge by shuffles, the
+// warps in warp order through shared memory.  The loop is warp-uniform
+// (a dead slot scores -inf), so the shuffles never diverge.
+namespace g4 {
+
+constexpr int kD = 64, kG = 4, kEPL = 8, kLPR = kD / kEPL;  // 8 lanes a row
+constexpr int kWarps = 8, kThreads = kWarps * 32;
+constexpr int kPer = 32 / kLPR;            // slots a warp reads per pass
+constexpr int kStride = kWarps * kPer;     // slots a CTA reads per pass
+constexpr int kU = 4;                      // passes in flight
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_decode_kernel_d64g4(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ out,
+                          const int* __restrict__ pos_p, const int* __restrict__ pad_p,
+                          float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                          unsigned* __restrict__ ticket, int layer, int B, int S, int KVH,
+                          int window, float scale) {
+  constexpr int D = kD, G = kG, EPL = kEPL;
+  using Raw = typename Lane<T>::Raw;
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G], sm_acc[kWarps][G][D];
+  __shared__ float sm_c[kWarps][G], sm_mx[G];
+  __shared__ bool sm_last;
+  const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quarter = lane / kLPR, e0 = (lane % kLPR) * EPL;
+  const int NH = KVH * G;
+  int a, e;
+  split_bounds(*pos_p, pad_p[b], window, S, split, splits, a, e);
+  float qr[G][EPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const T* qp = q + ((size_t)b * NH + (size_t)kvh * G + g) * D + e0;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) qr[g][i] = to_float(qp[i]) * scale;
+  }
+  float m[G], l[G], acc[G][EPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) acc[g][i] = 0.f;
+  }
+  const size_t slot_stride = (size_t)KVH * D;
+  const size_t base = ((size_t)layer * B + b) * (size_t)S * slot_stride + (size_t)kvh * D + e0;
+  // the warp's passes start at a + kPer w + kStride j; the quarter's slot is
+  // the pass's start + quarter
+  for (int s0 = a + kPer * warp; s0 <= e; s0 += kStride * kU) {
+    Raw kr[kU], vr[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int s = s0 + u * kStride + quarter;
+      if (s <= e) {
+        kr[u] = Lane<T>::load(k + base + (size_t)s * slot_stride);
+        vr[u] = Lane<T>::load(v + base + (size_t)s * slot_stride);
+      } else {
+        kr[u] = Raw{};
+        vr[u] = Raw{};
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (s0 + u * kStride > e) break;  // warp-uniform: no slot of the pass is live
+      const bool live = s0 + u * kStride + quarter <= e;
+      float kk[EPL], vv[EPL], sc[G];
+      Lane<T>::cvt(kr[u], kk);
+      Lane<T>::cvt(vr[u], vv);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float x = 0.f;
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) x = fmaf(qr[g][i], kk[i], x);
+#pragma unroll
+        for (int off = kLPR / 2; off > 0; off /= 2) x += __shfl_xor_sync(kAll, x, off);
+        sc[g] = live ? x : -INFINITY;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float m_new = fmaxf(m[g], sc[g]);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = expf(m[g] - m_use);
+        const float p = expf(sc[g] - m_use);
+        l[g] = l[g] * corr + p;
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) acc[g][i] = fmaf(p, vv[i], acc[g][i] * corr);
+        m[g] = m_new;
+      }
+    }
+  }
+  // the warp's four quarter states merged (every lane keeps the sum)
+#pragma unroll
+  for (int off = kLPR; off < 32; off *= 2) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float m_o = __shfl_xor_sync(kAll, m[g], off);
+      const float l_o = __shfl_xor_sync(kAll, l[g], off);
+      const float mx = fmaxf(m[g], m_o);
+      const float c = mx == -INFINITY ? 0.f : expf(m[g] - mx);
+      const float c_o = mx == -INFINITY ? 0.f : expf(m_o - mx);
+      l[g] = l[g] * c + l_o * c_o;
+#pragma unroll
+      for (int i = 0; i < EPL; ++i)
+        acc[g][i] = acc[g][i] * c + __shfl_xor_sync(kAll, acc[g][i], off) * c_o;
+      m[g] = mx;
+    }
+  }
+  if (quarter == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) sm_acc[warp][g][e0 + i] = acc[g][i];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kWarps * G) {
+    const int w = threadIdx.x / G, g = threadIdx.x % G;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) mx = fmaxf(mx, sm_m[i][g]);
+    sm_c[w][g] = mx == -INFINITY ? 0.f : expf(sm_m[w][g] - mx);
+    if (w == 0) sm_mx[g] = mx;
+  }
+  __syncthreads();
+  const size_t row = (size_t)b * KVH + kvh;
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      num += sm_acc[w][g][d] * sm_c[w][g];
+      den += sm_l[w][g] * sm_c[w][g];
+    }
+    if (splits == 1) {
+      store(out + ((size_t)b * NH + (size_t)kvh * G + g) * D + d, num / fmaxf(den, 1e-30f));
+    } else {
+      const size_t part = row * splits + split;
+      ws_acc[(part * G + g) * D + d] = num;
+      if (d == 0) {
+        ws_ml[(part * G + g) * 2] = sm_mx[g];
+        ws_ml[(part * G + g) * 2 + 1] = den;
+      }
+    }
+  }
+  if (splits == 1) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+    sm_last = atomicAdd(ticket + row, 1u) == (unsigned)splits - 1;
+    if (sm_last) asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  }
+  __syncthreads();
+  if (!sm_last) return;
+  merge_splits<T, kG, kD>(ws_acc, ws_ml, row, splits,
+                          out + ((size_t)b * NH + (size_t)kvh * G) * D);
+  if (threadIdx.x == 0) ticket[row] = 0u;
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, const int* pos,
+                   const int* pad, float* ws_acc, float* ws_ml, unsigned* ticket, int layer,
+                   int B, int S, int KVH, int window, float scale, int splits, cudaStream_t st) {
+  flash_decode_kernel_d64g4<T><<<dim3(KVH, B, splits), kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), pos, pad, ws_acc, ws_ml, ticket, layer, B, S, KVH, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace g4
+
 }  // namespace
 
 extern "C" {
@@ -568,6 +758,22 @@ int qwen3tts_flash_decode(int dtype, int kv_int8, const void* q, const void* k,
                           const void* pos, const void* pad, void* ws_acc, void* ws_ml,
                           void* ticket, int layer, int B, int S, int NH, int KVH, int D,
                           int window, float scale, int splits, void* stream) {
+  if (D == g4::kD && NH == g4::kG * KVH && !kv_int8 && splits >= 1 && splits <= kMaxSplits &&
+      (splits == 1 || (ws_acc && ws_ml && ticket))) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* pos_i = static_cast<const int*>(pos);
+    const int* pad_i = static_cast<const int*>(pad);
+    float* wa = static_cast<float*>(ws_acc);
+    float* wm = static_cast<float*>(ws_ml);
+    unsigned* tk = static_cast<unsigned*>(ticket);
+    if (dtype == 0)
+      return (int)g4::launch<__nv_bfloat16>(q, k, v, out, pos_i, pad_i, wa, wm, tk, layer, B, S,
+                                            KVH, window, scale, splits, st);
+    if (dtype == 1)
+      return (int)g4::launch<float>(q, k, v, out, pos_i, pad_i, wa, wm, tk, layer, B, S, KVH,
+                                    window, scale, splits, st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (D != kD || NH != kG * KVH) return (int)cudaErrorInvalidValue;
   if (kv_int8 && (ks == nullptr || vs == nullptr)) return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > kMaxSplits) return (int)cudaErrorInvalidValue;

@@ -204,7 +204,6 @@ def block_forward(
                          "row-parallel all-reduce: no fused kernels with a tp group")
     B, Tq, H = x.shape
     eps = spec.rms_norm_eps
-    kv_quant = "ks" in kv
     w_qkv = p["qkv_proj"]
     fused = fused and B * Tq <= 32 and (not isinstance(w_qkv, dict) or "q" in w_qkv)
     if carries_grads(group):
@@ -212,6 +211,49 @@ def block_forward(
     else:
         copy = lambda t: t  # noqa: E731
         reduce = (lambda t: t) if group is None else (lambda t: all_reduce(t, group))
+    attn = attend(p, x, cos, sin, kv, layer_idx, write_pos, mask, spec, flash_ctx=flash_ctx,
+                  sliding=sliding, fused=fused, copy=copy)
+    if fused:
+        return fused_o_mlp(x.reshape(B * Tq, H), attn.reshape(B * Tq, spec.q_dim),
+                           p["o_proj"], p["post_norm"], p["gateup_proj"], p["down_proj"],
+                           eps=eps).reshape(B, Tq, H), kv
+    o = maybe_matmul(attn.reshape(B, Tq, spec.q_dim), p["o_proj"])
+    x = x + reduce(o)
+    h = copy(rms_norm(x, p["post_norm"], eps))
+    x = x + reduce(swiglu(p, h, spec.intermediate_size))
+    return x, kv
+
+
+def swiglu(p: Params, h: torch.Tensor, intermediate: int) -> torch.Tensor:
+    """The block's MLP on normalised ``h``: down(silu(gate) * up)."""
+    gu = maybe_matmul(h, p["gateup_proj"])
+    return maybe_matmul(F.silu(gu[..., :intermediate]) * gu[..., intermediate:],
+                        p["down_proj"])
+
+
+def attend(
+    p: Params,
+    x: torch.Tensor,  # [B, Tq, H], before the input norm
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    kv: Params,
+    layer_idx: int,
+    write_pos: Union[int, torch.Tensor],
+    mask: Optional[torch.Tensor],
+    spec: BlockSpec,
+    flash_ctx: Optional[Dict] = None,
+    sliding: bool = False,
+    fused: bool = False,
+    copy=lambda t: t,
+) -> torch.Tensor:
+    """The attention half of a block up to the o-projection: the input
+    norm and qkv (``fused``: through ``fused_norm_matmul``), per-head q/k
+    norms and RoPE, the new rows written into cache layer ``layer_idx``, and
+    the attention output [B, Tq, q_dim] (``block_forward``'s paths)."""
+    B, Tq, H = x.shape
+    eps = spec.rms_norm_eps
+    kv_quant = "ks" in kv
+    w_qkv = p["qkv_proj"]
     if fused:
         qkv = fused_norm_matmul(x.reshape(B * Tq, H), p["input_norm"], w_qkv,
                                 eps=eps).reshape(B, Tq, -1)
@@ -242,31 +284,17 @@ def block_forward(
 
     if flash_ctx is not None and Tq == 1:
         window = flash_ctx.get("window") if sliding else None
-        attn = flash_decode(q[:, 0].contiguous(), kv["k"], kv["v"], layer_idx,
+        return flash_decode(q[:, 0].contiguous(), kv["k"], kv["v"], layer_idx,
                             flash_ctx["pos"], flash_ctx["pad"], window,
                             kv.get("ks"), kv.get("vs"))[:, None]
-    elif Tq > 1 and mask.shape[-1] == Tq:
-        attn = masked_attention(q, k, v, mask)
-    else:
-        k_l, v_l = kv["k"][layer_idx], kv["v"][layer_idx]
-        if kv_quant:
-            # scales [B, KVH, S] -> [B, S, KVH, 1] against k_l [B, S, KVH, D]
-            k_l = (k_l.float() * kv["ks"][layer_idx].transpose(1, 2)[..., None]).to(x.dtype)
-            v_l = (v_l.float() * kv["vs"][layer_idx].transpose(1, 2)[..., None]).to(x.dtype)
-        attn = masked_attention(q, k_l, v_l, mask)
-
-    if fused:
-        return fused_o_mlp(x.reshape(B * Tq, H), attn.reshape(B * Tq, spec.q_dim),
-                           p["o_proj"], p["post_norm"], p["gateup_proj"], p["down_proj"],
-                           eps=eps).reshape(B, Tq, H), kv
-    o = maybe_matmul(attn.reshape(B, Tq, spec.q_dim), p["o_proj"])
-    x = x + reduce(o)
-    h = copy(rms_norm(x, p["post_norm"], eps))
-    gu = maybe_matmul(h, p["gateup_proj"])
-    I = spec.intermediate_size
-    d = maybe_matmul(F.silu(gu[..., :I]) * gu[..., I:], p["down_proj"])
-    x = x + reduce(d)
-    return x, kv
+    if Tq > 1 and mask.shape[-1] == Tq:
+        return masked_attention(q, k, v, mask)
+    k_l, v_l = kv["k"][layer_idx], kv["v"][layer_idx]
+    if kv_quant:
+        # scales [B, KVH, S] -> [B, S, KVH, 1] against k_l [B, S, KVH, D]
+        k_l = (k_l.float() * kv["ks"][layer_idx].transpose(1, 2)[..., None]).to(x.dtype)
+        v_l = (v_l.float() * kv["vs"][layer_idx].transpose(1, 2)[..., None]).to(x.dtype)
+    return masked_attention(q, k_l, v_l, mask)
 
 
 def stack_forward(

@@ -27,6 +27,7 @@ from ..core.config import TalkerConfig
 from ..ops.rope import mrope_cos_sin
 from ..parallel.collectives import (all_gather, carries_grads, copy_to_tp, gather_from_tp,
                                    size)
+from . import lfm2
 from .layers import (
     BlockSpec,
     decode_mask,
@@ -36,6 +37,7 @@ from .layers import (
     randn,
     rms_norm,
     stack_forward,
+    unstack_layers,
 )
 
 Params = Dict
@@ -59,7 +61,10 @@ def layer_sliding_flags(cfg: TalkerConfig) -> List[bool]:
 
 
 def init_params(gen: torch.Generator, cfg: TalkerConfig, dtype, device) -> Params:
-    """Random talker parameters with the JAX initialisers' shapes and scales."""
+    """Random talker parameters with the JAX initialisers' shapes and scales
+    (a hybrid talker's: ``models/lfm2.py``)."""
+    if cfg.is_hybrid:
+        return lfm2.init_params(gen, cfg, dtype, device)
     H, V = cfg.hidden_size, cfg.vocab_size
     zeros = dict(dtype=dtype, device=device)
     return {
@@ -84,8 +89,63 @@ def init_params(gen: torch.Generator, cfg: TalkerConfig, dtype, device) -> Param
 
 def new_kv_cache(cfg: TalkerConfig, batch: int, max_len: int, dtype, device,
                  kv_quant: bool = False, tp: int = 1):
-    """The static cache, of one rank's kv heads at ``tp``."""
+    """The static cache, of one rank's kv heads at ``tp`` (a hybrid talker's
+    KV of its attention layers and convolution state: ``models/lfm2.py``)."""
+    if cfg.is_hybrid:
+        check_hybrid(cfg, kv_quant=kv_quant, tp=tp)
+        return lfm2.new_cache(cfg, batch, max_len, dtype, device)
     return init_kv_cache(block_spec(cfg, tp), batch, max_len, dtype, device, kv_quant=kv_quant)
+
+
+def roll_cache(kv: Dict[str, torch.Tensor], roll: int, Tb: int) -> None:
+    """Roll the cache ``roll`` slots left along its position axis (2 of k/v
+    [L, B, S, KVH, D], 3 of the int8 scales [L, B, KVH, S]), in place, as
+    far as it is read: slots [roll, Tb) move to [0, Tb - roll).  Per-row
+    state (``lfm2.ROW_STATE``: the hybrid talker's convolution state) has no
+    position axis and stays."""
+    for name, t in kv.items():
+        if name in lfm2.ROW_STATE:
+            continue
+        axis = 2 if t.dim() == 5 else 3
+        t.narrow(axis, 0, Tb - roll).copy_(t.narrow(axis, roll, Tb - roll).clone())
+
+
+def splice_row(kv: Dict[str, torch.Tensor], row: int, one: Dict[str, torch.Tensor],
+               slots: torch.Tensor) -> None:
+    """Write ``one``, a one-row cache, into row ``row`` of ``kv``: each
+    positional leaf at ``slots`` of its position axis, per-row state
+    whole."""
+    for name, t in one.items():
+        if name in lfm2.ROW_STATE:
+            kv[name][:, row].copy_(t[:, 0])
+        else:
+            axis = 1 if t.dim() == 5 else 2  # of the row's view: position axis
+            kv[name][:, row].index_copy_(axis, slots, t[:, 0])
+
+
+def with_row_state_copied(kv: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``kv`` with its per-row state cloned: what a step rewrites beyond
+    its position's slot, so that a step run on the result leaves ``kv``'s
+    state as it was."""
+    return {name: t.clone() if name in lfm2.ROW_STATE else t for name, t in kv.items()}
+
+
+def check_hybrid(cfg: TalkerConfig, kv_quant: bool = False, tp: int = 1, group=None,
+                 fused: bool = False) -> None:
+    """Raise for what the hybrid (LFM2) talker does not run: an int8 KV
+    cache, tensor parallelism, the fused block kernels."""
+    if kv_quant or tp != 1 or group is not None or fused:
+        raise ValueError("the hybrid LFM2 talker runs with a float KV cache, unsharded and "
+                         "without the fused block kernels")
+
+
+def layer_views(params: Params, cfg: TalkerConfig, stats=None) -> List[Params]:
+    """Per-layer views of the blocks, built once for the decode loop (a
+    hybrid talker's carry their kinds and, with ``stats``, its routed
+    layers' counters)."""
+    if cfg.is_hybrid:
+        return lfm2.layer_views(params["blocks"], cfg, stats)
+    return unstack_layers(params["blocks"])
 
 
 def embed_codec(params: Params, ids: torch.Tensor, group=None) -> torch.Tensor:
@@ -124,6 +184,11 @@ def prefill(
     dev = inputs_embeds.device
     eff = torch.arange(T, device=dev)[None, :] - pad_count.reshape(-1, 1).long()
     cos, sin = _positions(cfg, eff.clamp_min(0))
+    if cfg.is_hybrid:
+        check_hybrid(cfg, group=group)
+        x = lfm2.prefill(params, cfg, inputs_embeds, pad_count, kv, cos, sin, layers)
+        last = x[:, -1:, :]
+        return last, codec_head(params, last[:, 0, :]), kv
     m_full = prefill_mask(T, T, pad_count)
     m_slide = (prefill_mask(T, T, pad_count, cfg.sliding_window)
                if cfg.sliding_window is not None else None)
@@ -155,6 +220,10 @@ def decode_step(
     S = kv["k"].shape[2]
     eff = (pos.reshape(1) - pad_count).reshape(-1, 1)
     cos, sin = _positions(cfg, eff)
+    if cfg.is_hybrid:
+        check_hybrid(cfg, group=group, fused=fused)
+        return lfm2.decode_step(params, cfg, x, cos, sin, pos, pad_count, kv, use_flash,
+                                layers), kv
     flash_ctx = None
     m_full = m_slide = None
     if use_flash:

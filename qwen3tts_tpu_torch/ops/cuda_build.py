@@ -30,15 +30,18 @@ SOURCES = {"flash_decode": CSRC / "flash_decode.cu",
            "predictor_step": CSRC / "predictor_step.cu",
            "matvec": CSRC / "matvec.cu",
            "w8a8": CSRC / "w8a8.cu",
+           "routed_experts": CSRC / "routed_experts.cu",
            "graph_cond": CSRC / "graph_cond.cu"}
 
 # each launch wrapper's kernel, as its name appears (mangled) in a CUDA
-# graph's kernel nodes; flash_decode_kernel is the float and the int8 cache's,
-# micro_step_kernel names micro_step_kernel_rows too (a graph walk matches
-# substrings)
+# graph's kernel nodes; flash_decode_kernel is the float and the int8 cache's
+# and names flash_decode_kernel_d64g4 too, micro_step_kernel names
+# micro_step_kernel_rows too, routed_experts_ the three launches of
+# ops/routed_experts.py (a graph walk matches substrings)
 KERNEL_SYMBOLS = {"flash_decode": "flash_decode_kernel", "fused_norm_matmul": "norm_matmul_kernel",
                   "fused_o_mlp": "o_mlp_kernel", "fused_micro_step": "micro_step_kernel",
-                  "quantize_act": "quantize_act_kernel", "w8a8_gemv": "fused_w8a8_gemv_kernel"}
+                  "quantize_act": "quantize_act_kernel", "w8a8_gemv": "fused_w8a8_gemv_kernel",
+                  "routed_experts": "routed_experts_"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -10,6 +10,10 @@ per-(slot, kv head) scales ``k_scale``/``v_scale`` ``[L, B, KVH, S]``
 (``models/layers.py:init_kv_cache(kv_quant=True)``), dequantized as
 ``f32(int8) * scale``.
 
+The kernel has two instances: head_dim 128 with two query heads per kv
+head (the Qwen3 talkers) and head_dim 64 with four (the hybrid LFM2
+talker's attention layers, float cache only, ``flash_decode_kernel_d64g4``).
+
 ``flash_decode`` is the one entry point.  On CUDA tensors it launches the
 hand-written kernel in ``qwen3tts_tpu_torch/csrc/flash_decode.cu`` or raises;
 on CPU tensors it runs ``flash_decode_plain``.  The kernel is built at first
@@ -37,8 +41,11 @@ from . import cuda_build
 
 NEG_INF = -1e30
 
-KERNEL_HEAD_DIM = 128  # the talker's head layout, the one the kernel is built for
-KERNEL_GROUP = 2  # query heads per kv head
+# the head layouts the kernel is built for, (head_dim, query heads per kv
+# head): the Qwen3 talkers' (any cache) and the hybrid LFM2 talker's (float
+# cache only: flash_decode_kernel_d64g4)
+KERNEL_LAYOUTS = ((128, 2), (64, 4))
+FLOAT_CACHE_ONLY = ((64, 4),)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 MIN_CHUNK = 32  # a split takes at least this many live slots (the kernel's kMinChunk)
 MAX_SPLITS = 16  # the kernel's limit (its merge holds every split in registers)
@@ -129,9 +136,14 @@ def flash_decode_plain(
     return out.reshape(B, NH, D).to(q.dtype)
 
 
-def kernel_supports(head_dim: int, num_heads: int, num_kv_heads: int) -> bool:
-    """Whether the CUDA kernel is instantiated for this head layout."""
-    return head_dim == KERNEL_HEAD_DIM and num_heads == KERNEL_GROUP * num_kv_heads
+def kernel_supports(head_dim: int, num_heads: int, num_kv_heads: int,
+                    kv_int8: bool = False) -> bool:
+    """Whether the CUDA kernel is instantiated for this head layout (and an
+    int8 cache, with ``kv_int8``)."""
+    if num_heads % num_kv_heads:
+        return False
+    layout = (head_dim, num_heads // num_kv_heads)
+    return layout in KERNEL_LAYOUTS and not (kv_int8 and layout in FLOAT_CACHE_ONLY)
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,9 +219,10 @@ def flash_decode(
         raise ValueError("pos and pad must be int32")
     L, B, S, KVH, D = k_stack.shape
     NH = q.shape[1]
-    if not kernel_supports(D, NH, KVH):
+    if not kernel_supports(D, NH, KVH, quant):
         raise ValueError(f"kernel has no instance for head_dim {D}, "
-                         f"{NH} heads over {KVH} kv heads")
+                         f"{NH} heads over {KVH} kv heads"
+                         + (" with an int8 cache" if quant else ""))
     fn = _kernel_fn()
     splits = num_splits(S, B, KVH, cuda_build.sm_count(q.device))
     ws_acc, ws_ml, ticket = _workspaces(q.device, B, KVH, NH // KVH, D, splits)

@@ -27,7 +27,9 @@ import torch
 
 from .w8a8 import quantize_act, w8a8_matmul  # noqa: F401  (part of this module's API)
 
-_QUANT_KEYS = ("qkv_proj", "o_proj", "gateup_proj", "down_proj")
+# the projections of a block (and of the hybrid talker's convolutions); the
+# hybrid talker's experts, router and taps are never quantized
+_QUANT_KEYS = ("qkv_proj", "o_proj", "gateup_proj", "down_proj", "in_proj", "out_proj")
 _BASE_MODES = ("int8", "w8a8")
 _PARTS = ("talker", "predictor")
 MODES = _BASE_MODES + tuple(f"{b}-{p}" for b in _BASE_MODES for p in _PARTS)
@@ -76,8 +78,11 @@ def is_quantized(leaf: Any) -> bool:
 
 
 def quantize_block_stack(blocks: Dict[str, Any], mode: str = "int8") -> Dict[str, Any]:
-    """Quantize the projection matrices of a layer-stacked block dict."""
-    return {k: quantize_tensor(v, mode) if k in _QUANT_KEYS else v
+    """Quantize the projection matrices of a layer-stacked block dict (of
+    each group of the hybrid talker's: ``models/lfm2.py``)."""
+    return {k: quantize_tensor(v, mode) if k in _QUANT_KEYS
+            else quantize_block_stack(v, mode) if isinstance(v, dict) and not is_quantized(v)
+            else v
             for k, v in blocks.items()}
 
 

@@ -303,10 +303,19 @@ def _block_specs(q_dim: int, kv_dim: int, intermediate: int) -> Dict[str, P]:
     }
 
 
+def refuse_hybrid(cfg: TalkerConfig) -> None:
+    """Tensor parallelism and training cover the Qwen3 talker: the hybrid
+    LFM2 talker (``models/lfm2.py``) raises."""
+    if cfg.is_hybrid:
+        raise ValueError("the hybrid LFM2 talker has no tensor-parallel layout and no "
+                         "train step: it runs unsharded, for inference")
+
+
 def talker_param_specs(cfg: TalkerConfig) -> Dict[str, Any]:
     """Specs for the talker's parameters (megatron-style TP): column-parallel
     qkv / gate|up, row-parallel o / down; the collectives are the model's
     (``models/talker.py``)."""
+    refuse_hybrid(cfg)
     return {
         "codec_embedding": P(None, "tp"),
         "text_embedding": P(None, "tp"),
@@ -907,6 +916,7 @@ def make_train_step(cfg: TalkerConfig, mesh: Optional[Mesh] = None,
     gate|up and the codec head) and 1 for the q / k norms; at dp > 1 one
     more forward (the loss's sum and count) and one more backward (the
     gradients, one flat buffer)."""
+    refuse_hybrid(cfg)
     if mesh is None:
         device = _resolved(device)
         dp, dp_rank, tp_group, dp_group = 1, 0, None, None

@@ -72,6 +72,17 @@ the chain's products);
 ``kv_quant`` keeps the talker's KV cache in int8 with f32 per-(slot, head)
 scales, read by the int8-KV flash-decode kernel.
 
+A hybrid talker (``TalkerConfig.is_hybrid``: LFM2's short convolutions,
+attention and routed experts, ``models/lfm2.py``) runs through the same
+calls.  Its cache dict holds the attention layers' KV and, beside it, the
+convolution state ``"conv"`` [Lc, B, H, 3]: per-row state, which the
+prefill's roll leaves as it is and ``join_row`` copies whole into the row
+(``talker.roll_cache`` / ``splice_row``); a captured chunk updates it in
+place like the KV.  Its routed layers add their routing to
+``route_stats`` (``ops/routed_experts.py:RouteStats``, held by ``TRACE``
+as well).  It runs without a mesh, the fused block
+kernels and an int8 KV cache: those raise (``talker.check_hybrid``).
+
 ``mesh`` (``parallel/sharding.py:Mesh``) runs the engine tensor-parallel:
 the parameters are this rank's shard (``shard_params``), and the KV caches,
 the predictor's frame scratch and the layer views are built at the
@@ -103,12 +114,14 @@ from torch.profiler import record_function
 
 from ..core.config import TTSModelConfig
 from ..models import codec as codec_lib
+from ..models import lfm2
 from ..models import predictor as predictor_lib
 from ..models import talker as talker_lib
 from ..models.layers import unstack_layers
 from ..models.predictor import SamplingPolicy
 from ..ops.predictor_step import micro_step_weights
 from ..ops.quant import is_quantized
+from ..ops.routed_experts import RouteStats
 from ..utils.timing import TRACE
 from ..ops.sampling import apply_repetition_penalty, build_suppress_mask, sample_logits
 
@@ -183,15 +196,6 @@ def upload(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return t.to(device, dtype)
 
 
-def _roll_out(kv: Dict[str, torch.Tensor], roll: int, Tb: int) -> None:
-    """Roll the cache ``roll`` slots left along its position axis (2 of k/v
-    [L, B, S, KVH, D], 3 of the int8 scales [L, B, KVH, S]), in place, as
-    far as it is read: slots [roll, Tb) move to [0, Tb - roll)."""
-    for t in kv.values():
-        axis = 2 if t.dim() == 5 else 3
-        t.narrow(axis, 0, Tb - roll).copy_(t.narrow(axis, roll, Tb - roll).clone())
-
-
 def _check_mesh(mesh, talker_params, predictor_params, fused: bool, micro: bool,
                 graphs: bool) -> None:
     """Raise for what a tensor-parallel engine cannot run."""
@@ -259,6 +263,9 @@ class Engine:
             use_cuda_graphs = self.device.type == "cuda"
         self.group = None if mesh is None else mesh.tp_group
         self.tp = 1 if mesh is None else mesh.shape["tp"]
+        if tc.is_hybrid:
+            talker_lib.check_hybrid(tc, kv_quant=kv_quant, group=self.group,
+                                    fused=self.use_fused_kernels)
         if mesh is not None:
             _check_mesh(mesh, talker_params, predictor_params, self.use_fused_kernels,
                         bool(use_micro_kernel), use_cuda_graphs)
@@ -273,7 +280,12 @@ class Engine:
         self._micro_weights = (micro_step_weights(predictor_params) if self.use_micro_kernel
                                else None)
         self.kv_quant = kv_quant
-        self._talker_layers = unstack_layers(talker_params["blocks"])
+        # a hybrid talker's routed layers count their routing on the device
+        self.route_stats = (RouteStats(lfm2.counts(tc)["moe"], tc.num_experts, batch,
+                                       self.device) if tc.is_hybrid else None)
+        if self.route_stats is not None:
+            TRACE.add_routes(self.route_stats)
+        self._talker_layers = talker_lib.layer_views(talker_params, tc, self.route_stats)
         self._pred_layers = unstack_layers(predictor_params["blocks"])
         self._frame_scratch = predictor_lib.frame_scratch(cfg.predictor, self.batch,
                                                           self.dtype, self.device, self.tp)
@@ -381,7 +393,7 @@ class Engine:
             self.talker_params, self.talker_cfg, embeds, pad, self.new_kv(),
             layers=self._talker_layers, group=self.group)
         if roll:
-            _roll_out(kv, roll, Tb)
+            talker_lib.roll_cache(kv, roll, Tb)
             pad = pad - roll
         knobs = make_knobs(policy, pred_policy, dev)
         st = policy.static
@@ -665,9 +677,7 @@ class Engine:
         # the cache, as JAX's dynamic_update_slice clamps)
         start = state["pos"].long() - Tb
         slots = start.clamp(0, self.max_seq_len - Tb) + torch.arange(Tb, device=dev)
-        for name, t in tiny.items():
-            axis = 1 if t.dim() == 5 else 2  # of the row's view: position axis
-            state["kv"][name][:, row].index_copy_(axis, slots, t[:, 0])
+        talker_lib.splice_row(state["kv"], row, tiny, slots)
         knobs = make_knobs(policy, pred_policy, dev)
         st = policy.static
         token = sample_logits(

@@ -21,7 +21,9 @@ and its own static buffers:
   ``done`` and, with the codec, the audio; the next replay of that graph
   overwrites them;
 - the codec's stream state per vocoder: ``decode_stream`` returns a new
-  state, which the graph copies back into the static one.
+  state, which the graph copies back into the static one;
+- the cache itself, the hybrid talker's convolution state with it, which
+  the steps update in place.
 
 Every graph shares one memory pool and replays on the caller's stream; the
 kernels' workspaces are one set per shape, ordered on that stream, so the
@@ -81,6 +83,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..models import talker as talker_lib
 from ..ops import cuda_build
 from ..utils.timing import TRACE, stamp_slot, stamp_slots
 from .engine import STATE_TENSORS
@@ -395,9 +398,11 @@ class ChunkGraphs:
         # one eager step (and codec call) on copies: the kernels allocate
         # their workspaces here; the request's state, stream and generator
         # stay as they were (the step's cache row at ``pos`` is rewritten by
-        # the next real step before anything reads it)
+        # the next real step before anything reads it; the hybrid talker's
+        # convolution state, which a step shifts, is copied)
         copy = {**state, **{k: slot.state[k].clone() for k in STATE_TENSORS},
-                "generator": self.generator}
+                "generator": self.generator,
+                "kv": talker_lib.with_row_state_copied(state["kv"])}
         eng._one_step(copy, tth, tth_len, tpe)
         if vocoder is not None:
             eng._vocode(vocoder, _clone_tree(voc), frames, pcm16, full_batch)

@@ -1,6 +1,13 @@
 """Measure the design choices behind the port's CUDA kernels on the card.
 
-    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm|intmm|w8a8|rows]
+    python -m qwen3tts_tpu_torch.tools.kernel_probe [stream|flash|norm|intmm|w8a8|rows|routed]
+
+``routed`` (csrc/routed_experts.cu) times ``routed_experts`` at 16 rows and
+LFM2-8B-A1B's widths (H 2048, 32 experts of 1792, top 4), 22 layers of
+experts (15.5 GB, so that no layer's weights sit in L2), one call a layer
+in a CUDA graph, with every row routed to 4 experts and with the rows
+spread over 28: the time per call beside the least time to read the
+touched experts' weights once (untouched experts should cost nothing).
 
 ``stream`` (fused_o_mlp and fused_micro_step, csrc/wstream.cuh) builds the
 two sources once more per variant with a ``-DQWEN3TTS_...`` flag and, at the
@@ -184,9 +191,11 @@ PHASES = ["pos read", "slot walk", "warp merge", "partial store", "ticket", "fin
 
 
 def _sub(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
+    """``src`` with the first ``old`` replaced: the variants change the
+    head_dim 128 kernel, which comes before the head_dim 64 one."""
+    if old not in src:
         raise RuntimeError(f"kernel_probe: the source changed; cannot find {old!r}")
-    return src.replace(old, new)
+    return src.replace(old, new, 1)
 
 
 def _variants():
@@ -737,6 +746,43 @@ def main():
         w8a8_probe()
     if which in ("all", "rows"):
         rows_probe()
+    if which in ("all", "routed"):
+        routed_probe()
+
+
+def routed_probe():
+    """See the module docstring (``routed``)."""
+    from ..ops import routed_experts as rx
+
+    H, I, E, K, B, L = 2048, 1792, 32, 4, 16, 22
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def n(*shape, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    w13 = torch.stack([n(E, H, 2 * I, scale=H ** -0.5) for _ in range(L)])
+    w2 = torch.stack([n(E, I, H, scale=I ** -0.5) for _ in range(L)])
+    x = n(B, H, scale=1.0)
+    for touched in (4, 28):
+        router = n(H, E, scale=H ** -0.5)
+        h = torch.randn((B, H), generator=g, device=dev) * 0.1
+        bias = torch.zeros((E,), device=dev)
+        if touched == 4:
+            bias[:4] = 10.0
+        else:  # row r to experts 4r .. 4r + 3 (mod 28)
+            for r in range(B):
+                h[r, r] = 30.0
+                for j in range(K):
+                    router[r, (4 * r + j) % touched] = 1.0
+        h, bias = h.to(torch.bfloat16), bias.to(torch.bfloat16)
+        stats = torch.zeros((E + 2,), dtype=torch.int64, device=dev)
+        us = graph_us(lambda i: rx.routed_experts(x, h, router, bias, w13[i], w2[i], K, True,
+                                                  1.0, stats), L)
+        got = float(stats[E]) / float(stats[E + 1])
+        bound = (got * 3 * H * I + H * E) * 2 / 3.35e12 * 1e6
+        print(f"routed_experts B {B}: {got:.0f} experts touched: {us:.1f} us a call "
+              f"(bound {bound:.1f} us, {100 * bound / us:.1f} %)")
 
 
 def rows_probe():

@@ -17,7 +17,11 @@ tracer.  It keeps:
   maps them onto the host spans' clock, linearly between anchors (a stamp
   taken between two synchronises when tracing starts and again when they
   are read);
-- counters: plain numbers, kept whether the tracer is on or not.
+- counters: plain numbers, kept whether the tracer is on or not;
+- the hybrid talker's routing counters: each engine's device counters
+  (``ops/routed_experts.py:RouteStats``, which the routed layers add to in
+  eager and captured steps alike), read only by ``summary`` and
+  ``route_stats``.
 
 ``summary`` gives the count, median, largest and total ms of each span and
 device part in a time range, with the counters.
@@ -49,6 +53,7 @@ logger = logging.getLogger(__name__)
 
 MAX_SPANS = 1 << 17
 MAX_REPLAYS = 1 << 14  # stamped replays held (device copies, ~0.5 KB each)
+MAX_ROUTES = 64  # engines' routing counters held (the newest)
 # the stamps a captured step takes, in slot order: (step part, 0 at its start
 # or 1 at its end); in a graph with the codec its two follow the steps'
 STEP_STAMPS = (("predictor_frame", 0), ("talker_step", 0), ("talker_step", 1), ("step", 1))
@@ -209,6 +214,7 @@ class Tracer:
         self._clock: Optional[Callable[[], Tuple[float, int]]] = None
         self.anchors: List[Tuple[float, int]] = []
         self._replays: deque = deque(maxlen=MAX_REPLAYS)
+        self._routes: deque = deque(maxlen=MAX_ROUTES)
 
     # ---- on and off
     def enable(self, clock: Optional[Callable[[], Tuple[float, int]]] = None) -> None:
@@ -234,6 +240,31 @@ class Tracer:
     def count(self, name: str, k: float = 1) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + k
+
+    def add_routes(self, stats) -> None:
+        """Keep an engine's routing counters (``RouteStats``)."""
+        with self._lock:
+            self._routes.append(stats)
+
+    def route_stats(self) -> list:
+        """The routing counters held, oldest first."""
+        with self._lock:
+            return list(self._routes)
+
+    def _route_counters(self) -> Dict[str, float]:
+        """``moe.experts_touched`` (experts a routed layer's decode call
+        touched, the mean over every call) and ``moe.load_max_over_mean``
+        (the busiest expert's rows over the mean expert's, by layer, the
+        mean over layers and engines, weighted by calls), over the engines
+        held that routed; nothing without them."""
+        reads = [r for r in (s.read() for s in self.route_stats()) if r["calls"]]
+        calls = sum(r["calls"] for r in reads)
+        if not calls:
+            return {}
+        return {"moe.experts_touched": sum(r["experts_touched"] * r["calls"]
+                                           for r in reads) / calls,
+                "moe.load_max_over_mean": sum(r["load_max_over_mean"] * r["calls"]
+                                              for r in reads) / calls}
 
     # ---- request ids
     def new_request(self) -> int:
@@ -366,10 +397,12 @@ class Tracer:
         median, largest and total ms over the spans that overlap [lo, hi],
         the captured steps' device parts the same way (``device``; none
         without a stamped replay, so that no caller synchronises for
-        nothing) and the counters."""
+        nothing) and the counters, the routing counters' ``moe.*`` with
+        them (a device read, where an engine routed)."""
         device = self.device_spans(lo=lo, hi=hi) if self._replays and self.anchors else []
         return {"spans": _durations(self.spans(lo=lo, hi=hi)),
-                "device": _durations(device), "counters": dict(self.counters)}
+                "device": _durations(device),
+                "counters": {**self.counters, **self._route_counters()}}
 
 
 def _durations(spans: Iterable[Span]) -> Dict[str, dict]:

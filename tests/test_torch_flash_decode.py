@@ -282,7 +282,7 @@ def test_kernel_geometry_and_build_flags():
         assert "arch=compute_90a,code=sm_90a" in cmd and str(source) in cmd
         assert source.exists()
     assert set(cuda_build.SOURCES) == {"flash_decode", "fused_block", "predictor_step",
-                                       "matvec", "graph_cond", "w8a8"}
+                                       "matvec", "graph_cond", "w8a8", "routed_experts"}
     assert len(cuda_build.build_key()) == 16
 
 
